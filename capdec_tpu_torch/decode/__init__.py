@@ -1,0 +1,2 @@
+from .beam import (BeamConfig, beam_search, beam_texts,  # noqa: F401
+                   beam_top_select)

@@ -1,0 +1,225 @@
+"""CLIP -> GPT-2 prefix mappers in PyTorch (port of capdec_tpu/models/mappers.py).
+
+This slice ports the two mappers the serving path loads:
+  * `mlp`         — Tanh MLP, sizes (prefix_size, 768*K/2, 768*K)
+  * `transformer` — TransformerMapper (alias `transformer_encoder`):
+                    linear -> clip_length pseudo tokens, concat a learned
+                    prefix_const, a pre-LN self-attention stack (8 heads,
+                    mlp_ratio 2.0), keep the last prefix_length slots.
+`transformer_decoder` and `mapping_network` come in a later slice.
+
+Module and parameter names are the reference checkpoint's `clip_project.*`
+layout (`linear`, `prefix_const`, `transformer.layers.{i}.norm1`,
+`attn.to_queries`, `attn.to_keys_values`, `attn.project`, `mlp.fc1/fc2`;
+`model.{0,2}` for the MLP), with torch `nn.Linear` weights stored
+[out, in]. The JAX package stores its matrices [in, out];
+`params_from_jax_numpy` transposes.
+
+Quirk kept from the reference: self-attention takes its keys/values from
+the layer-NORMED stream, the same tensor as its queries.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class MapperConfig:
+    mapping_type: str = "transformer"  # mlp|transformer|transformer_encoder
+    dim_clip: int = 640                # CLIP embedding dim (640 RN50x4 / 512 ViT-B/32)
+    dim_embedding: int = 768           # GPT-2 embedding dim
+    prefix_length: int = 40            # K — number of GPT-2 prefix slots produced
+    clip_length: int = 40              # pseudo-token count from the CLIP embedding
+    num_layers: int = 8
+    num_heads: int = 8
+    mlp_ratio: float = 2.0
+
+    def canonical_type(self) -> str:
+        t = self.mapping_type
+        return "transformer" if t == "transformer_encoder" else t
+
+
+class _MHA(nn.Module):
+    """Fused-KV multi-head attention without q/kv bias."""
+
+    def __init__(self, dim: int, num_heads: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.to_queries = nn.Linear(dim, dim, bias=False, device=device)
+        self.to_keys_values = nn.Linear(dim, 2 * dim, bias=False,
+                                        device=device)
+        self.project = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        M = y.shape[1]
+        hd = C // self.num_heads
+        q = self.to_queries(x).reshape(B, N, self.num_heads, hd)
+        k, v = self.to_keys_values(y).split(C, dim=-1)
+        k = k.reshape(B, M, self.num_heads, hd)
+        v = v.reshape(B, M, self.num_heads, hd)
+        scores = torch.einsum("bnhd,bmhd->bhnm", q, k) * hd ** -0.5
+        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        out = torch.einsum("bhnm,bmhd->bnhd", probs, v).reshape(B, N, C)
+        return self.project(out)
+
+
+class _MlpBlock(nn.Module):
+    def __init__(self, dim: int, hidden: int, device=None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden, device=device)
+        self.fc2 = nn.Linear(hidden, dim, device=device)
+
+    def forward(self, x):
+        return self.fc2(F.relu(self.fc1(x)))
+
+
+class _Layer(nn.Module):
+    """Pre-LN block: x += attn(norm1(x), norm1(x)); x += mlp(norm2(x))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 device=None):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, device=device)
+        self.attn = _MHA(dim, num_heads, device)
+        self.norm2 = nn.LayerNorm(dim, device=device)
+        self.mlp = _MlpBlock(dim, int(dim * mlp_ratio), device)
+
+    def forward(self, x):
+        h = self.norm1(x)
+        x = x + self.attn(h, h)
+        return x + self.mlp(self.norm2(x))
+
+
+class _Stack(nn.Module):
+    def __init__(self, cfg: MapperConfig, device=None):
+        super().__init__()
+        D = cfg.dim_embedding
+        self.layers = nn.ModuleList(
+            _Layer(D, cfg.num_heads, cfg.mlp_ratio, device)
+            for _ in range(cfg.num_layers))
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class TransformerMapper(nn.Module):
+    def __init__(self, cfg: MapperConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D, K, C = cfg.dim_embedding, cfg.prefix_length, cfg.clip_length
+        self.linear = nn.Linear(cfg.dim_clip, C * D, device=device)
+        self.prefix_const = nn.Parameter(torch.zeros(K, D, device=device))
+        self.transformer = _Stack(cfg, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B = x.shape[0]
+        D, K, C = cfg.dim_embedding, cfg.prefix_length, cfg.clip_length
+        h = self.linear(x).reshape(B, C, D)
+        const = self.prefix_const[None].expand(B, K, D)
+        h = self.transformer(torch.cat([h, const], dim=1))
+        return h[:, C:]
+
+
+class MLPMapper(nn.Module):
+    def __init__(self, cfg: MapperConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D, K = cfg.dim_embedding, cfg.prefix_length
+        self.model = nn.Sequential(
+            nn.Linear(cfg.dim_clip, (D * K) // 2, device=device), nn.Tanh(),
+            nn.Linear((D * K) // 2, D * K, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        return self.model(x).reshape(x.shape[0], cfg.prefix_length,
+                                     cfg.dim_embedding)
+
+
+def build_mapper(cfg: MapperConfig, device=None) -> nn.Module:
+    t = cfg.canonical_type()
+    if t == "transformer":
+        return TransformerMapper(cfg, device)
+    if t == "mlp":
+        return MLPMapper(cfg, device)
+    raise NotImplementedError(
+        f"mapping_type {cfg.mapping_type!r} is not ported yet "
+        "(ROADMAP.md Queue 1, item 2: mappers)")
+
+
+@torch.no_grad()
+def init_params(mapper: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random init in place from `generator`: torch nn.Linear's
+    kaiming-uniform bounds (as the JAX reference draws them), unit
+    layernorms, normal prefix_const."""
+    for m in mapper.modules():
+        if isinstance(m, nn.Linear):
+            bound = (1.0 / m.in_features) ** 0.5
+            for p, b in ((m.weight, bound * 3 ** 0.5), (m.bias, bound)):
+                if p is not None:
+                    p.copy_((torch.rand(p.shape, generator=generator,
+                                        device=p.device) * 2 - 1) * b)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    if isinstance(mapper, TransformerMapper):
+        mapper.prefix_const.copy_(torch.randn(
+            mapper.prefix_const.shape, generator=generator,
+            device=mapper.prefix_const.device))
+    return mapper
+
+
+def state_dict_from_jax_numpy(tree: Dict[str, Any], cfg: MapperConfig,
+                              prefix: str = "") -> Dict[str, np.ndarray]:
+    """Reference key layout of a JAX mapper pytree given as numpy arrays
+    (transformer layers stacked on a leading axis, matrices [in, out])."""
+    t = cfg.canonical_type()
+    out: Dict[str, Any] = {}
+    if t == "mlp":
+        for j, p in enumerate(tree["layers"]):
+            out[f"{prefix}model.{2 * j}.weight"] = np.asarray(p["w"]).T
+            out[f"{prefix}model.{2 * j}.bias"] = p["b"]
+    elif t == "transformer":
+        out[f"{prefix}linear.weight"] = np.asarray(tree["linear"]["w"]).T
+        out[f"{prefix}linear.bias"] = tree["linear"]["b"]
+        out[f"{prefix}prefix_const"] = tree["prefix_const"]
+        L = tree["layers"]
+        for i in range(cfg.num_layers):
+            base = f"{prefix}transformer.layers.{i}."
+            at = lambda a: np.asarray(a)[i]
+            out[base + "norm1.weight"] = at(L["norm1"]["scale"])
+            out[base + "norm1.bias"] = at(L["norm1"]["bias"])
+            out[base + "attn.to_queries.weight"] = at(L["attn"]["wq"]).T
+            out[base + "attn.to_keys_values.weight"] = at(L["attn"]["wkv"]).T
+            out[base + "attn.project.weight"] = at(L["attn"]["proj"]["w"]).T
+            out[base + "attn.project.bias"] = at(L["attn"]["proj"]["b"])
+            out[base + "norm2.weight"] = at(L["norm2"]["scale"])
+            out[base + "norm2.bias"] = at(L["norm2"]["bias"])
+            out[base + "mlp.fc1.weight"] = at(L["mlp"]["fc1"]["w"]).T
+            out[base + "mlp.fc1.bias"] = at(L["mlp"]["fc1"]["b"])
+            out[base + "mlp.fc2.weight"] = at(L["mlp"]["fc2"]["w"]).T
+            out[base + "mlp.fc2.bias"] = at(L["mlp"]["fc2"]["b"])
+    else:
+        build_mapper(cfg)  # raises for the unported types
+    return {k: np.ascontiguousarray(v, dtype=np.float32)
+            for k, v in out.items()}
+
+
+def params_from_jax_numpy(tree: Dict[str, Any], cfg: MapperConfig,
+                          device=None) -> nn.Module:
+    """Load the port's mapper from the JAX package's mapper pytree."""
+    mapper = build_mapper(cfg, device)
+    mapper.load_state_dict(
+        {k: torch.from_numpy(v)
+         for k, v in state_dict_from_jax_numpy(tree, cfg).items()},
+        strict=True)
+    return mapper

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where one beam-serving batch of the PyTorch port spends its time, on
+one NVIDIA GPU.
+
+    python3 scripts/torch_serve_profile.py
+
+Builds chip_smoke.py's main-path server (seeded full-width GPT-2 124M +
+8-layer TransformerMapper, bf16, batch 64 x beam 5, entry_length 67),
+warms it up, then decodes one batch of 64 requests under torch.profiler.
+Prints one JSON line: the batch's wall time (unprofiled, and under the
+profiler), the device time summed over its kernels, the device busy share
+(device time / unprofiled wall), the number of
+kernel launches and decode steps, and the top device-time consumers.
+Then, without the profiler, it serves 128 requests twice each way in the
+order A B B A: A = `serve()` (the batch in flight decodes on the worker
+thread), B = back-to-back synchronous `caption()` calls of 64, and prints
+each run's captions/s.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_serve_profile: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from capdec_tpu_torch.ops import lm_head
+    from capdec_tpu_torch.utils.torch_setup import setup_torch
+
+    setup_torch()
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    server, *_ = chip_smoke.build_server(gen)
+    server.warmup()
+    embeds = np.random.RandomState(1).randn(
+        chip_smoke.MAIN["N"], chip_smoke.MAIN["prefix_size"]).astype(
+            np.float32)
+    server.caption(embeds)  # one more warm batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.caption(embeds)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    steps0 = lm_head.lm_head_topk.launches
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.caption(embeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = lm_head.lm_head_topk.launches - steps0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    device_us = sum(e.device_time_total for e in kernels)
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time_total)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    reqs = np.random.RandomState(2).randn(
+        2 * chip_smoke.MAIN["N"], chip_smoke.MAIN["prefix_size"]).astype(
+            np.float32)
+
+    def via_serve():
+        return len(dict(server.serve((i, e) for i, e in enumerate(reqs))))
+
+    def via_caption():
+        n = chip_smoke.MAIN["N"]
+        return sum(len(server.caption(reqs[i:i + n]))
+                   for i in range(0, len(reqs), n))
+
+    ab = []
+    for name, fn in (("serve", via_serve), ("caption", via_caption),
+                     ("caption", via_caption), ("serve", via_serve)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = fn()
+        torch.cuda.synchronize()
+        ab.append({"via": name, "captions_per_s":
+                   served / (time.perf_counter() - t0)})
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0),
+        "serve_ab": ab,
+        "batch_wall_ms": wall_plain * 1e3,
+        "batch_wall_ms_profiled": wall * 1e3,
+        "device_ms": device_us / 1e3,
+        "device_busy_share": device_us / 1e3 / (wall_plain * 1e3),
+        "decode_steps": steps,
+        "kernel_launches": len(kernels),
+        "launches_per_step": len(kernels) / max(steps, 1),
+        "top_device_ms": [{"kernel": k[:90], "launches": n,
+                           "ms": t / 1e3} for k, (n, t) in top],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

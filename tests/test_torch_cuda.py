@@ -1,0 +1,106 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs an NVIDIA GPU (sm_90a) and skips without
+one; run them there with
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Tolerances: K1 indices identical and values/lse within 2e-3 (bf16) or
+1e-4 (f32) on operands whose sums are exact in f32; K2 within 2e-2 (bf16)
+or 1e-4 (f32), with NaN in the slots it must not read; K3/K4 bit-exact;
+a tiny beam search in f32 gives identical tokens through the kernels and
+through the plain versions.
+"""
+import pytest
+import torch
+
+from capdec_tpu_torch.decode import beam
+from capdec_tpu_torch.models import caption_model, gpt2
+from capdec_tpu_torch.ops import cache_reorder, decode_attention, lm_head
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = [(torch.bfloat16, 2e-3, 2e-2), (torch.float32, 1e-4, 1e-4)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def gen(dev):
+    return torch.Generator(device=dev).manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype,tol,_", DTYPES)
+@pytest.mark.parametrize("B,V,D,r", [(320, 50257, 768, 5), (7, 300, 128, 4)])
+def test_lm_head_kernel(dev, gen, dtype, tol, _, B, V, D, r):
+    h = (torch.randint(-4, 5, (B, D), generator=gen, device=dev) / 4).to(dtype)
+    w = (torch.randint(-4, 5, (V, D), generator=gen, device=dev) / 8).to(dtype)
+    n0 = lm_head.lm_head_topk.launches
+    kv, ki, kl = lm_head.lm_head_topk(h, w, r)
+    pv, pi, pl = lm_head.lm_head_topk_plain(h, w, r)
+    assert lm_head.lm_head_topk.launches == n0 + 1
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, atol=tol, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=tol, rtol=0)
+    ties = lm_head.lm_head_topk(torch.zeros_like(h), torch.ones_like(w), r)[1]
+    assert torch.equal(ties.cpu(), torch.arange(r).expand(B, r))
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("step,e_cap", [(0, 16), (1, 16), (17, 16),
+                                        (17, 72), (66, 72)])
+def test_decode_attention_kernel(dev, gen, dtype, _, tol, step, e_cap):
+    N, R, L, K, E, D = 8, 5, 3, 40, 72, 768
+    B = N * R
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    q, kn, vn = r(B, 3 * D).split(D, dim=-1)
+    pk, pv, gk, gv = r(L, N, K, D), r(L, N, K, D), r(B, L, E, D), r(B, L, E, D)
+    gk[:, :, step:] = float("nan")
+    gv[:, :, step:] = float("nan")
+    args = (q, kn, vn, pk, pv, gk, gv, step, 2)
+    kw = dict(beams_per_image=R, head_dim=64, e_cap=e_cap)
+    out = decode_attention.beam_decode_attention_rowmajor(*args, **kw)
+    ref = decode_attention.beam_decode_attention_rowmajor_plain(*args, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cache_kernels_bit_exact(dev, gen, dtype):
+    B, L, E, D, R = 40, 3, 24, 768, 5
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    k, v, nk, nv = r(B, L, E, D), r(B, L, E, D), r(B, L, D), r(B, L, D)
+    a = cache_reorder.write_gen_slot_chunk(k.clone(), v.clone(), nk, nv, 9)
+    b = cache_reorder.write_gen_slot_chunk_plain(k.clone(), v.clone(), nk,
+                                                 nv, 9)
+    assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    # lanes 0 and 2 of each image keep their beam; the others copy them
+    src = torch.arange(B, device=dev).reshape(-1, R)
+    src[:, 1], src[:, 3], src[:, 4] = src[:, 0], src[:, 2], src[:, 0]
+    src = src.reshape(-1)
+    a = cache_reorder.copy_forked_rows_bounded(k.clone(), v.clone(), src, 13)
+    b = cache_reorder.copy_forked_rows_bounded_plain(k.clone(), v.clone(),
+                                                     src, 13)
+    assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    assert torch.equal(a["k"][:, :, 13:], k[:, :, 13:])
+
+
+def test_beam_search_kernels_match_plain_path(dev, gen):
+    cfg = caption_model.CaptionModelConfig(
+        prefix_length=5, clip_length=5, prefix_size=32, num_layers=2,
+        gpt2=gpt2.GPT2Config(vocab_size=300, n_positions=64, n_embd=128,
+                             n_layer=2, n_head=2))
+    model = caption_model.init_params(cfg, gen, device=dev)
+    prefix = torch.randn(3, 5, 128, generator=gen, device=dev)
+    bc = beam.BeamConfig(beam_size=4, entry_length=20, stop_token=-1)
+    a = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc)
+    b = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc.plain())
+    for name, x, y in zip(("tokens", "lengths", "scores", "order"), a, b):
+        if name == "scores":
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(x, y), name
