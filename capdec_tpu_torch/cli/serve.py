@@ -10,8 +10,9 @@ Two request sources:
 
 Results stream to stdout as JSON lines {"id": ..., "caption": ...}; the
 final line reports throughput. The GPT-2 size is read from the
-checkpoint's shapes; the mapper flags mirror cli/predict.py. Runs on the
-CUDA device unless `--device cpu` is given.
+checkpoint's shapes; the mapper flags mirror cli/predict.py. `--int8_kv`
+serves with the int8 generated KV cache. Runs on the CUDA device unless
+`--device cpu` is given.
 
     python -m capdec_tpu_torch.cli.serve --checkpoint model.pt \
         --embeddings_pickle embeddings.pkl
@@ -19,6 +20,7 @@ CUDA device unless `--device cpu` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pickle
@@ -48,7 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=False)
     p.add_argument('--bf16', action='store_true', default=True)
     p.add_argument('--no_bf16', dest='bf16', action='store_false')
-    p.add_argument('--int8_kv', action='store_true', default=False)
+    p.add_argument('--int8_kv', action='store_true', default=False,
+                   help='int8 generated KV cache (levels + per-slot '
+                        'scales; not token-identical to bf16)')
     p.add_argument('--beam_size', type=int, default=5)
     p.add_argument('--entry_length', type=int, default=67)
     p.add_argument('--mesh', default='',
@@ -119,10 +123,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.embeddings_pickle and not args.watch:
         sys.exit('need --embeddings_pickle or --watch')
-    if args.int8_kv:
-        raise NotImplementedError(
-            '--int8_kv is not ported yet (ROADMAP.md Queue 1, item 12: '
-            'int8 KV serving mode)')
     if args.mesh:
         raise NotImplementedError(
             '--mesh is not ported yet (ROADMAP.md Queue 1, item 13: '
@@ -144,6 +144,9 @@ def main(argv=None):
 
     bc = serve_lib.BeamConfig(beam_size=args.beam_size,
                               entry_length=args.entry_length)
+    if args.int8_kv:
+        bc = dataclasses.replace(bc, kv_cache_int8=True,
+                                 fused_attention=True)
     cfg = serve_lib.ServeConfig(
         batch_size=args.batch_size, max_wait_s=args.max_wait_s,
         beam=args.beam, normalize_prefix=not args.dont_normalize_prefix,

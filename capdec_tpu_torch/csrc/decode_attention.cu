@@ -22,6 +22,30 @@
 // dot products (real per-head reductions over head_dim, f32, scale
 // 1/sqrt(hd)). The TPU kernel's 0/1 head-grouping matmul and its 8-slot
 // prefix padding were Mosaic workarounds and are not carried over.
+//
+// K6: the same attention over an int8 generated cache. Replaces
+// capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor_q
+// (pl.pallas_call at :684, body _kernel_rm_q :244-323). gk/gv hold int8
+// levels [B, L, E, D] and gks/gvs their f32 absmax scales [B, L, 1, E]
+// (value = level · scale, written by K5). A generated slot's score is
+// dot(q, level_k) · (ks[slot] · scale): the head sum first, then the
+// scale, as in the TPU kernel (:284-285); the V scale folds into the
+// slot's probability (:300-307). The scales keep the full slot width E
+// even when e_cap bounds the read, and slots at or above n_gen are never
+// read, neither their levels nor their scales.
+// Bound on the H100: bytes; the generated cache is half of K2's. The
+// prefix and the current token go as in K2. The generated slots change
+// layout so that every level arrives in a 16-byte load: a slot's head
+// slice (head_dim bytes) is split over head_dim/16 lanes, each owning 16
+// consecutive dims, so a warp scores 512/head_dim slots at a time (lane
+// groups reduce with shuffles). The value pass accumulates in the same
+// layout; the groups then reduce across the warp and hand the per-dim
+// partial to the K2 layout through shared memory.
+//
+// Both are one kernel template, beam_attn<T, Gen>: the prefix, the current
+// token, the softmax and the output are shared, and the policy Gen
+// (GenSlots for K2, GenSlotsInt8 for K6) scores the generated slots and
+// adds their values.
 #include "common.cuh"
 
 namespace capdec {
@@ -29,20 +53,139 @@ namespace {
 
 constexpr int MAX_J = 4;  // head_dim <= 128
 
+// A warp's dot product of q (lane holds dims lane + 32·j in qv) with one
+// row's head slice, summed over the warp.
 template <typename T>
-__global__ void beam_attn_rowmajor(
-    const T* __restrict__ q, const T* __restrict__ kn,
-    const T* __restrict__ vn, long qs, const T* __restrict__ pk,
-    const T* __restrict__ pv, const T* __restrict__ gk,
-    const T* __restrict__ gv, float* __restrict__ out, int N, int R, int L,
-    int K, int E, int D, int hd, int layer, int n_gen, float scale) {
+__device__ __forceinline__ float head_dot(const float (&qv)[MAX_J],
+                                          const T* row, int lane, int nj) {
+  float p = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_J; ++j)
+    if (j < nj) p = fmaf(qv[j], to_f32(row[lane + 32 * j]), p);
+  return warp_sum(p);
+}
+
+// acc += e · row over the lane's dims lane + 32·j.
+template <typename T>
+__device__ __forceinline__ void head_axpy(float (&acc)[MAX_J], float e,
+                                          const T* row, int lane, int nj) {
+#pragma unroll
+  for (int j = 0; j < MAX_J; ++j)
+    if (j < nj) acc[j] = fmaf(e, to_f32(row[lane + 32 * j]), acc[j]);
+}
+
+// K2's generated slots: values of type T, in the head layout.
+template <typename T>
+struct GenSlots {
+  static constexpr bool kPartial = false;  // needs no shared partial
+  const T* gk;
+  const T* gv;
+
+  __device__ void score(const T*, const float (&qv)[MAX_J], float* sc,
+                        size_t bl, int h, int n, int E, int D, int hd,
+                        int lane, int nj, float scale) const {
+    const T* base = gk + bl * E * D + (size_t)h * hd;
+    for (int s = 0; s < n; ++s) {
+      const float p = head_dot(qv, base + (size_t)s * D, lane, nj);
+      if (lane == 0) sc[s] = p * scale;
+    }
+  }
+
+  __device__ void value(float (&acc)[MAX_J], const float* sc, float*,
+                        size_t bl, int h, int n, int E, int D, int hd,
+                        int lane, int nj) const {
+    const T* base = gv + bl * E * D + (size_t)h * hd;
+    for (int s = 0; s < n; ++s)
+      head_axpy(acc, sc[s], base + (size_t)s * D, lane, nj);
+  }
+};
+
+// K6's generated slots: int8 levels with f32 scales [B, L, 1, E]. A slot's
+// head slice is split over hd/16 lanes of 16 consecutive dims each, so
+// every level arrives in a 16-byte load and a warp takes 512/hd slots at a
+// time.
+struct GenSlotsInt8 {
+  static constexpr bool kPartial = true;  // part: the warp's [hd] sums
+  const int8_t* gk;
+  const int8_t* gv;
+  const float* gks;
+  const float* gvs;
+
+  template <typename T>
+  __device__ void score(const T* qrow, const float (&)[MAX_J], float* sc,
+                        size_t bl, int h, int n, int E, int D, int hd,
+                        int lane, int, float scale) const {
+    const int lps = hd / 16, spp = 32 / lps;
+    const int sub = lane % lps, grp = lane / lps;
+    float q16[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q16[i] = to_f32(qrow[16 * sub + i]);
+    const int8_t* base = gk + bl * E * D + (size_t)h * hd + 16 * sub;
+    const float* ks = gks + bl * E;
+    for (int s0 = 0; s0 < n; s0 += spp) {
+      const int s = s0 + grp;
+      float p = 0.f;
+      if (s < n) {
+        float lev[16];
+        load16(base + (size_t)s * D, lev);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) p = fmaf(q16[i], lev[i], p);
+      }
+      for (int off = 1; off < lps; off <<= 1)
+        p += __shfl_xor_sync(0xffffffffu, p, off);
+      if (sub == 0 && s < n) sc[s] = p * (ks[s] * scale);
+    }
+  }
+
+  __device__ void value(float (&acc)[MAX_J], const float* sc, float* part,
+                        size_t bl, int h, int n, int E, int D, int hd,
+                        int lane, int nj) const {
+    const int lps = hd / 16, spp = 32 / lps;
+    const int sub = lane % lps, grp = lane / lps;
+    const int8_t* base = gv + bl * E * D + (size_t)h * hd + 16 * sub;
+    const float* vs = gvs + bl * E;
+    float a16[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a16[i] = 0.f;
+    for (int s0 = 0; s0 < n; s0 += spp) {
+      const int s = s0 + grp;
+      if (s < n) {
+        const float e = sc[s] * vs[s];
+        float lev[16];
+        load16(base + (size_t)s * D, lev);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) a16[i] = fmaf(e, lev[i], a16[i]);
+      }
+    }
+    for (int off = lps; off < 32; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        a16[i] += __shfl_xor_sync(0xffffffffu, a16[i], off);
+    if (grp == 0)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) part[16 * sub + i] = a16[i];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < MAX_J; ++j)
+      if (j < nj) acc[j] += part[lane + 32 * j];
+  }
+};
+
+template <typename T, typename Gen>
+__global__ void beam_attn(const T* __restrict__ q, const T* __restrict__ kn,
+                          const T* __restrict__ vn, long qs,
+                          const T* __restrict__ pk, const T* __restrict__ pv,
+                          Gen gen, float* __restrict__ out, int N, int R,
+                          int L, int K, int E, int D, int hd, int layer,
+                          int n_gen, float scale) {
   extern __shared__ float smem[];
   const int h = blockIdx.x, n = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int S = K + n_gen + 1;
-  float* pks = smem;               // [K][hd]
-  float* pvs = pks + K * hd;       // [K][hd]
-  float* sc = pvs + K * hd + warp * S;  // this warp's slot weights
+  float* pks = smem;                 // [K][hd]
+  float* pvs = pks + K * hd;         // [K][hd]
+  float* part = pvs + K * hd + warp * hd;  // [hd] per warp, if kPartial
+  float* sc = pvs + K * hd + (Gen::kPartial ? R * hd : 0) + warp * S;
 
   const size_t pbase = (((size_t)layer * N + n) * K) * D + (size_t)h * hd;
   for (int e = threadIdx.x; e < K * hd; e += blockDim.x) {
@@ -55,35 +198,19 @@ __global__ void beam_attn_rowmajor(
   const int b = n * R + warp;
   const int nj = hd / 32;
   const size_t qoff = (size_t)b * qs + (size_t)h * hd;
+  const size_t bl = (size_t)b * L + layer;
   float qv[MAX_J];
 #pragma unroll
   for (int j = 0; j < MAX_J; ++j)
     qv[j] = j < nj ? to_f32(q[qoff + lane + 32 * j]) : 0.f;
 
   for (int s = 0; s < K; ++s) {
-    float p = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) p = fmaf(qv[j], pks[s * hd + lane + 32 * j], p);
-    p = warp_sum(p);
+    const float p = head_dot(qv, pks + s * hd, lane, nj);
     if (lane == 0) sc[s] = p * scale;
   }
-  const size_t gbase = (((size_t)b * L + layer) * E) * D + (size_t)h * hd;
-  for (int s = 0; s < n_gen; ++s) {
-    const T* krow = gk + gbase + (size_t)s * D;
-    float p = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) p = fmaf(qv[j], to_f32(krow[lane + 32 * j]), p);
-    p = warp_sum(p);
-    if (lane == 0) sc[K + s] = p * scale;
-  }
+  gen.score(q + qoff, qv, sc + K, bl, h, n_gen, E, D, hd, lane, nj, scale);
   {
-    float p = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) p = fmaf(qv[j], to_f32(kn[qoff + lane + 32 * j]), p);
-    p = warp_sum(p);
+    const float p = head_dot(qv, kn + qoff, lane, nj);
     if (lane == 0) sc[K + n_gen] = p * scale;
   }
   __syncwarp();
@@ -103,25 +230,9 @@ __global__ void beam_attn_rowmajor(
   float acc[MAX_J];
 #pragma unroll
   for (int j = 0; j < MAX_J; ++j) acc[j] = 0.f;
-  for (int s = 0; s < K; ++s) {
-    const float e = sc[s];
-#pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) acc[j] = fmaf(e, pvs[s * hd + lane + 32 * j], acc[j]);
-  }
-  for (int s = 0; s < n_gen; ++s) {
-    const float e = sc[K + s];
-    const T* vrow = gv + gbase + (size_t)s * D;
-#pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) acc[j] = fmaf(e, to_f32(vrow[lane + 32 * j]), acc[j]);
-  }
-  {
-    const float e = sc[K + n_gen];
-#pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) acc[j] = fmaf(e, to_f32(vn[qoff + lane + 32 * j]), acc[j]);
-  }
+  for (int s = 0; s < K; ++s) head_axpy(acc, sc[s], pvs + s * hd, lane, nj);
+  gen.value(acc, sc + K, part, bl, h, n_gen, E, D, hd, lane, nj);
+  head_axpy(acc, sc[K + n_gen], vn + qoff, lane, nj);
   const float inv = 1.f / l;
   float* orow = out + (size_t)b * D + (size_t)h * hd;
 #pragma unroll
@@ -129,26 +240,25 @@ __global__ void beam_attn_rowmajor(
     if (j < nj) orow[lane + 32 * j] = acc[j] * inv;
 }
 
-template <typename T>
+template <typename T, typename Gen>
 cudaError_t launch(const void* q, const void* kn, const void* vn, long qs,
-                   const void* pk, const void* pv, const void* gk,
-                   const void* gv, float* out, int N, int R, int L, int K,
-                   int E, int D, int hd, int layer, int n_gen,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * K * hd + R * (K + n_gen + 1)) * 4;
+                   const void* pk, const void* pv, Gen gen, float* out,
+                   int N, int R, int L, int K, int E, int D, int hd,
+                   int layer, int n_gen, cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * K * hd + (Gen::kPartial ? R * hd : 0) +
+                               R * (K + n_gen + 1)) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        beam_attn_rowmajor<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        beam_attn<T, Gen>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(D / hd, N);
-  beam_attn_rowmajor<T><<<grid, 32 * R, smem, stream>>>(
+  beam_attn<T, Gen><<<grid, 32 * R, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn),
       static_cast<const T*>(vn), qs, static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const T*>(gk),
-      static_cast<const T*>(gv), out, N, R, L, K, E, D, hd, layer, n_gen,
-      1.f / sqrtf((float)hd));
+      static_cast<const T*>(pv), gen, out, N, R, L, K, E, D, hd, layer,
+      n_gen, 1.f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
@@ -160,12 +270,35 @@ extern "C" int capdec_beam_decode_attention_rowmajor(
     const void* pv, const void* gk, const void* gv, float* out, int N, int R,
     int L, int K, int E, int D, int hd, int layer, int n_gen, int dtype,
     cudaStream_t stream) {
+  using capdec::GenSlots;
+  using B16 = __nv_bfloat16;
   cudaError_t err =
       dtype == capdec::kBF16
-          ? capdec::launch<__nv_bfloat16>(q, kn, vn, qs, pk, pv, gk, gv, out,
-                                          N, R, L, K, E, D, hd, layer, n_gen,
+          ? capdec::launch<B16>(
+                q, kn, vn, qs, pk, pv,
+                GenSlots<B16>{static_cast<const B16*>(gk),
+                              static_cast<const B16*>(gv)},
+                out, N, R, L, K, E, D, hd, layer, n_gen, stream)
+          : capdec::launch<float>(
+                q, kn, vn, qs, pk, pv,
+                GenSlots<float>{static_cast<const float*>(gk),
+                                static_cast<const float*>(gv)},
+                out, N, R, L, K, E, D, hd, layer, n_gen, stream);
+  return static_cast<int>(err);
+}
+
+extern "C" int capdec_beam_decode_attention_rowmajor_q(
+    const void* q, const void* kn, const void* vn, long qs, const void* pk,
+    const void* pv, const int8_t* gk, const int8_t* gv, const float* gks,
+    const float* gvs, float* out, int N, int R, int L, int K, int E, int D,
+    int hd, int layer, int n_gen, int dtype, cudaStream_t stream) {
+  const capdec::GenSlotsInt8 gen{gk, gv, gks, gvs};
+  cudaError_t err =
+      dtype == capdec::kBF16
+          ? capdec::launch<__nv_bfloat16>(q, kn, vn, qs, pk, pv, gen, out, N,
+                                          R, L, K, E, D, hd, layer, n_gen,
                                           stream)
-          : capdec::launch<float>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L,
+          : capdec::launch<float>(q, kn, vn, qs, pk, pv, gen, out, N, R, L,
                                   K, E, D, hd, layer, n_gen, stream);
   return static_cast<int>(err);
 }

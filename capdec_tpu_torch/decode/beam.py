@@ -11,20 +11,25 @@ engine implements them:
   * stop token '.' (id 13 in GPT-2), entry_length cap, final ranking by
     scores / seq_lengths descending; the loop ends when all beams stop.
 
-This is the lane-mode, full-allocation path of the JAX engine
-(`_beam_search_impl`, beam.py:271-553):
+This is the lane-mode path of the JAX engine (`_beam_search_impl`,
+beam.py:271-553):
   * Each image's R beams live in R cache lanes. A winner that descends
     from a lane without an earlier-ranked sibling stays in that lane;
     the others take the lanes no one claimed (`_assign_lanes`). Only
-    forked lanes copy cache rows, lazily at the start of the next step
-    (kernel K4, `copy_forked_rows_bounded`, slots < i - 1).
-  * The generated cache is allocated once at entry_length rounded up to
-    8 slots; the stage buckets bound each stage's attention reads
-    (`e_cap`).
-  * Each step: decode_step (kernels K2 and K3), then the fused LM head
-    with top-R and logsumexp (kernel K1), then the selection on the
-    R*R-candidate shortlist. A final rank permutation restores the
-    reference's beam order.
+    forked lanes copy cache rows, lazily at the start of the next step:
+    slots < i - 1 (kernel K4, `copy_forked_rows_bounded`) or whole rows
+    (kernel K7, `copy_forked_rows`).
+  * The cache runs in stages (`staging.stage_buckets`). With `full_alloc`
+    it is allocated once at entry_length rounded up to 8 slots and each
+    stage's bucket bounds the attention reads (`e_cap`); otherwise it is
+    allocated at the first bucket and grows between stages
+    (`staging.grow_cache`).
+  * The generated cache is bf16/f32, or int8 levels with per-slot scales
+    (`kv_cache_int8`), whose scales follow the fork copy by indexing.
+  * Each step: decode_step (kernels K2 and K3, or K6 and K5 over int8),
+    then the fused LM head with top-R and logsumexp (kernel K1), then the
+    selection on the R*R-candidate shortlist. A final rank permutation
+    restores the reference's beam order.
 The JAX engine's one-hot contractions (TPU gather workarounds) are plain
 indexing here; the loop is a Python loop.
 """
@@ -42,9 +47,7 @@ from ..ops import cache_reorder, lm_head
 from ..utils.tokenizer import GPT2_DOT_TOKEN
 
 NEG = -1e30
-# Stage count of the full-size cache's read bounds (e_cap buckets) and the
-# slot alignment of the cache, as in the JAX engine's defaults.
-CACHE_STAGES = 8
+# Slot alignment of the cache and its stage buckets, as in the JAX engine.
 SLOT_ALIGN = 8
 
 
@@ -53,34 +56,64 @@ class BeamConfig:
     beam_size: int = 5
     entry_length: int = 67
     stop_token: int = GPT2_DOT_TOKEN
-    # Kernel knobs: True runs the op's kernel wrapper (the hand-written
-    # kernel on CUDA tensors, its plain version on CPU tensors); False runs
-    # the op's plain PyTorch version everywhere. None = auto (True).
-    fused_attention: Optional[bool] = None      # K2
-    chunk_slot_write: Optional[bool] = None     # K3
+    # Op knobs, with the JAX engine's meaning (which op runs); None = auto
+    # (`resolve_config`).
+    fused_attention: Optional[bool] = None      # K2 (K6 over int8)
+    chunk_slot_write: Optional[bool] = None     # K3 (int8 always takes K5)
     fused_lm_head: Optional[bool] = None        # K1
-    bounded_fork_copy: Optional[bool] = None    # K4
-    # Full-size allocation with stage-bounded reads; the JAX engine's
-    # staged cache growth (False) is not ported.
+    # True: fork copies move slots < step (K4); False: whole rows (K7).
+    bounded_fork_copy: Optional[bool] = None
+    # True: one full-size cache, stage-bounded reads (e_cap); False:
+    # staged cache growth between the stages.
     full_alloc: Optional[bool] = None
+    cache_stages: int = 8
+    # int8 generated KV cache (opt-in serving mode; not token-identical to
+    # the bf16 path). Requires fused_attention.
+    kv_cache_int8: bool = False
+    # The chunked v3 kernels (K8, K9) and the int8 prefix cache are not
+    # ported: only 0/None and False/None are accepted.
+    fused_slot_chunks: Optional[int] = None
+    int8_prefix: Optional[bool] = None
+    # Run every chosen op's plain PyTorch version instead of its kernel
+    # wrapper: the card's reference path (counterpart of the JAX engine's
+    # fused_interpret).
+    plain_ops: bool = False
 
     def plain(self) -> "BeamConfig":
         """This configuration with every op's plain PyTorch version."""
-        return dataclasses.replace(
-            self, fused_attention=False, chunk_slot_write=False,
-            fused_lm_head=False, bounded_fork_copy=False)
+        return dataclasses.replace(self, plain_ops=True)
+
+
+def _auto(bc: BeamConfig, knob: str, value) -> BeamConfig:
+    """`bc` with `knob` set to `value` where it is None (auto)."""
+    if getattr(bc, knob) is not None:
+        return bc
+    return dataclasses.replace(bc, **{knob: value})
 
 
 def resolve_config(bc: BeamConfig) -> BeamConfig:
-    """Resolve every None (auto) knob: the kernels and full_alloc on."""
-    for knob in ("fused_attention", "chunk_slot_write", "fused_lm_head",
-                 "bounded_fork_copy", "full_alloc"):
-        if getattr(bc, knob) is None:
-            bc = dataclasses.replace(bc, **{knob: True})
-    if not bc.full_alloc:
+    """Resolve every None (auto) knob as the JAX engine does on the TPU
+    (capdec_tpu/decode/beam.py:584-643) and refuse what is not ported."""
+    bc = _auto(bc, "fused_attention", True)
+    bc = _auto(bc, "chunk_slot_write", bool(bc.fused_attention))
+    bc = _auto(bc, "fused_lm_head", True)
+    bc = _auto(bc, "fused_slot_chunks", 0)
+    if bc.fused_slot_chunks:
         raise NotImplementedError(
-            "staged cache growth (full_alloc=False) is not ported "
-            "(ROADMAP.md Queue 1, item 4: beam engine)")
+            "fused_slot_chunks > 0 needs the chunked kernels K8/K9, not "
+            "ported yet (ROADMAP.md Queue 2)")
+    # int8 keeps staged growth: the JAX engine measured it faster there
+    bc = _auto(bc, "full_alloc",
+               bool(bc.fused_attention) and not bc.kv_cache_int8)
+    bc = _auto(bc, "bounded_fork_copy", bool(bc.full_alloc))
+    bc = _auto(bc, "int8_prefix", False)
+    if bc.int8_prefix:
+        raise NotImplementedError(
+            "int8_prefix needs quantize_prefix_cache and the chunked int8 "
+            "kernel K9, not ported yet (ROADMAP.md Queue 2)")
+    if bc.kv_cache_int8 and not bc.fused_attention:
+        raise ValueError("kv_cache_int8 requires the fused-attention "
+                         "row-major lane-beams path (fused_attention)")
     return bc
 
 
@@ -143,12 +176,33 @@ def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx)
 
 
+def _fork_copy(bc: BeamConfig):
+    """The fork fix-up of the configuration: fork(cache, src, count)
+    updates the generated cache in place (count = live slots)."""
+    kernels = not bc.plain_ops
+    cr = cache_reorder
+    if bc.bounded_fork_copy:
+        rows = (cr.copy_forked_rows_bounded if kernels
+                else cr.copy_forked_rows_bounded_plain)
+    else:
+        whole = cr.copy_forked_rows if kernels else cr.copy_forked_rows_plain
+        rows = lambda k, v, src, count: whole(k, v, src)
+
+    def fork(cache, src, count):
+        rows(cache["k"], cache["v"], src, count)
+        if "ks" in cache:  # int8 scales: tiny, plain indexing
+            cache["ks"] = cache["ks"][src]
+            cache["vs"] = cache["vs"][src]
+    return fork
+
+
 @torch.no_grad()
 def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
                       bc: BeamConfig, prefix_embeds: torch.Tensor):
     N, K, D = prefix_embeds.shape
     R, E = bc.beam_size, bc.entry_length
     dev = prefix_embeds.device
+    kernels = not bc.plain_ops
     model = cast_params_for_decode(model, cfg)
     wte = model.transformer.wte.weight
     logits0, prefix_cache = gpt2.prefill(model, cfg, prefix_embeds)
@@ -162,14 +216,15 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     is_stopped = toks0 == bc.stop_token
 
     E_pad = -(-E // SLOT_ALIGN) * SLOT_ALIGN
-    buckets = staging.stage_buckets(E_pad, CACHE_STAGES, SLOT_ALIGN)
-    gen_cache = gpt2.init_gen_cache_rowmajor(cfg, N * R, buckets[-1],
-                                             device=dev)
+    buckets = staging.stage_buckets(E_pad, bc.cache_stages, SLOT_ALIGN)
+    init_cache = (gpt2.init_gen_cache_rowmajor_int8 if bc.kv_cache_int8
+                  else gpt2.init_gen_cache_rowmajor)
+    gen_cache = init_cache(cfg, N * R,
+                           buckets[-1] if bc.full_alloc else buckets[0],
+                           device=dev)
     cur = gpt2.embed_tokens(model, toks0.reshape(N * R))      # [B, D]
-    fork_copy = (cache_reorder.copy_forked_rows_bounded
-                 if bc.bounded_fork_copy
-                 else cache_reorder.copy_forked_rows_bounded_plain)
-    topk = lm_head.lm_head_topk if bc.fused_lm_head \
+    fork_copy = _fork_copy(bc)
+    topk = lm_head.lm_head_topk if bc.fused_lm_head and kernels \
         else lm_head.lm_head_topk_plain
     # rank -> lane map of the latest selection (identity at step 0, where
     # ranks ARE lanes); restores rank order at the end.
@@ -181,13 +236,19 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
 
     i = 1
     for cap in buckets:
+        if i >= E or bool(is_stopped.all()):
+            break  # done: later stages neither run nor grow the cache
+        if gen_cache["k"].shape[2] < cap:
+            gen_cache = staging.grow_cache(
+                gen_cache, init_cache(cfg, N * R, cap, device=dev))
         while i < E and i <= cap and not bool(is_stopped.all()):
             # slots 0..i-2 are live history; decode_step writes slot i-1
-            fork_copy(gen_cache["k"], gen_cache["v"], pending_src, i - 1)
+            fork_copy(gen_cache, pending_src, i - 1)
             hidden = gpt2.decode_step(
                 model, cfg, cur, prefix_cache, gen_cache, i - 1, e_cap=cap,
-                fused_attention=bc.fused_attention,
-                chunk_slot_write=bc.chunk_slot_write)
+                fused_attention=bool(bc.fused_attention) and kernels,
+                chunk_slot_write=kernels and (bool(bc.chunk_slot_write)
+                                              or bc.kv_cache_int8))
             # Per-beam shortlist: adding the beam's score and dividing by
             # its length are monotonic within a beam, so the flat top-R
             # over beam x vocab picks only from each beam's own top-R.

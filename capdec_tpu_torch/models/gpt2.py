@@ -18,7 +18,9 @@ float32. Two functions carry the beam-decode path:
     ops/decode_attention.py) -> c_proj -> ln_2 -> MLP, then one slot
     write of the step's K/V for all layers (kernel K3,
     ops/cache_reorder.py). The generated cache is row-major
-    [B, L, E, D] and is updated in place.
+    [B, L, E, D] and is updated in place. An int8 generated cache
+    (`init_gen_cache_rowmajor_int8`: levels plus per-slot scales) takes
+    kernel K6 for the attention and the quantising slot write K5.
 """
 from __future__ import annotations
 
@@ -258,6 +260,21 @@ def init_gen_cache_rowmajor(cfg: GPT2Config, batch: int, max_new: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_gen_cache_rowmajor_int8(cfg: GPT2Config, batch: int, max_new: int,
+                                 device=None) -> Cache:
+    """Row-major int8 generated cache: levels k/v int8 [B, L, E, D] plus
+    per-slot absmax scales ks/vs f32 [B, L, 1, E] (value = level * scale).
+    Written by cache_reorder.write_gen_slot_chunk_q, read by
+    decode_attention.beam_decode_attention_rowmajor_q: half the bytes of
+    the bf16 cache."""
+    shape = (batch, cfg.n_layer, max_new, cfg.n_embd)
+    sshape = (batch, cfg.n_layer, 1, max_new)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
+
+
 @torch.no_grad()
 def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
                 token_embed: torch.Tensor, prefix_cache: Cache,
@@ -277,33 +294,43 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
 
     `e_cap`: read bound on the generated cache (the caller guarantees
     step < e_cap). `fused_attention` / `chunk_slot_write` choose the
-    kernel wrappers (True) or their plain PyTorch versions (False).
+    kernel wrappers (True) or their plain PyTorch versions (False): K2 /
+    K3, or K6 / K5 for an int8 cache (one with scales "ks"/"vs").
     """
     B, D = token_embed.shape
     L, N, K, _ = prefix_cache["k"].shape
     R = B // N
     cdt = cfg.compute_dtype
     t = model.transformer
-    attend = (decode_attention.beam_decode_attention_rowmajor
-              if fused_attention
-              else decode_attention.beam_decode_attention_rowmajor_plain)
-    write = (cache_reorder.write_gen_slot_chunk if chunk_slot_write
-             else cache_reorder.write_gen_slot_chunk_plain)
+    da, cr = decode_attention, cache_reorder
+    gk, gv = gen_cache["k"], gen_cache["v"]
+    if "ks" in gen_cache:  # int8 levels + per-slot scales
+        scales = (gen_cache["ks"], gen_cache["vs"])
+        attend = (da.beam_decode_attention_rowmajor_q if fused_attention
+                  else da.beam_decode_attention_rowmajor_q_plain)
+        write = (cr.write_gen_slot_chunk_q if chunk_slot_write
+                 else cr.write_gen_slot_chunk_q_plain)
+    else:
+        scales = ()
+        attend = (da.beam_decode_attention_rowmajor if fused_attention
+                  else da.beam_decode_attention_rowmajor_plain)
+        write = (cr.write_gen_slot_chunk if chunk_slot_write
+                 else cr.write_gen_slot_chunk_plain)
     x = (token_embed + t.wpe.weight[K + step]).to(cdt)
     pk, pv = prefix_cache["k"], prefix_cache["v"]
-    gk, gv = gen_cache["k"], gen_cache["v"]
     ks, vs = [], []
     for layer, blk in enumerate(t.h):
         h = _layer_norm(x, blk.ln_1)
         qkv = _dense(h, blk.attn.c_attn, cdt).to(cdt)
         q, k_new, v_new = qkv.split(D, dim=-1)
-        out = attend(q, k_new, v_new, pk, pv, gk, gv, step, layer,
+        out = attend(q, k_new, v_new, pk, pv, gk, gv, *scales, step, layer,
                      beams_per_image=R, head_dim=cfg.head_dim, e_cap=e_cap)
         out = _dense(out.to(cdt), blk.attn.c_proj, cdt)
         x = _block_mlp(x + out.to(x.dtype), blk, cdt)
         ks.append(k_new)
         vs.append(v_new)
-    write(gk, gv, torch.stack(ks, dim=1), torch.stack(vs, dim=1), step)
+    write(gk, gv, *scales, torch.stack(ks, dim=1), torch.stack(vs, dim=1),
+          step)
     return final_hidden(model, cfg, x)
 
 

@@ -39,6 +39,10 @@ SIGNATURES = {
         [P, P, P, L, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "capdec_write_gen_slot": [P, P, P, P, I, I, I, I, L, P],
     "capdec_copy_forked_rows_bounded": [P, P, P, I, I, I, I, L, P],
+    "capdec_write_gen_slot_q": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "capdec_beam_decode_attention_rowmajor_q":
+        [P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    "capdec_copy_forked_rows": [P, P, P, I, L, P],
 }
 
 build_seconds = 0.0  # wall time of the build this process ran (0: cached)

@@ -17,7 +17,9 @@ batches:
   * Per-request latency (enqueue -> caption yielded); p50/p95/p99 via
     `latency_percentiles()`.
 
-The server runs on the CUDA device unless it is given `device="cpu"`.
+The decode engine is the beam engine with its BeamConfig knobs, the int8
+KV cache (`kv_cache_int8`) included. The server runs on the CUDA device
+unless it is given `device="cpu"`.
 """
 from __future__ import annotations
 

@@ -2,10 +2,11 @@
 """Where one beam-serving batch of the PyTorch port spends its time, on
 one NVIDIA GPU.
 
-    python3 scripts/torch_serve_profile.py
+    python3 scripts/torch_serve_profile.py [--int8_kv]
 
 Builds chip_smoke.py's main-path server (seeded full-width GPT-2 124M +
-8-layer TransformerMapper, bf16, batch 64 x beam 5, entry_length 67),
+8-layer TransformerMapper, bf16, batch 64 x beam 5, entry_length 67;
+with `--int8_kv` the int8 generated KV cache and staged cache growth),
 warms it up, then decodes one batch of 64 requests under torch.profiler.
 Prints one JSON line: the batch's wall time (unprofiled, and under the
 profiler), the device time summed over its kernels, the device busy share
@@ -14,10 +15,14 @@ kernel launches and decode steps, and the top device-time consumers.
 Then, without the profiler, it serves 128 requests twice each way in the
 order A B B A: A = `serve()` (the batch in flight decodes on the worker
 thread), B = back-to-back synchronous `caption()` calls of 64, and prints
-each run's captions/s.
+each run's captions/s. With `--int8_kv` it also serves 256 requests
+through `serve()` on the bf16 path (A) and the int8 path (B) of the same
+weights, in the order A B B A, for a comparison of the two paths inside
+one process.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -29,7 +34,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--int8_kv", action="store_true",
+                   help="serve with BeamConfig(kv_cache_int8=True)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -39,7 +48,8 @@ def main() -> int:
 
     setup_torch()
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    server, *_ = chip_smoke.build_server(gen)
+    server, model, *_ = chip_smoke.build_server(gen,
+                                                kv_cache_int8=args.int8_kv)
     server.warmup()
     embeds = np.random.RandomState(1).randn(
         chip_smoke.MAIN["N"], chip_smoke.MAIN["prefix_size"]).astype(
@@ -72,26 +82,42 @@ def main() -> int:
         2 * chip_smoke.MAIN["N"], chip_smoke.MAIN["prefix_size"]).astype(
             np.float32)
 
-    def via_serve():
-        return len(dict(server.serve((i, e) for i, e in enumerate(reqs))))
+    def serve_on(srv, reqs):
+        return lambda: len(dict(srv.serve(
+            (i, e) for i, e in enumerate(reqs))))
+
+    via_serve = serve_on(server, reqs)
 
     def via_caption():
         n = chip_smoke.MAIN["N"]
         return sum(len(server.caption(reqs[i:i + n]))
                    for i in range(0, len(reqs), n))
 
-    ab = []
-    for name, fn in (("serve", via_serve), ("caption", via_caption),
-                     ("caption", via_caption), ("serve", via_serve)):
+    def timed(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         served = fn()
         torch.cuda.synchronize()
-        ab.append({"via": name, "captions_per_s":
-                   served / (time.perf_counter() - t0)})
+        return served / (time.perf_counter() - t0)
+
+    ab = [{"via": name, "captions_per_s": timed(fn)}
+          for name, fn in (("serve", via_serve), ("caption", via_caption),
+                           ("caption", via_caption), ("serve", via_serve))]
+    paths_ab = None
+    if args.int8_kv:
+        bf16_server, *_ = chip_smoke.build_server(None, model=model)
+        bf16_server.warmup()
+        reqs4 = np.concatenate([reqs, reqs])  # 4 batches a run
+        paths_ab = [{"path": name, "captions_per_s":
+                     timed(serve_on(srv, reqs4))}
+                    for name, srv in (("bf16", bf16_server),
+                                      ("int8", server), ("int8", server),
+                                      ("bf16", bf16_server))]
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
+        "int8_kv": args.int8_kv,
         "serve_ab": ab,
+        "paths_ab": paths_ab,
         "batch_wall_ms": wall_plain * 1e3,
         "batch_wall_ms_profiled": wall * 1e3,
         "device_ms": device_us / 1e3,

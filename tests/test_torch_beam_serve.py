@@ -104,11 +104,12 @@ def test_beam_search_matches_jax(models, prefixes, stop_token, config,
 
 
 def test_plain_config_matches_kernel_wrappers(models, prefixes, stop_token):
-    """BeamConfig.plain() (every op's plain version, the card's reference
-    path) and the default config agree on the CPU, where both run the
-    plain versions."""
+    """BeamConfig.plain() (every chosen op's plain version, the card's
+    reference path) changes only `plain_ops`, and agrees with the default
+    config on the CPU, where both run the plain versions."""
     _, _, tcfg, model = models
     bc = beam.BeamConfig(beam_size=R, entry_length=E, stop_token=stop_token)
+    assert bc.plain() == dataclasses.replace(bc, plain_ops=True)
     x = torch.from_numpy(prefixes)
     a = beam.beam_search(model.gpt, tcfg.gpt2, x, bc)
     b = beam.beam_search(model.gpt, tcfg.gpt2, x, bc.plain())
@@ -120,10 +121,20 @@ def test_resolve_config_defaults_and_unported_knobs():
     bc = beam.resolve_config(beam.BeamConfig())
     assert (bc.fused_attention and bc.chunk_slot_write and bc.fused_lm_head
             and bc.full_alloc and bc.bounded_fork_copy)
-    with pytest.raises(NotImplementedError):
-        beam.resolve_config(beam.BeamConfig(full_alloc=False))
-    with pytest.raises(TypeError):
-        beam.BeamConfig(kv_cache_int8=True)
+    assert bc.fused_slot_chunks == 0 and not bc.int8_prefix
+    # int8 KV keeps staged growth and whole-row fork copies, as in JAX
+    i8 = beam.resolve_config(beam.BeamConfig(kv_cache_int8=True))
+    assert i8.fused_attention and not i8.full_alloc
+    assert not i8.bounded_fork_copy
+    assert not beam.resolve_config(
+        beam.BeamConfig(full_alloc=False)).bounded_fork_copy
+    with pytest.raises(ValueError, match="fused"):
+        beam.resolve_config(beam.BeamConfig(kv_cache_int8=True,
+                                            fused_attention=False))
+    for knobs in (dict(int8_prefix=True, kv_cache_int8=True),
+                  dict(fused_slot_chunks=8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            beam.resolve_config(beam.BeamConfig(**knobs))
 
 
 def _servers(models, stop):

@@ -111,9 +111,8 @@ def test_serve_cli_prints_the_jax_clis_captions(saved, tmp_path, capsys,
     cli.main(flags + ["--device", "cpu"])
     assert captions() == want
     assert len(want) == 6
-    for flag in ("--int8_kv", "--mesh=2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(flags + ["--device", "cpu", flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(flags + ["--device", "cpu", "--mesh=2"])
 
 
 def _imported_modules(path: pathlib.Path):
