@@ -10,9 +10,10 @@ Two request sources:
 
 Results stream to stdout as JSON lines {"id": ..., "caption": ...}; the
 final line reports throughput. The GPT-2 size is read from the
-checkpoint's shapes; the mapper flags mirror cli/predict.py. `--int8_kv`
-serves with the int8 generated KV cache. Runs on the CUDA device unless
-`--device cpu` is given.
+checkpoint's shapes; the mapper flags mirror cli/predict.py. `--no_beam`
+serves greedy/top-p captions (ToppConfig(entry_length=...)); `--int8_kv`
+serves beam search with the int8 generated KV cache (beam only, as in the
+JAX CLI). Runs on the CUDA device unless `--device cpu` is given.
 
     python -m capdec_tpu_torch.cli.serve --checkpoint model.pt \
         --embeddings_pickle embeddings.pkl
@@ -51,8 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--bf16', action='store_true', default=True)
     p.add_argument('--no_bf16', dest='bf16', action='store_false')
     p.add_argument('--int8_kv', action='store_true', default=False,
-                   help='int8 generated KV cache (levels + per-slot '
-                        'scales; not token-identical to bf16)')
+                   help='int8 generated KV cache for beam search (levels '
+                        '+ per-slot scales; not token-identical to bf16)')
     p.add_argument('--beam_size', type=int, default=5)
     p.add_argument('--entry_length', type=int, default=67)
     p.add_argument('--mesh', default='',
@@ -144,13 +145,14 @@ def main(argv=None):
 
     bc = serve_lib.BeamConfig(beam_size=args.beam_size,
                               entry_length=args.entry_length)
+    tc = serve_lib.ToppConfig(entry_length=args.entry_length)
     if args.int8_kv:
         bc = dataclasses.replace(bc, kv_cache_int8=True,
                                  fused_attention=True)
     cfg = serve_lib.ServeConfig(
         batch_size=args.batch_size, max_wait_s=args.max_wait_s,
         beam=args.beam, normalize_prefix=not args.dont_normalize_prefix,
-        beam_config=bc)
+        beam_config=bc, topp_config=tc)
     server = serve_lib.CaptionServer(model, model_cfg, tokenizer, cfg,
                                      device=device)
     print('warming up...', file=sys.stderr, flush=True)

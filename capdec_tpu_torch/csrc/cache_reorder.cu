@@ -1,5 +1,6 @@
 // K3, K4, K5 and K7: in-place updates of the row-major generated KV cache
-// [B, L, E, D]. K3, K4 and K7 move bytes only, so one kernel serves every
+// [B, L, E, D]; K13: K3 for the seq-major cache [L, B, E, D]. K3, K4, K7
+// and K13 move bytes only, so one kernel serves every
 // dtype: rows move as 16-byte words (the wrappers require
 // D·itemsize % 16 == 0).
 //
@@ -9,6 +10,14 @@
 // Bound: bytes, 2·B·L·D·itemsize read and as many written. One block per
 // (row, layer) copies its D values; only the written slot is touched (the
 // TPU kernel's aligned 8-slot chunk was a tiling workaround).
+//
+// K13 write_gen_slot_seqmajor replaces
+// capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk_seqmajor (:380,
+// pallas_call in _write_chunk_impl :318 with row_axis 1): K3 for the
+// seq-major caches [L, B, E, D] of greedy/top-p decode, new_k/new_v
+// [L, B, D]. Bound: bytes, as K3. K3's design with the seq-major strides:
+// one block per (row b, layer l) copies the D values of row (l·B + b) of
+// new into slot `step` at ((l·B + b)·E + step)·D, as 16-byte words.
 //
 // K4 copy_forked_rows_bounded replaces
 // capdec_tpu/ops/cache_reorder.py::copy_forked_rows_bounded (:210,
@@ -58,6 +67,22 @@ __global__ void write_gen_slot(uint4* __restrict__ k, uint4* __restrict__ v,
   uint4* vd = v + (bl * E + step) * row16;
   const uint4* ks = nk + bl * row16;
   const uint4* vs = nv + bl * row16;
+  for (long i = threadIdx.x; i < row16; i += blockDim.x) {
+    kd[i] = ks[i];
+    vd[i] = vs[i];
+  }
+}
+
+__global__ void write_gen_slot_seqmajor(uint4* __restrict__ k,
+                                        uint4* __restrict__ v,
+                                        const uint4* __restrict__ nk,
+                                        const uint4* __restrict__ nv, int B,
+                                        int E, int step, long row16) {
+  const size_t row = (size_t)blockIdx.y * B + blockIdx.x;  // l·B + b
+  uint4* kd = k + (row * E + step) * row16;
+  uint4* vd = v + (row * E + step) * row16;
+  const uint4* ks = nk + row * row16;
+  const uint4* vs = nv + row * row16;
   for (long i = threadIdx.x; i < row16; i += blockDim.x) {
     kd[i] = ks[i];
     vd[i] = vs[i];
@@ -153,6 +178,18 @@ extern "C" int capdec_write_gen_slot(void* k, void* v, const void* nk,
       static_cast<uint4*>(k), static_cast<uint4*>(v),
       static_cast<const uint4*>(nk), static_cast<const uint4*>(nv), E, step,
       row_bytes / 16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int capdec_write_gen_slot_seqmajor(void* k, void* v,
+                                              const void* nk, const void* nv,
+                                              int L, int B, int E, int step,
+                                              long row_bytes,
+                                              cudaStream_t stream) {
+  capdec::write_gen_slot_seqmajor<<<dim3(B, L), 128, 0, stream>>>(
+      static_cast<uint4*>(k), static_cast<uint4*>(v),
+      static_cast<const uint4*>(nk), static_cast<const uint4*>(nv), B, E,
+      step, row_bytes / 16);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,29 +51,6 @@
 namespace capdec {
 namespace {
 
-constexpr int MAX_J = 4;  // head_dim <= 128
-
-// A warp's dot product of q (lane holds dims lane + 32·j in qv) with one
-// row's head slice, summed over the warp.
-template <typename T>
-__device__ __forceinline__ float head_dot(const float (&qv)[MAX_J],
-                                          const T* row, int lane, int nj) {
-  float p = 0.f;
-#pragma unroll
-  for (int j = 0; j < MAX_J; ++j)
-    if (j < nj) p = fmaf(qv[j], to_f32(row[lane + 32 * j]), p);
-  return warp_sum(p);
-}
-
-// acc += e · row over the lane's dims lane + 32·j.
-template <typename T>
-__device__ __forceinline__ void head_axpy(float (&acc)[MAX_J], float e,
-                                          const T* row, int lane, int nj) {
-#pragma unroll
-  for (int j = 0; j < MAX_J; ++j)
-    if (j < nj) acc[j] = fmaf(e, to_f32(row[lane + 32 * j]), acc[j]);
-}
-
 // K2's generated slots: values of type T, in the head layout.
 template <typename T>
 struct GenSlots {

@@ -1,2 +1,3 @@
 from .beam import (BeamConfig, beam_search, beam_texts,  # noqa: F401
                    beam_top_select)
+from .topp import ToppConfig, greedy_topp_search, topp_texts  # noqa: F401

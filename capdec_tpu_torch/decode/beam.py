@@ -26,8 +26,10 @@ beam.py:271-553):
     (`staging.grow_cache`).
   * The generated cache is bf16/f32, or int8 levels with per-slot scales
     (`kv_cache_int8`), whose scales follow the fork copy by indexing.
-  * Each step: decode_step (kernels K2 and K3, or K6 and K5 over int8),
-    then the fused LM head with top-R and logsumexp (kernel K1), then the
+    With `int8_prefix` the prefix cache is quantised once after prefill.
+  * Each step: decode_step (kernels K2 and K3, or K6 and K5 over int8;
+    with `fused_slot_chunks` the slot-bounded K8, or K9 over int8), then
+    the fused LM head with top-R and logsumexp (kernel K1), then the
     selection on the R*R-candidate shortlist. A final rank permutation
     restores the reference's beam order.
 The JAX engine's one-hot contractions (TPU gather workarounds) are plain
@@ -70,9 +72,14 @@ class BeamConfig:
     # int8 generated KV cache (opt-in serving mode; not token-identical to
     # the bf16 path). Requires fused_attention.
     kv_cache_int8: bool = False
-    # The chunked v3 kernels (K8, K9) and the int8 prefix cache are not
-    # ported: only 0/None and False/None are accepted.
+    # Slot-bounded ("v3") attention: the generated cache is read in tiles
+    # of this many slots below the step (K8; K9 over int8 caches), and the
+    # cache keeps staged growth. 0 = the v2 kernels (K2/K6); None = auto
+    # (0, as on the TPU). Must divide the 8-aligned stage buckets.
     fused_slot_chunks: Optional[int] = None
+    # int8 PREFIX cache (with kv_cache_int8 and fused_slot_chunks): the
+    # prefill K/V quantised once (gpt2.quantize_prefix_cache), read by K9.
+    # None = auto (on when kv_cache_int8 and fused_slot_chunks are).
     int8_prefix: Optional[bool] = None
     # Run every chosen op's plain PyTorch version instead of its kernel
     # wrapper: the card's reference path (counterpart of the JAX engine's
@@ -93,24 +100,21 @@ def _auto(bc: BeamConfig, knob: str, value) -> BeamConfig:
 
 def resolve_config(bc: BeamConfig) -> BeamConfig:
     """Resolve every None (auto) knob as the JAX engine does on the TPU
-    (capdec_tpu/decode/beam.py:584-643) and refuse what is not ported."""
+    (capdec_tpu/decode/beam.py:584-643)."""
     bc = _auto(bc, "fused_attention", True)
     bc = _auto(bc, "chunk_slot_write", bool(bc.fused_attention))
     bc = _auto(bc, "fused_lm_head", True)
     bc = _auto(bc, "fused_slot_chunks", 0)
-    if bc.fused_slot_chunks:
-        raise NotImplementedError(
-            "fused_slot_chunks > 0 needs the chunked kernels K8/K9, not "
-            "ported yet (ROADMAP.md Queue 2)")
-    # int8 keeps staged growth: the JAX engine measured it faster there
+    # A full-size cache with stage-bounded reads on the v2 path only: v3
+    # keeps its own staging, and int8 keeps staged growth (the JAX engine
+    # measured it faster there).
     bc = _auto(bc, "full_alloc",
-               bool(bc.fused_attention) and not bc.kv_cache_int8)
-    bc = _auto(bc, "bounded_fork_copy", bool(bc.full_alloc))
-    bc = _auto(bc, "int8_prefix", False)
-    if bc.int8_prefix:
-        raise NotImplementedError(
-            "int8_prefix needs quantize_prefix_cache and the chunked int8 "
-            "kernel K9, not ported yet (ROADMAP.md Queue 2)")
+               bool(bc.fused_attention) and not bc.fused_slot_chunks
+               and not bc.kv_cache_int8)
+    bc = _auto(bc, "bounded_fork_copy",
+               bool(bc.fused_slot_chunks or bc.full_alloc))
+    bc = _auto(bc, "int8_prefix",
+               bc.kv_cache_int8 and bool(bc.fused_slot_chunks))
     if bc.kv_cache_int8 and not bc.fused_attention:
         raise ValueError("kv_cache_int8 requires the fused-attention "
                          "row-major lane-beams path (fused_attention)")
@@ -206,6 +210,8 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     model = cast_params_for_decode(model, cfg)
     wte = model.transformer.wte.weight
     logits0, prefix_cache = gpt2.prefill(model, cfg, prefix_embeds)
+    if bc.kv_cache_int8 and bc.int8_prefix:
+        prefix_cache = gpt2.quantize_prefix_cache(prefix_cache)
     logp0 = torch.log_softmax(logits0.float(), dim=-1)
 
     # Step 0 (reference "scores is None" branch): per-image top-R.
@@ -217,6 +223,9 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
 
     E_pad = -(-E // SLOT_ALIGN) * SLOT_ALIGN
     buckets = staging.stage_buckets(E_pad, bc.cache_stages, SLOT_ALIGN)
+    # the slot-bounded kernels tile each stage's cache by whole chunks
+    chunks = int(bc.fused_slot_chunks or 0) if bc.fused_attention else 0
+    staging.check_chunks(buckets, chunks)
     init_cache = (gpt2.init_gen_cache_rowmajor_int8 if bc.kv_cache_int8
                   else gpt2.init_gen_cache_rowmajor)
     gen_cache = init_cache(cfg, N * R,
@@ -248,7 +257,8 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
                 model, cfg, cur, prefix_cache, gen_cache, i - 1, e_cap=cap,
                 fused_attention=bool(bc.fused_attention) and kernels,
                 chunk_slot_write=kernels and (bool(bc.chunk_slot_write)
-                                              or bc.kv_cache_int8))
+                                              or bc.kv_cache_int8),
+                fused_slot_chunks=chunks)
             # Per-beam shortlist: adding the beam's score and dividing by
             # its length are monotonic within a beam, so the flat top-R
             # over beam x vocab picks only from each beam's own top-R.

@@ -24,6 +24,15 @@ def stage_buckets(e_pad: int, stages: int, align: int = 8) -> List[int]:
     return [e_pad]
 
 
+def check_chunks(buckets: List[int], chunk: int) -> None:
+    """Raise unless every bucket is a whole number of `chunk`-slot tiles
+    (no-op for chunk 0: the full-read kernels)."""
+    bad = [b for b in buckets if chunk and b % chunk]
+    if bad:
+        raise ValueError(f"stage buckets {bad} are not multiples of "
+                         f"fused_slot_chunks ({chunk})")
+
+
 def grow_cache(gen_cache: Dict[str, torch.Tensor],
                bigger: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Copy each leaf of a generated cache into the leading slice of the

@@ -13,14 +13,17 @@ float32. Two functions carry the beam-decode path:
 
   * `prefill` runs the [N, K, D] prefix once and returns the last
     position's logits plus the per-image prefix cache {k, v: [L, N, K, D]}.
-  * `decode_step` is the row-major fused branch of the JAX
-    `decode_step`: per layer ln_1 -> QKV -> decode attention (kernel K2,
-    ops/decode_attention.py) -> c_proj -> ln_2 -> MLP, then one slot
-    write of the step's K/V for all layers (kernel K3,
-    ops/cache_reorder.py). The generated cache is row-major
-    [B, L, E, D] and is updated in place. An int8 generated cache
+  * `decode_step` is the JAX `decode_step`: per layer ln_1 -> QKV ->
+    decode attention (ops/decode_attention.py) -> c_proj -> ln_2 -> MLP,
+    then one slot write of the step's K/V for all layers
+    (ops/cache_reorder.py), in place. The beam engine's row-major cache
+    [B, L, E, D] takes kernel K2 and the slot write K3, or the
+    slot-bounded K8 (`fused_slot_chunks`); an int8 generated cache
     (`init_gen_cache_rowmajor_int8`: levels plus per-slot scales) takes
-    kernel K6 for the attention and the quantising slot write K5.
+    K6 or K9 and the quantising slot write K5, and K9 also reads an int8
+    prefix cache (`quantize_prefix_cache`). Greedy's seq-major cache
+    [L, B, E, D] (`init_gen_cache`, `init_gen_cache_int8`) takes the
+    plain attention math and the slot write K13.
 """
 from __future__ import annotations
 
@@ -248,6 +251,41 @@ def prefill(model: GPT2LMHeadModel, cfg: GPT2Config,
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+def init_gen_cache(cfg: GPT2Config, batch: int, max_new: int,
+                   dtype: Optional[torch.dtype] = None,
+                   device=None) -> Cache:
+    """Seq-major generated cache [L, B, E, D] (greedy/top-p decode, which
+    never moves rows)."""
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.n_layer, batch, max_new, cfg.n_embd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_gen_cache_int8(cfg: GPT2Config, batch: int, max_new: int,
+                        device=None) -> Cache:
+    """Seq-major int8 generated cache (greedy/top-p): levels k/v int8
+    [L, B, E, D] plus per-slot absmax scales ks/vs f32 [L, B, 1, E]."""
+    shape = (cfg.n_layer, batch, max_new, cfg.n_embd)
+    sshape = (cfg.n_layer, batch, 1, max_new)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
+
+
+def quantize_prefix_cache(prefix_cache: Cache) -> Cache:
+    """Quantise a prefill prefix cache ({k, v: [L, N, K, D]}) to int8
+    levels plus per-(layer, image, slot) absmax scales ks/vs
+    [L, N, 1, K] f32. The prefix is read every step by every beam; int8
+    halves those bytes. Read by the chunked int8 attention (kernel K9)."""
+    qk, sk = cache_reorder.absmax_int8_quant(prefix_cache["k"])
+    qv, sv = cache_reorder.absmax_int8_quant(prefix_cache["v"])
+    return {"k": qk, "v": qv,
+            "ks": sk[..., 0][:, :, None, :].contiguous(),
+            "vs": sv[..., 0][:, :, None, :].contiguous()}
+
+
 def init_gen_cache_rowmajor(cfg: GPT2Config, batch: int, max_new: int,
                             dtype: Optional[torch.dtype] = None,
                             device=None) -> Cache:
@@ -275,47 +313,100 @@ def init_gen_cache_rowmajor_int8(cfg: GPT2Config, batch: int, max_new: int,
             "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
 
 
+def _decode_routes(prefix_cache: Cache, gen_cache: Cache, *, rowmajor: bool,
+                   fused_attention: bool, chunk_slot_write: bool,
+                   fused_slot_chunks: int, e_cap: Optional[int]):
+    """(attend, attention keywords, write) of one decode_step: which
+    kernel wrapper, or which plain version, each part runs."""
+    da, cr = decode_attention, cache_reorder
+    int8 = "ks" in gen_cache
+    if "ks" in prefix_cache and not (rowmajor and int8 and fused_slot_chunks):
+        raise ValueError("int8 prefix cache requires the chunked fused "
+                         "kernel (fused_slot_chunks > 0)")
+    if not rowmajor:
+        # Seq-major [L, B, E, D]: attention is the plain PyTorch math, the
+        # counterpart of the JAX XLA path, which has no Pallas kernel; an
+        # int8 cache quantises its slot in plain PyTorch, as XLA does.
+        attend = (da.beam_decode_attention_rowmajor_q_plain if int8
+                  else da.beam_decode_attention_rowmajor_plain)
+        if int8:
+            write = cr.write_gen_slot_chunk_q_plain
+        else:
+            write = (cr.write_gen_slot_chunk_seqmajor if chunk_slot_write
+                     else cr.write_gen_slot_chunk_seqmajor_plain)
+        return attend, {"e_cap": None}, write
+    if fused_slot_chunks:  # v3: K8, or K9 over int8 caches
+        kw = {"chunk": fused_slot_chunks}
+        if int8:
+            attend = (da.beam_decode_attention_chunked_q if fused_attention
+                      else da.beam_decode_attention_chunked_q_plain)
+            kw.update(pks=prefix_cache.get("ks"), pvs=prefix_cache.get("vs"))
+        else:
+            attend = (da.beam_decode_attention_chunked if fused_attention
+                      else da.beam_decode_attention_chunked_plain)
+    else:  # v2: K2, or K6 over an int8 cache
+        kw = {"e_cap": e_cap}
+        if int8:
+            attend = (da.beam_decode_attention_rowmajor_q if fused_attention
+                      else da.beam_decode_attention_rowmajor_q_plain)
+        else:
+            attend = (da.beam_decode_attention_rowmajor if fused_attention
+                      else da.beam_decode_attention_rowmajor_plain)
+    if int8:
+        write = (cr.write_gen_slot_chunk_q if chunk_slot_write
+                 else cr.write_gen_slot_chunk_q_plain)
+    else:
+        write = (cr.write_gen_slot_chunk if chunk_slot_write
+                 else cr.write_gen_slot_chunk_plain)
+    return attend, kw, write
+
+
 @torch.no_grad()
 def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
                 token_embed: torch.Tensor, prefix_cache: Cache,
                 gen_cache: Cache, step: int, *,
                 e_cap: Optional[int] = None,
                 fused_attention: bool = True,
-                chunk_slot_write: bool = True) -> torch.Tensor:
-    """One decode step over split caches (row-major fused branch).
+                chunk_slot_write: bool = True,
+                fused_slot_chunks: int = 0,
+                rowmajor: bool = True,
+                return_hidden: bool = True) -> torch.Tensor:
+    """One decode step over split caches.
 
     token_embed: [B, D] embeddings of the tokens decoded at generated
     position `step` (B = N * R beams; prefix_cache holds N image rows).
     Attends over the prefix, generated slots < step and the current
-    token, writes the step's K/V into slot `step` of `gen_cache` IN
-    PLACE, and returns the ln_f'd hidden state [B, D] in the compute
-    dtype: the input of the fused LM-head kernel (ops/lm_head.py), which
-    takes the tied-head product and the top-R itself.
+    token, and writes the step's K/V into slot `step` of `gen_cache` IN
+    PLACE. Returns the ln_f'd hidden state [B, D] in the compute dtype,
+    the input of the fused LM-head kernel (ops/lm_head.py), or with
+    `return_hidden=False` the f32 logits [B, V].
 
-    `e_cap`: read bound on the generated cache (the caller guarantees
-    step < e_cap). `fused_attention` / `chunk_slot_write` choose the
-    kernel wrappers (True) or their plain PyTorch versions (False): K2 /
-    K3, or K6 / K5 for an int8 cache (one with scales "ks"/"vs").
+    The generated cache is row-major [B, L, E, D] (`rowmajor`, the beam
+    engine's) or seq-major [L, B, E, D] (greedy/top-p); an int8 cache
+    carries per-slot scales "ks"/"vs", and an int8 prefix cache
+    (quantize_prefix_cache) carries "ks"/"vs" too. Row-major routes:
+    `fused_slot_chunks` > 0 takes the slot-bounded kernels, K8 (K9 over
+    int8 caches), else K2 (K6), read up to `e_cap` (the caller guarantees
+    step < e_cap; the chunked kernels are bounded by `step` alone); the
+    slot write is K3 (K5 over int8). Seq-major: the plain attention math,
+    and the slot write K13 (int8: a quantising write in plain PyTorch).
+    `fused_attention` / `chunk_slot_write` choose the kernel wrappers
+    (True) or their plain PyTorch versions (False).
     """
     B, D = token_embed.shape
     L, N, K, _ = prefix_cache["k"].shape
     R = B // N
     cdt = cfg.compute_dtype
     t = model.transformer
-    da, cr = decode_attention, cache_reorder
+    attend, kw, write = _decode_routes(
+        prefix_cache, gen_cache, rowmajor=rowmajor,
+        fused_attention=fused_attention, chunk_slot_write=chunk_slot_write,
+        fused_slot_chunks=fused_slot_chunks, e_cap=e_cap)
     gk, gv = gen_cache["k"], gen_cache["v"]
-    if "ks" in gen_cache:  # int8 levels + per-slot scales
-        scales = (gen_cache["ks"], gen_cache["vs"])
-        attend = (da.beam_decode_attention_rowmajor_q if fused_attention
-                  else da.beam_decode_attention_rowmajor_q_plain)
-        write = (cr.write_gen_slot_chunk_q if chunk_slot_write
-                 else cr.write_gen_slot_chunk_q_plain)
-    else:
-        scales = ()
-        attend = (da.beam_decode_attention_rowmajor if fused_attention
-                  else da.beam_decode_attention_rowmajor_plain)
-        write = (cr.write_gen_slot_chunk if chunk_slot_write
-                 else cr.write_gen_slot_chunk_plain)
+    scales = (gen_cache["ks"], gen_cache["vs"]) if "ks" in gen_cache else ()
+    # the attention reads [B, L, ...] layouts; seq-major caches as views
+    att_caches = (gk, gv, *scales) if rowmajor else \
+        tuple(c.transpose(0, 1) for c in (gk, gv, *scales))
     x = (token_embed + t.wpe.weight[K + step]).to(cdt)
     pk, pv = prefix_cache["k"], prefix_cache["v"]
     ks, vs = [], []
@@ -323,15 +414,18 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         h = _layer_norm(x, blk.ln_1)
         qkv = _dense(h, blk.attn.c_attn, cdt).to(cdt)
         q, k_new, v_new = qkv.split(D, dim=-1)
-        out = attend(q, k_new, v_new, pk, pv, gk, gv, *scales, step, layer,
-                     beams_per_image=R, head_dim=cfg.head_dim, e_cap=e_cap)
+        out = attend(q, k_new, v_new, pk, pv, *att_caches, step, layer,
+                     beams_per_image=R, head_dim=cfg.head_dim, **kw)
         out = _dense(out.to(cdt), blk.attn.c_proj, cdt)
         x = _block_mlp(x + out.to(x.dtype), blk, cdt)
         ks.append(k_new)
         vs.append(v_new)
-    write(gk, gv, *scales, torch.stack(ks, dim=1), torch.stack(vs, dim=1),
-          step)
-    return final_hidden(model, cfg, x)
+    axis = 1 if rowmajor else 0  # [B, L, D] or [L, B, D]
+    write(gk, gv, *scales, torch.stack(ks, dim=axis),
+          torch.stack(vs, dim=axis), step)
+    if return_hidden:
+        return final_hidden(model, cfg, x)
+    return final_logits(model, cfg, x)
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,11 @@ SIGNATURES = {
     "capdec_beam_decode_attention_rowmajor_q":
         [P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "capdec_copy_forked_rows": [P, P, P, I, L, P],
+    "capdec_beam_decode_attention_chunked":
+        [P, P, P, L, *[P] * 5, *[I] * 11, P],
+    "capdec_beam_decode_attention_chunked_q":
+        [P, P, P, L, *[P] * 9, *[I] * 11, P],
+    "capdec_write_gen_slot_seqmajor": [P, P, P, P, I, I, I, I, L, P],
 }
 
 build_seconds = 0.0  # wall time of the build this process ran (0: cached)

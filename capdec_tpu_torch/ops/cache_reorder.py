@@ -1,14 +1,15 @@
 """K3, K4, K5 and K7: in-place updates of the row-major generated KV cache
 (port of capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk,
 ::copy_forked_rows_bounded, ::write_gen_slot_chunk_q and
-::copy_forked_rows), and the int8 quantisation they share
-(`absmax_int8_quant`).
+::copy_forked_rows); K13, the slot write of the seq-major cache
+[L, B, E, D] (::write_gen_slot_chunk_seqmajor); and the int8
+quantisation they share (`absmax_int8_quant`).
 
-All update `k`/`v` [B, L, E, D] (and the int8 cache's scales) IN PLACE
-(the JAX versions alias their buffers) and return them in a dict. On CUDA
-tensors the wrappers launch csrc/cache_reorder.cu (its note says what
-bounds each on the H100 and how the design answers); on CPU tensors they
-run the plain PyTorch versions beside them.
+All update `k`/`v` [B, L, E, D] (K13: [L, B, E, D]; and the int8 cache's
+scales) IN PLACE (the JAX versions alias their buffers) and return them
+in a dict. On CUDA tensors the wrappers launch csrc/cache_reorder.cu (its
+note says what bounds each on the H100 and how the design answers); on
+CPU tensors they run the plain PyTorch versions beside them.
 """
 from __future__ import annotations
 
@@ -99,6 +100,40 @@ def write_gen_slot_chunk(k: torch.Tensor, v: torch.Tensor,
 
 
 write_gen_slot_chunk.launches = 0
+
+
+# K13's plain version: the slot axis is 2 in both layouts.
+write_gen_slot_chunk_seqmajor_plain = write_gen_slot_chunk_plain
+
+
+def write_gen_slot_chunk_seqmajor(k: torch.Tensor, v: torch.Tensor,
+                                  new_k: torch.Tensor, new_v: torch.Tensor,
+                                  step: int) -> Dict[str, torch.Tensor]:
+    """`write_gen_slot_chunk` for the seq-major caches k/v [L, B, E, D] of
+    greedy/top-p decode: new_k/new_v [L, B, D] go to slot `step`, in
+    place."""
+    if _build.on_cpu(k):
+        return write_gen_slot_chunk_seqmajor_plain(k, v, new_k, new_v, step)
+    row_bytes = _check_cache(k, v, "write_gen_slot_chunk_seqmajor")
+    L, B, E, D = k.shape
+    for n in (new_k, new_v):
+        if n.shape != (L, B, D) or n.dtype != k.dtype or \
+                n.device != k.device or not n.is_contiguous() or \
+                n.data_ptr() % 16:
+            raise ValueError("new_k/new_v must be contiguous [L, B, D] of "
+                             "the cache's dtype")
+    if not 0 <= step < E:
+        raise ValueError(f"step {step} out of range for E={E}")
+    lib = _build.library()
+    _build.check(lib.capdec_write_gen_slot_seqmajor(
+        k.data_ptr(), v.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+        L, B, E, step, row_bytes, _build.stream(k.device)),
+        "write_gen_slot_chunk_seqmajor")
+    write_gen_slot_chunk_seqmajor.launches += 1
+    return {"k": k, "v": v}
+
+
+write_gen_slot_chunk_seqmajor.launches = 0
 
 
 def write_gen_slot_chunk_q_plain(k: torch.Tensor, v: torch.Tensor,

@@ -1,17 +1,22 @@
-"""K2 and K6: fused beam-decode attention over split KV caches (port of
-capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor and
-::beam_decode_attention_rowmajor_q).
+"""K2, K6, K8 and K9: fused beam-decode attention over split KV caches
+(port of capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor,
+::beam_decode_attention_rowmajor_q, ::beam_decode_attention_chunked and
+::beam_decode_attention_chunked_q).
 
 One decode step of one transformer layer. For beam row b (image
 n = b // R) and each head, a softmax over the image's shared prefix
 slots, the row's generated slots below `step` (read only up to `e_cap`)
 and the current token, then the weighted sum of V: f32 [B, D]. K6 reads
-an int8 generated cache with per-(row, layer, slot) f32 scales.
+an int8 generated cache with per-(row, layer, slot) f32 scales. K8 and K9
+(the slot-bounded "v3" kernels) read the generated cache in `chunk`-slot
+tiles below `step`, with an online softmax; K9 reads an int8 generated
+cache and, optionally, an int8 prefix cache with per-slot scales.
 
-On a CUDA tensor a wrapper launches csrc/decode_attention.cu (its note
-says what bounds each kernel on the H100 and how the design answers); on
-a CPU tensor it runs its plain version, the un-fused attention math of
-the JAX reference's decode_step (gpt2.py:612-664).
+On a CUDA tensor a wrapper launches csrc/decode_attention.cu (K2, K6) or
+csrc/decode_attention_chunked.cu (K8, K9); each note says what bounds the
+kernel on the H100 and how the design answers. On a CPU tensor it runs
+its plain version, the un-fused attention math of the JAX reference's
+decode_step (gpt2.py:612-664).
 
 Generated slots at or above `step` may hold stale or NaN bits after a
 bounded fork copy: the kernel never reads them, and the plain version
@@ -30,19 +35,22 @@ NEG_INF = -1e9
 
 
 def _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
-                     e_cap, gks=None, gvs=None):
+                     e_cap, gks=None, gvs=None, pks=None, pvs=None):
     """The un-fused attention math of the JAX reference's decode_step
     (gpt2.py:612-664): products in the input dtype, reductions and softmax
     in f32. With gks/gvs (an int8 generated cache's scales [B, L, 1, E])
     each generated score takes its slot's K scale and each generated
-    probability its slot's V scale (gpt2.py:629-646)."""
+    probability its slot's V scale (gpt2.py:629-646); pks/pvs (an int8
+    prefix cache's scales [L, N, 1, K]) do the same for the prefix slots
+    (decode_attention.py:373-392)."""
     B, D = q.shape
     L, N, K, _ = pk.shape
     H = D // hd
     E = gk.shape[2] if e_cap is None else e_cap
     if not 0 < E <= gk.shape[2]:
         raise ValueError(f"e_cap {e_cap} out of range for E={gk.shape[2]}")
-    pk_l, pv_l = pk[layer], pv[layer]              # [N, K, D]
+    pk_l = pk[layer].to(q.dtype)                   # [N, K, D]
+    pv_l = pv[layer].to(q.dtype)
     gk_l = gk[:, layer, :E].to(q.dtype)            # [B, E, D]
     gv_l = gv[:, layer, :E].to(q.dtype)
     scale = 1.0 / hd ** 0.5
@@ -55,6 +63,8 @@ def _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
 
     valid = (torch.arange(E, device=q.device) < step)[None, :, None]
     sp = heads(q.reshape(N, R, 1, D) * pk_l[:, None])          # [N, R, K, H]
+    if pks is not None:
+        sp = sp * pks[layer, :, 0][:, None, :, None]
     sg = heads(q[:, None, :] * gk_l)                            # [B, E, H]
     if gks is not None:
         sg = sg * gks[:, layer, 0, :E, None]
@@ -62,10 +72,12 @@ def _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
     sc = heads(q * k_new)[:, None, :]                           # [B, 1, H]
     scores = torch.cat([sp.reshape(B, K, H) * scale, sg, sc * scale], dim=1)
     probs = torch.softmax(scores, dim=1)                        # [B, S, H]
-    pg = probs[:, K:K + E]
+    pp, pg = probs[:, :K], probs[:, K:K + E]
+    if pvs is not None:
+        pp = pp * pvs[layer, :, 0].repeat_interleave(R, 0)[:, :, None]
     if gvs is not None:
         pg = pg * gvs[:, layer, 0, :E, None]
-    out = (spread(probs[:, :K]).reshape(N, R, K, D)
+    out = (spread(pp).reshape(N, R, K, D)
            * pv_l[:, None]).sum(2).reshape(B, D)
     out = out + torch.where(valid, spread(pg) * gv_l, 0.0).sum(1)
     out = out + spread(probs[:, K + E]) * v_new
@@ -83,18 +95,21 @@ def beam_decode_attention_rowmajor_plain(
 
 
 def _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
-                e_cap, gen_dtype):
+                e_cap, gen_dtype, prefix_dtype=None):
     """Validate a fused-attention call on CUDA tensors; returns the
     generated-slot read count min(step, e_cap)."""
     B, D = q.shape
     L, N, K, Dp = pk.shape
     Bg, Lg, E, Dg = gk.shape
+    prefix_dtype = prefix_dtype or q.dtype
     if any(t.dtype != q.dtype or t.device != q.device
-           for t in (k_new, v_new, pk, pv)) or \
+           for t in (k_new, v_new)) or \
+            any(t.dtype != prefix_dtype or t.device != q.device
+                for t in (pk, pv)) or \
             any(t.dtype != gen_dtype or t.device != q.device
                 for t in (gk, gv)):
         raise ValueError("decode attention takes one dtype and device "
-                         "(an int8 generated cache under K6)")
+                         "(int8 levels where the cache is quantised)")
     if (Dp, Dg, Bg, Lg) != (D, D, B, L) or B != N * R or \
             pv.shape != pk.shape or gv.shape != gk.shape:
         raise ValueError("shape mismatch: q [N*R, D], pk/pv [L, N, K, D], "
@@ -207,3 +222,154 @@ def beam_decode_attention_rowmajor_q(
 
 
 beam_decode_attention_rowmajor_q.launches = 0
+
+
+def _check_chunks(q, gk, R, chunk, pks=None, pvs=None):
+    """The TPU kernels' shape rules (decode_attention.py:505-508), and an
+    int8 prefix's scales given as a pair."""
+    B, E = q.shape[0], gk.shape[2]
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if B % R:
+        raise ValueError(f"batch {B} is not a multiple of beams_per_image {R}")
+    if E % chunk:
+        raise ValueError(f"E ({E}) must be a multiple of chunk ({chunk})")
+    if (pks is None) != (pvs is None):
+        raise ValueError("an int8 prefix takes both pks and pvs")
+
+
+def _chunk_reads(step, chunk, E):
+    """The generated slots a chunked read covers: the chunks below `step`
+    (at least one; slots at or above `step` are masked)."""
+    return min(E, max(chunk, -(-step // chunk) * chunk))
+
+
+def _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
+                   chunk, gen_dtype, prefix_dtype=None):
+    """Validate a K8/K9 call on CUDA tensors; returns the generated-slot
+    read count (`step`)."""
+    n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
+                        hd, None, gen_dtype, prefix_dtype)
+    if hd not in (32, 64, 128) or q.shape[1] % 16 or gk.data_ptr() % 16 \
+            or gv.data_ptr() % 16:
+        raise ValueError("K8/K9 read 16 values per load: head_dim in "
+                         "{32, 64, 128}, D % 16 == 0, aligned caches")
+    return n_gen
+
+
+def beam_decode_attention_chunked_plain(
+        q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+        pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
+        gv: torch.Tensor, step: int, layer: int, *, beams_per_image: int,
+        head_dim: int, chunk: int = 8) -> torch.Tensor:
+    """Plain PyTorch version of K8 (same signature and result): the
+    attention math over the chunks below `step`."""
+    _check_chunks(q, gk, beams_per_image, chunk)
+    return _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer,
+                            beams_per_image, head_dim,
+                            _chunk_reads(step, chunk, gk.shape[2]))
+
+
+def beam_decode_attention_chunked(
+        q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+        pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
+        gv: torch.Tensor, step: int, layer: int, *, beams_per_image: int,
+        head_dim: int, chunk: int = 8) -> torch.Tensor:
+    """Slot-bounded fused decode attention (v3) over row-major caches.
+
+    The contract of `beam_decode_attention_rowmajor` without `e_cap`: the
+    generated cache is read in `chunk`-slot tiles, only below `step`, with
+    an online softmax. E must be a multiple of `chunk` and the batch of
+    `beams_per_image`. Returns f32 [B, D]."""
+    if _build.on_cpu(q):
+        return beam_decode_attention_chunked_plain(
+            q, k_new, v_new, pk, pv, gk, gv, step, layer,
+            beams_per_image=beams_per_image, head_dim=head_dim, chunk=chunk)
+    R, hd = beams_per_image, head_dim
+    _check_chunks(q, gk, R, chunk)
+    n_gen = _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
+                           hd, chunk, q.dtype)
+    B, D = q.shape
+    L, N, K, _ = pk.shape
+    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
+    lib = _build.library()
+    _build.check(lib.capdec_beam_decode_attention_chunked(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
+        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+        out.data_ptr(), N, R, L, K, gk.shape[2], D, hd, layer, n_gen, chunk,
+        _build.dtype_code(q), _build.stream(q.device)),
+        "beam_decode_attention_chunked")
+    beam_decode_attention_chunked.launches += 1
+    return out
+
+
+beam_decode_attention_chunked.launches = 0
+
+
+def beam_decode_attention_chunked_q_plain(
+        q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+        pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
+        gv: torch.Tensor, gks: torch.Tensor, gvs: torch.Tensor, step: int,
+        layer: int, *, beams_per_image: int, head_dim: int, chunk: int = 8,
+        pks: Optional[torch.Tensor] = None,
+        pvs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K9 (same signature and result)."""
+    _check_chunks(q, gk, beams_per_image, chunk, pks, pvs)
+    return _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer,
+                            beams_per_image, head_dim,
+                            _chunk_reads(step, chunk, gk.shape[2]), gks, gvs,
+                            pks, pvs)
+
+
+def beam_decode_attention_chunked_q(
+        q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+        pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
+        gv: torch.Tensor, gks: torch.Tensor, gvs: torch.Tensor, step: int,
+        layer: int, *, beams_per_image: int, head_dim: int, chunk: int = 8,
+        pks: Optional[torch.Tensor] = None,
+        pvs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`beam_decode_attention_chunked` over an int8 generated cache (levels
+    gk/gv int8 [B, L, E, D]; scales gks/gvs f32 [B, L, 1, E]).
+
+    With pks/pvs (f32 [L, N, 1, K], from gpt2.quantize_prefix_cache) the
+    prefix pk/pv is int8 levels too: its K scale multiplies the score
+    after the head sum and its V scale folds into the prefix probability.
+    Returns f32 [B, D]."""
+    if _build.on_cpu(q):
+        return beam_decode_attention_chunked_q_plain(
+            q, k_new, v_new, pk, pv, gk, gv, gks, gvs, step, layer,
+            beams_per_image=beams_per_image, head_dim=head_dim, chunk=chunk,
+            pks=pks, pvs=pvs)
+    R, hd = beams_per_image, head_dim
+    _check_chunks(q, gk, R, chunk, pks, pvs)
+    int8_prefix = pks is not None
+    n_gen = _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
+                           hd, chunk, torch.int8,
+                           torch.int8 if int8_prefix else None)
+    B, D = q.shape
+    L, N, K, _ = pk.shape
+    E = gk.shape[2]
+    for s in (gks, gvs):
+        if s.shape != (B, L, 1, E) or s.dtype != torch.float32 or \
+                s.device != q.device or not s.is_contiguous():
+            raise ValueError("gks/gvs must be contiguous f32 [B, L, 1, E]")
+    for s in ((pks, pvs) if int8_prefix else ()):
+        if s.shape != (L, N, 1, K) or s.dtype != torch.float32 or \
+                s.device != q.device or not s.is_contiguous():
+            raise ValueError("pks/pvs must be contiguous f32 [L, N, 1, K]")
+    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
+    lib = _build.library()
+    _build.check(lib.capdec_beam_decode_attention_chunked_q(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
+        pk.data_ptr(), pv.data_ptr(),
+        pks.data_ptr() if int8_prefix else None,
+        pvs.data_ptr() if int8_prefix else None,
+        gk.data_ptr(), gv.data_ptr(), gks.data_ptr(), gvs.data_ptr(),
+        out.data_ptr(), N, R, L, K, E, D, hd, layer, n_gen, chunk,
+        _build.dtype_code(q), _build.stream(q.device)),
+        "beam_decode_attention_chunked_q")
+    beam_decode_attention_chunked_q.launches += 1
+    return out
+
+
+beam_decode_attention_chunked_q.launches = 0

@@ -17,9 +17,10 @@ batches:
   * Per-request latency (enqueue -> caption yielded); p50/p95/p99 via
     `latency_percentiles()`.
 
-The decode engine is the beam engine with its BeamConfig knobs, the int8
-KV cache (`kv_cache_int8`) included. The server runs on the CUDA device
-unless it is given `device="cpu"`.
+The decode engine is the beam engine with its BeamConfig knobs (the int8
+KV cache and the slot-bounded kernels included), or with `beam=False`
+greedy/top-p decoding with its ToppConfig knobs. The server runs on the
+CUDA device unless it is given `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .decode import BeamConfig, beam_search, beam_top_select
+from .decode import (BeamConfig, ToppConfig, beam_search, beam_top_select,
+                     greedy_topp_search)
 from .decode.beam import cast_params_for_decode
 from .models import caption_model
 from .utils.torch_setup import resolve_device
@@ -46,7 +48,7 @@ LATENCY_WINDOW = 100_000
 class ServeConfig:
     batch_size: int = 64
     max_wait_s: float = 0.05
-    # Beam search; greedy/top-p decoding (False) is not ported yet.
+    # Beam search (True) or greedy/top-p decoding (False).
     beam: bool = True
     normalize_prefix: bool = True
     # Request-queue capacity: producers (the `requests` feeder thread and
@@ -55,6 +57,7 @@ class ServeConfig:
     # Multi-device serving is not ported yet; must stay None.
     mesh: Optional[Any] = None
     beam_config: BeamConfig = dataclasses.field(default_factory=BeamConfig)
+    topp_config: ToppConfig = dataclasses.field(default_factory=ToppConfig)
 
 
 def _l2norm(x, axis=-1):
@@ -66,7 +69,7 @@ class _Shutdown:
 
 
 class CaptionServer:
-    """Caption CLIP embeddings with fixed-shape batched beam decode.
+    """Caption CLIP embeddings with fixed-shape batched decode.
 
     `caption(embeds)` is the synchronous core (pads to the fixed batch).
     `serve(requests)` is the continuous-batching loop: an iterable of
@@ -79,10 +82,6 @@ class CaptionServer:
                  model_cfg: caption_model.CaptionModelConfig,
                  tokenizer, cfg: ServeConfig = ServeConfig(),
                  device=None):
-        if not cfg.beam:
-            raise NotImplementedError(
-                "greedy/top-p serving (beam=False) is not ported yet "
-                "(ROADMAP.md Queue 1, item 7: greedy and top-p)")
         if cfg.mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving is not ported yet "
@@ -109,11 +108,14 @@ class CaptionServer:
         self._latencies = []
 
     def _decode(self, x: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Rank-0 beam tokens [N, E] and lengths [N] of the padded batch,
-        selected on the device."""
+        """Caption tokens [N, E] and lengths [N] of the padded batch: the
+        rank-0 beams, selected on the device, or the greedy rows."""
         prefix = caption_model.map_prefix(
             self._model, self._model_cfg,
             torch.from_numpy(x).to(self._device))
+        if not self._cfg.beam:
+            return greedy_topp_search(self._gpt, self._model_cfg.gpt2,
+                                      prefix, self._cfg.topp_config)
         toks, lens, _, order = beam_search(self._gpt, self._model_cfg.gpt2,
                                            prefix, self._cfg.beam_config)
         return beam_top_select(toks, lens, order)
@@ -124,7 +126,7 @@ class CaptionServer:
         """Start decoding `embeds` [n, D] (n <= batch_size, padded to the
         fixed shape) and return a finisher that waits for the decode,
         copies the rank-0 beams to the host and detokenizes the n
-        captions. The beam loop drives the card from the host step by
+        captions. The decode loop drives the card from the host step by
         step, so the decode runs on `pool`'s thread when one is given (the
         serve loop's batch in flight) and here otherwise."""
         cfg = self._cfg

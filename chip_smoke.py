@@ -6,34 +6,38 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. The card's name and power limit (nvidia-smi) and the build of the
      hand-written kernels from capdec_tpu_torch/csrc.
-  2. Each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, in bf16 and f32 (K5-K7 also over int8 caches);
-     the kernel's time beside the plain version's, one PyTorch library
-     call's where one computes the same function, and the bound (the
-     least time the card could take).
-  3. The main path: a CaptionServer on full-width weights made from a
+  2. Each kernel (K1-K9, K13) against its plain PyTorch version on the
+     card, at the served paths' shapes, in bf16 and f32 (int8 caches for
+     K5-K7 and K9, with and without K9's int8 prefix; NaN in the slots or
+     scales the attention kernels must not read); the kernel's time beside
+     the plain version's, one PyTorch library call's where one computes
+     the same function, and the bound (the least time the card could
+     take). The slot writes K3, K5 and K13 are timed over inputs and
+     slots rotated through more than twice the L2, so that they read
+     device memory as their bound assumes.
+  3. The served paths: a CaptionServer on full-width weights made from a
      seed (GPT-2 124M + the 8-layer TransformerMapper, prefix 640 -> 40,
-     bf16, beam 5, entry_length 67) serves 128 requests. The kernels'
-     launch counters are zeroed just before and read just after; every
-     kernel of the path (K1-K4) must have launched, and no other.
-  3b. The int8-KV path: the same weights served with
-     BeamConfig(kv_cache_int8=True) (staged cache growth), 128 requests;
-     K1, K5, K6 and K7 must have launched, and K2-K4 not.
-  4. Token identity: 8 images decoded in f32 through the kernels and
-     through the plain versions, both on the card, give identical tokens.
-     The share of tokens the bf16 path shares with f32 is reported.
-  4b. A batch of 64 images through the int8 path in f32, kernels against
-     plain: the top-beam token share must be >= 0.98 (a level that rounds
-     the other way may move a near-tie; exact identity is reported). A
-     whole batch, since one early divergence in 8 images moves the share
-     by up to 12%. The share the int8 path shares with the bf16 path is
-     reported.
+     bf16, batch 64, entry_length 67) serves 128 requests on each path;
+     the kernels' launch counters are zeroed just before each and read
+     just after, and each path must have launched its kernels and no
+     other: beam 5 (K1-K4); int8 KV (K1, K5-K7); (a) slot-bounded beam,
+     fused_slot_chunks=8 (K1, K8, K3, K4); (b) its int8 form with the
+     int8 prefix (K1, K9, K5, K4); (c) greedy, the default ToppConfig
+     (K1); (d) greedy with chunk_slot_write (K1, K13); (e) greedy's fused
+     chunked int8 route (K1, K9, K5).
+  4. Kernels against plain versions over whole decodes, in f32: 8 images
+     on the beam path, (a), (c) and (d) give identical tokens (the bf16
+     path's token share with f32 is reported); a batch of 64 images on
+     the int8 path, (b) and (e) shares >= 0.98 of the top-beam (greedy:
+     all) tokens (a level that rounds the other way may move a near-tie;
+     exact identity and the share with the fp path are reported).
   5. A JSON line of the kernels, then {"ok": true, "device": ...} last.
 Without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -81,6 +85,18 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rotating(fn, n: int):
+    """A call of fn(i) for i = 0, 1, 2, ... mod n: each call touches other
+    buffers or slots, so that a pass over them exceeds the card's 50 MB
+    L2 and the timed calls read device memory, as their bound assumes."""
+    count = itertools.count()
+    return lambda: fn(next(count) % n)
+
+
+# Bytes a rotation must cover: twice the H100's L2.
+L2_FLUSH_BYTES = 100 * 2 ** 20
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -94,6 +110,53 @@ def require(cond: bool, what: str) -> None:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def n_kv_sets(shape) -> int:
+    """How many bf16 (new_k, new_v) pairs of `shape` one pass must read
+    to read more than L2_FLUSH_BYTES."""
+    return -(-L2_FLUSH_BYTES // (2 * int(np.prod(shape)) * 2))
+
+
+def new_kv_sets(gen, shape):
+    """n_kv_sets(shape) random bf16 (new_k, new_v) pairs of `shape`."""
+    return [tuple(torch.randn(*shape, generator=gen, device=DEVICE).to(
+        torch.bfloat16) for _ in range(2)) for _ in range(n_kv_sets(shape))]
+
+
+def slot_write_times(gen, kernel, plain, k, v, shape):
+    """Time a bf16 slot write (K3, K13), its plain version and
+    `index_copy_` on the slot axis: call i writes new K/V set i of a
+    rotation into slot i mod E of the caches k/v. Also the bound: the new
+    K/V read once and written once."""
+    E = k.shape[2]
+    sets = new_kv_sets(gen, shape)
+    idx = [torch.tensor([s], device=DEVICE) for s in range(E)]
+    n = len(sets)
+
+    def call(fn):
+        return rotating(lambda i: fn(k, v, *sets[i % n], i % E), n * E)
+
+    def library(i):
+        nk, nv = sets[i % n]
+        k.index_copy_(2, idx[i % E], nk.unsqueeze(2))
+        v.index_copy_(2, idx[i % E], nv.unsqueeze(2))
+
+    b_ms, b_by = bound_ms(2 * 2 * int(np.prod(shape)) * 2, 0, torch.bfloat16)
+    return dict(ms=time_ms(call(kernel)), plain_ms=time_ms(call(plain)),
+                library_ms=time_ms(rotating(library, n * E)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def sdpa_ms(q, keys, vals, H) -> float:
+    """Time of scaled_dot_product_attention of rows q [B, D] over keys and
+    values [B, S, D] concatenated beforehand: the attention kernels'
+    library yardstick."""
+    B, S, D = keys.shape
+    heads = lambda t, s: t.reshape(B, s, H, D // H).transpose(1, 2)
+    sq, sk, sv = heads(q.contiguous(), 1), heads(keys, S), heads(vals, S)
+    return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv))
 
 
 # ---------------------------------------------------------------------------
@@ -182,15 +245,12 @@ def check_decode_attention(gen):
     args = (q, kn, vn, pk, pv, gk, gv, step, layer)
     kw = dict(beams_per_image=R, head_dim=hd, e_cap=E)
     # library yardstick: SDPA over the same keys, pre-concatenated per beam
-    heads = lambda t, s: t.reshape(B, s, H, hd).transpose(1, 2)
     keys = torch.cat([pk[layer].repeat_interleave(R, 0),
                       gk[:, layer, :step], kn[:, None]], 1)
     vals = torch.cat([pv[layer].repeat_interleave(R, 0),
                       gv[:, layer, :step], vn[:, None]], 1)
     S = K + step + 1
-    sq, sk, sv = heads(q.contiguous(), 1), heads(keys, S), heads(vals, S)
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv))
+    lib = sdpa_ms(q, keys, vals, H)
     nbytes = (3 * B * D + 2 * N * K * D + 2 * B * step * D) * 2 + B * D * 4
     b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * S, torch.bfloat16)
     return dict(
@@ -251,21 +311,17 @@ def check_cache_kernels(gen):
                 torch.equal(a["k"][:, :, count:], k0[:, :, count:]),
                 f"K4 {dtype}: touched rows or slots outside its contract")
         out[dtype] = (k0, v0, nk, nv)
-    k0, v0, nk, nv = out[torch.bfloat16]
-    idx = torch.tensor([step], device=DEVICE)
-    b3, by3 = bound_ms(4 * B * L * D * 2, 0, torch.bfloat16)
+    k0, v0, _, _ = out[torch.bfloat16]
+    # timed over rotating new K/V sets and slots (no pass fits in L2)
     k3 = dict(
         name="write_gen_slot_chunk", route="cuda",
         source="capdec_tpu_torch/csrc/cache_reorder.cu",
         replaces="capdec_tpu/ops/cache_reorder.py:355",
         max_abs_err=0.0, max_abs_err_f32=0.0,
-        ms=time_ms(lambda: cr.write_gen_slot_chunk(k0, v0, nk, nv, step)),
-        plain_ms=time_ms(
-            lambda: cr.write_gen_slot_chunk_plain(k0, v0, nk, nv, step)),
-        bound_ms=b3, bound_by=by3,
-        library_ms=time_ms(lambda: (k0.index_copy_(2, idx, nk[:, :, None]),
-                                    v0.index_copy_(2, idx, nv[:, :, None]))),
-        shape=f"B={B} L={L} E={E} D={D} bf16")
+        **slot_write_times(gen, cr.write_gen_slot_chunk,
+                           cr.write_gen_slot_chunk_plain, k0, v0, (B, L, D)),
+        shape=f"B={B} L={L} E={E} D={D} bf16, inputs rotated over "
+              f">{L2_FLUSH_BYTES >> 20} MiB and the {E} slots")
     # each source row is read once, each forked row written once
     forks = int(forked.sum())
     sources = int(src[forked].unique().numel())
@@ -319,11 +375,15 @@ def check_quantising_write(gen):
             require(torch.equal(a["k"][:, :, other], k0[:, :, other]) and
                     torch.equal(a["vs"][..., other], vs0[..., other]),
                     f"K5 {dtype} step {step}: touched another slot")
-        if dtype == torch.bfloat16:
-            timed = (nk, nv)
-    nk, nv = timed
-    step = MAIN["entry_length"] - 1
     k, v, ks, vs = k0.clone(), v0.clone(), ks0.clone(), vs0.clone()
+    # timed over rotating bf16 new K/V sets and slots (no pass fits in L2)
+    sets = new_kv_sets(gen, (B, L, D))
+    n = len(sets)
+
+    def call(fn):
+        return rotating(lambda i: fn(k, v, ks, vs, *sets[i % n], i % E),
+                        n * E)
+
     # new K/V in (bf16), levels and scales out; ~6 f32 operations a value
     b_ms, b_by = bound_ms(2 * B * L * D * 2 + 2 * B * L * (D + 4),
                           6.0 * 2 * B * L * D, torch.float32)
@@ -332,13 +392,12 @@ def check_quantising_write(gen):
         source="capdec_tpu_torch/csrc/cache_reorder.cu",
         replaces="capdec_tpu/ops/cache_reorder.py:413",
         max_abs_err=0.0, max_abs_err_f32=0.0,
-        ms=time_ms(lambda: cr.write_gen_slot_chunk_q(k, v, ks, vs, nk, nv,
-                                                     step)),
-        plain_ms=time_ms(lambda: cr.write_gen_slot_chunk_q_plain(
-            k, v, ks, vs, nk, nv, step)),
+        ms=time_ms(call(cr.write_gen_slot_chunk_q)),
+        plain_ms=time_ms(call(cr.write_gen_slot_chunk_q_plain)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_note="null: no one PyTorch call quantises and writes a slot",
-        shape=f"B={B} L={L} E={E} D={D} step={step} bf16 -> int8")
+        shape=f"B={B} L={L} E={E} D={D} bf16 -> int8, inputs rotated over "
+              f"{n} sets and the {E} slots")
 
 
 def check_int8_attention(gen):
@@ -385,7 +444,6 @@ def check_int8_attention(gen):
     kw = dict(beams_per_image=R, head_dim=hd, e_cap=E)
     # library yardstick: SDPA over keys and values dequantised and
     # concatenated beforehand, as for K2
-    heads = lambda t, s: t.reshape(B, s, H, hd).transpose(1, 2)
     deq = lambda g, sc: (g[:, layer, :step].float()
                          * sc[:, layer, 0, :step, None]).to(q.dtype)
     keys = torch.cat([pk[layer].repeat_interleave(R, 0), deq(gk, gks),
@@ -393,9 +451,7 @@ def check_int8_attention(gen):
     vals = torch.cat([pv[layer].repeat_interleave(R, 0), deq(gv, gvs),
                       vn[:, None]], 1)
     S = K + step + 1
-    sq, sk, sv = heads(q.contiguous(), 1), heads(keys, S), heads(vals, S)
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv))
+    lib = sdpa_ms(q, keys, vals, H)
     nbytes = ((3 * B * D + 2 * N * K * D) * 2 + 2 * B * step * D
               + 2 * B * step * 4 + B * D * 4)
     b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * S, torch.bfloat16)
@@ -453,13 +509,217 @@ def check_whole_row_fork(gen):
               "int8")
 
 
+def check_chunked_attention(gen):
+    """K8 against its plain version: bf16 and f32, steps 1, 8, 17 and 66
+    with NaN in the slots it must not read, R = 5 (beam) and R = 1
+    (greedy's fused route)."""
+    from capdec_tpu_torch.ops import decode_attention as da
+    N, R, L, K, E, D, H = (MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
+                                             "H"))
+    hd, layer = D // H, L // 2
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        err = 0.0
+        for r in (R, 1):
+            B = N * r
+            q, kn, vn = rand(B, 3 * D, dtype=dtype).split(D, dim=-1)
+            pk, pv = (rand(L, N, K, D, dtype=dtype) for _ in range(2))
+            gk0, gv0 = (rand(B, L, E, D, dtype=dtype) for _ in range(2))
+            for step in (1, 8, 17, MAIN["entry_length"] - 1):
+                gk, gv = gk0.clone(), gv0.clone()
+                gk[:, :, step:] = float("nan")  # never read
+                gv[:, :, step:] = float("nan")
+                args = (q, kn, vn, pk, pv, gk, gv, step, layer)
+                kw = dict(beams_per_image=r, head_dim=hd, chunk=8)
+                out = da.beam_decode_attention_chunked(*args, **kw)
+                ref = da.beam_decode_attention_chunked_plain(*args, **kw)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(out).all()),
+                        f"K8 {dtype} R={r} step {step}: non-finite output")
+                require(torch.allclose(out, ref, atol=tol, rtol=tol),
+                        f"K8 {dtype} R={r} step {step}: max abs err "
+                        f"{max_err(out, ref)}")
+                err = max(err, max_err(out, ref))
+            if dtype == torch.bfloat16 and r == R:
+                timed = (q, kn, vn, pk, pv, gk, gv)
+        errs[dtype] = err
+    # time the longest read of the beam path (step 66; the NaN tail
+    # lies above it)
+    q, kn, vn, pk, pv, gk, gv = timed
+    B, step = N * R, MAIN["entry_length"] - 1
+    args = (q, kn, vn, pk, pv, gk, gv, step, layer)
+    kw = dict(beams_per_image=R, head_dim=hd, chunk=8)
+    keys = torch.cat([pk[layer].repeat_interleave(R, 0),
+                      gk[:, layer, :step], kn[:, None]], 1)
+    vals = torch.cat([pv[layer].repeat_interleave(R, 0),
+                      gv[:, layer, :step], vn[:, None]], 1)
+    nbytes = (3 * B * D + 2 * N * K * D + 2 * B * step * D) * 2 + B * D * 4
+    b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * (K + step + 1),
+                          torch.bfloat16)
+    return dict(
+        name="beam_decode_attention_chunked", route="cuda",
+        source="capdec_tpu_torch/csrc/decode_attention_chunked.cu",
+        replaces="capdec_tpu/ops/decode_attention.py:484",
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_f32=errs[torch.float32],
+        ms=time_ms(lambda: da.beam_decode_attention_chunked(*args, **kw)),
+        plain_ms=time_ms(
+            lambda: da.beam_decode_attention_chunked_plain(*args, **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms(q, keys, vals, H),
+        library_note="scaled_dot_product_attention on keys concatenated "
+                     "beforehand",
+        shape=f"N={N} R={R} K={K} step={step} E={E} chunk=8 D={D} bf16")
+
+
+def check_chunked_int8_attention(gen):
+    """K9 against its plain version over random int8 levels with NaN
+    scales at the slots it must not read: bf16 and f32, with and without
+    the int8 prefix, R = 5 and R = 1, steps 1, 17 and 66. Timed at step
+    66, R = 5, for both prefix kinds; the kernel entry reports the int8
+    prefix (the served paths' kind) and the bf16 prefix's numbers beside
+    it."""
+    from capdec_tpu_torch.ops import decode_attention as da
+    N, R, L, K, E, D, H = (MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
+                                             "H"))
+    hd, layer = D // H, L // 2
+    scales = lambda *s: torch.rand(*s, generator=gen, device=DEVICE) * 3 / 127
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    errs, timed = {}, {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        err = 0.0
+        for r in (R, 1):
+            B = N * r
+            q, kn, vn = rand(B, 3 * D, dtype=dtype).split(D, dim=-1)
+            gk, gv = _int8(gen, B, L, E, D), _int8(gen, B, L, E, D)
+            gks0, gvs0 = scales(B, L, 1, E), scales(B, L, 1, E)
+            for int8_prefix in (False, True):
+                if int8_prefix:
+                    pk, pv = _int8(gen, L, N, K, D), _int8(gen, L, N, K, D)
+                    pre = dict(pks=scales(L, N, 1, K),
+                               pvs=scales(L, N, 1, K))
+                else:
+                    pk, pv = (rand(L, N, K, D, dtype=dtype)
+                              for _ in range(2))
+                    pre = {}
+                for step in (1, 17, MAIN["entry_length"] - 1):
+                    gks, gvs = gks0.clone(), gvs0.clone()
+                    gks[..., step:] = float("nan")  # never read
+                    gvs[..., step:] = float("nan")
+                    args = (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, layer)
+                    kw = dict(beams_per_image=r, head_dim=hd, chunk=8, **pre)
+                    out = da.beam_decode_attention_chunked_q(*args, **kw)
+                    ref = da.beam_decode_attention_chunked_q_plain(*args,
+                                                                   **kw)
+                    torch.cuda.synchronize()
+                    what = f"K9 {dtype} R={r} int8 prefix {int8_prefix} " \
+                           f"step {step}"
+                    require(bool(torch.isfinite(out).all()),
+                            f"{what}: non-finite output")
+                    require(torch.allclose(out, ref, atol=tol, rtol=tol),
+                            f"{what}: max abs err {max_err(out, ref)}")
+                    err = max(err, max_err(out, ref))
+                if dtype == torch.bfloat16 and r == R:
+                    timed[int8_prefix] = (args, kw)
+        errs[dtype] = err
+    B, step = N * R, MAIN["entry_length"] - 1
+    res = {}
+    for int8_prefix, (args, kw) in timed.items():
+        q, kn, vn, pk, pv, gk, gv, gks, gvs = args[:9]
+        deq = lambda g, sc: (g[:, layer, :step].float()
+                             * sc[:, layer, 0, :step, None]).to(q.dtype)
+        if int8_prefix:
+            pdeq = lambda p, sc: (p[layer].float()
+                                  * sc[layer, :, 0, :, None]).to(q.dtype)
+            pkd, pvd = pdeq(pk, kw["pks"]), pdeq(pv, kw["pvs"])
+        else:
+            pkd, pvd = pk[layer], pv[layer]
+        keys = torch.cat([pkd.repeat_interleave(R, 0), deq(gk, gks),
+                          kn[:, None]], 1)
+        vals = torch.cat([pvd.repeat_interleave(R, 0), deq(gv, gvs),
+                          vn[:, None]], 1)
+        prefix_bytes = (2 * N * K * D + 2 * N * K * 4 if int8_prefix
+                        else 2 * N * K * D * 2)
+        nbytes = (3 * B * D * 2 + prefix_bytes + 2 * B * step * D
+                  + 2 * B * step * 4 + B * D * 4)
+        b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * (K + step + 1),
+                              torch.bfloat16)
+        res[int8_prefix] = dict(
+            ms=time_ms(lambda: da.beam_decode_attention_chunked_q(*args,
+                                                                  **kw)),
+            plain_ms=time_ms(
+                lambda: da.beam_decode_attention_chunked_q_plain(*args,
+                                                                 **kw)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=sdpa_ms(q, keys, vals, H))
+    return dict(
+        name="beam_decode_attention_chunked_q", route="cuda",
+        source="capdec_tpu_torch/csrc/decode_attention_chunked.cu",
+        replaces="capdec_tpu/ops/decode_attention.py:569",
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_f32=errs[torch.float32], **res[True],
+        bf16_prefix={k: res[False][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "library_ms")},
+        library_note="scaled_dot_product_attention on keys and values "
+                     "dequantised and concatenated beforehand",
+        shape=f"N={N} R={R} K={K} step={step} E={E} chunk=8 D={D} bf16 q, "
+              "int8 cache and int8 prefix (bf16_prefix: a bf16 prefix)")
+
+
+def check_seqmajor_write(gen):
+    """K13 bit-identical to its plain version at the greedy path's shapes
+    (seq-major [L, N, E, D]); every other slot untouched."""
+    from capdec_tpu_torch.ops import cache_reorder as cr
+    N, L, E, D = (MAIN[k] for k in ("N", "L", "E", "D"))
+    for dtype in (torch.bfloat16, torch.float32):
+        rand = lambda *s: torch.randn(*s, generator=gen,
+                                      device=DEVICE).to(dtype)
+        k0, v0 = rand(L, N, E, D), rand(L, N, E, D)
+        nk, nv = rand(L, N, D), rand(L, N, D)
+        for step in (0, 7, 8, MAIN["entry_length"] - 1):
+            a = cr.write_gen_slot_chunk_seqmajor(k0.clone(), v0.clone(), nk,
+                                                 nv, step)
+            b = cr.write_gen_slot_chunk_seqmajor_plain(k0.clone(),
+                                                       v0.clone(), nk, nv,
+                                                       step)
+            torch.cuda.synchronize()
+            require(torch.equal(a["k"], b["k"]) and
+                    torch.equal(a["v"], b["v"]),
+                    f"K13 {dtype} step {step}: slot write differs from the "
+                    "plain version")
+            other = torch.arange(E, device=DEVICE) != step
+            require(torch.equal(a["v"][:, :, other], v0[:, :, other]),
+                    f"K13 {dtype} step {step}: touched another slot")
+        if dtype == torch.bfloat16:
+            k, v = k0, v0
+    n = n_kv_sets((L, N, D))
+    return dict(
+        name="write_gen_slot_chunk_seqmajor", route="cuda",
+        source="capdec_tpu_torch/csrc/cache_reorder.cu",
+        replaces="capdec_tpu/ops/cache_reorder.py:380",
+        max_abs_err=0.0, max_abs_err_f32=0.0,
+        **slot_write_times(gen, cr.write_gen_slot_chunk_seqmajor,
+                           cr.write_gen_slot_chunk_seqmajor_plain, k, v,
+                           (L, N, D)),
+        shape=f"L={L} B={N} E={E} D={D} bf16 (seq-major), inputs rotated "
+              f"over {n} sets and the {E} slots")
+
+
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: the main path
+# Phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
 
 
-def build_server(gen, kv_cache_int8=False, model=None):
-    """The main path's server; `model` reuses weights made before."""
+def build_server(gen, model=None, beam=True, **knobs):
+    """The main path's server: BeamConfig(**knobs), or with beam=False
+    greedy/top-p decoding with ToppConfig(**knobs). `model` reuses weights
+    made before. Returns (server, model, cfg, the decode config)."""
     from capdec_tpu_torch import serve
     from capdec_tpu_torch.models import caption_model, gpt2
     from capdec_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -472,14 +732,17 @@ def build_server(gen, kv_cache_int8=False, model=None):
                              compute_dtype=torch.bfloat16))
     if model is None:
         model = caption_model.init_params(cfg, gen, device=DEVICE)
-    bc = serve.BeamConfig(beam_size=MAIN["R"],
-                          entry_length=MAIN["entry_length"],
-                          kv_cache_int8=kv_cache_int8)
-    server = serve.CaptionServer(model, cfg, ByteTokenizer(),
-                                 serve.ServeConfig(batch_size=MAIN["N"],
-                                                   beam_config=bc),
+    E = MAIN["entry_length"]
+    if beam:
+        dc = serve.BeamConfig(beam_size=MAIN["R"], entry_length=E, **knobs)
+        sc = serve.ServeConfig(batch_size=MAIN["N"], beam_config=dc)
+    else:
+        dc = serve.ToppConfig(entry_length=E, **knobs)
+        sc = serve.ServeConfig(batch_size=MAIN["N"], beam=False,
+                               topp_config=dc)
+    server = serve.CaptionServer(model, cfg, ByteTokenizer(), sc,
                                  device=DEVICE)
-    return server, model, cfg, bc
+    return server, model, cfg, dc
 
 
 def counters():
@@ -493,17 +756,47 @@ def counters():
             "write_gen_slot_chunk_q": cache_reorder.write_gen_slot_chunk_q,
             "beam_decode_attention_rowmajor_q":
                 decode_attention.beam_decode_attention_rowmajor_q,
-            "copy_forked_rows": cache_reorder.copy_forked_rows}
+            "copy_forked_rows": cache_reorder.copy_forked_rows,
+            "beam_decode_attention_chunked":
+                decode_attention.beam_decode_attention_chunked,
+            "beam_decode_attention_chunked_q":
+                decode_attention.beam_decode_attention_chunked_q,
+            "write_gen_slot_chunk_seqmajor":
+                cache_reorder.write_gen_slot_chunk_seqmajor}
 
 
-# The kernels each served path must launch; the others must not launch.
-BF16_PATH = ("lm_head_topk", "beam_decode_attention_rowmajor",
-             "write_gen_slot_chunk", "copy_forked_rows_bounded")
-INT8_PATH = ("lm_head_topk", "write_gen_slot_chunk_q",
-             "beam_decode_attention_rowmajor_q", "copy_forked_rows")
+# The served paths: (phase, beam search?, decode knobs, the kernels the
+# path must launch; the others must not launch).
+CHUNKED = dict(fused_slot_chunks=8)
+PATHS = (
+    ("main_path", True, {},
+     ("lm_head_topk", "beam_decode_attention_rowmajor",
+      "write_gen_slot_chunk", "copy_forked_rows_bounded")),
+    ("int8_path", True, dict(kv_cache_int8=True),
+     ("lm_head_topk", "write_gen_slot_chunk_q",
+      "beam_decode_attention_rowmajor_q", "copy_forked_rows")),
+    # (a) slot-bounded beam: staged growth, bounded fork copies
+    ("v3_path", True, CHUNKED,
+     ("lm_head_topk", "beam_decode_attention_chunked",
+      "write_gen_slot_chunk", "copy_forked_rows_bounded")),
+    # (b) slot-bounded int8 beam; int8_prefix resolves on
+    ("v3_int8_path", True, dict(kv_cache_int8=True, **CHUNKED),
+     ("lm_head_topk", "beam_decode_attention_chunked_q",
+      "write_gen_slot_chunk_q", "copy_forked_rows_bounded")),
+    # (c) greedy, the default ToppConfig (--no_beam)
+    ("greedy_path", False, {}, ("lm_head_topk",)),
+    # (d) greedy with the seq-major kernel slot write
+    ("greedy_k13_path", False, dict(chunk_slot_write=True),
+     ("lm_head_topk", "write_gen_slot_chunk_seqmajor")),
+    # (e) greedy's fused chunked int8 route, int8 prefix
+    ("greedy_int8_path", False,
+     dict(fused_attention=True, kv_cache_int8=True, **CHUNKED),
+     ("lm_head_topk", "beam_decode_attention_chunked_q",
+      "write_gen_slot_chunk_q")),
+)
 
 
-def serve_main_path(server, embeds, path):
+def serve_path(server, embeds, path):
     for fn in counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -513,12 +806,12 @@ def serve_main_path(server, embeds, path):
     launches = {name: fn.launches for name, fn in counters().items()}
     require(sorted(got) == list(range(len(embeds))) and
             all(isinstance(t, str) for t in got.values()),
-            "main path: every request must get one caption")
+            "served path: every request must get one caption")
     for name, n in launches.items():
         if name in path:
-            require(n > 0, f"main path: kernel {name} was never launched")
+            require(n > 0, f"served path: kernel {name} was never launched")
         else:
-            require(n == 0, f"main path: kernel {name} is not on this "
+            require(n == 0, f"served path: kernel {name} is not on this "
                             f"path but launched {n} times")
     pct = server.latency_percentiles()
     return dict(served=len(got), wall_s=wall,
@@ -527,16 +820,20 @@ def serve_main_path(server, embeds, path):
                 batches=server.stats["batches"], launches=launches)
 
 
-def top_beam_share(a, b) -> float:
-    """Share of top-beam token positions (up to the longer of the two
-    lengths) at which two beam_search results agree."""
-    from capdec_tpu_torch.decode import beam_top_select
-    ta, la = beam_top_select(a[0], a[1], a[3])
-    tb, lb = beam_top_select(b[0], b[1], b[3])
+def token_share(ta, la, tb, lb) -> float:
+    """Share of token positions (up to the longer of two lengths) at which
+    two decodes [N, E] agree."""
     span = torch.maximum(la, lb).long()
     pos = torch.arange(ta.shape[1], device=ta.device)[None]
     mask = pos < span[:, None]
     return float(((ta == tb) & mask).sum() / mask.sum())
+
+
+def top_beam_share(a, b) -> float:
+    """token_share of the top beams of two beam_search results."""
+    from capdec_tpu_torch.decode import beam_top_select
+    return token_share(*beam_top_select(a[0], a[1], a[3]),
+                       *beam_top_select(b[0], b[1], b[3]))
 
 
 def mapped_prefix(model, cfg, embeds):
@@ -547,56 +844,71 @@ def mapped_prefix(model, cfg, embeds):
         model, cfg, torch.from_numpy(x.astype(np.float32)).to(DEVICE))
 
 
-def token_identity(model, cfg, bc, bf16_gpt, embeds):
-    from capdec_tpu_torch.decode import beam_search
-    prefix = mapped_prefix(model, cfg, embeds)
-    cfg32 = dataclasses.replace(cfg.gpt2, compute_dtype=torch.float32)
-    kern = beam_search(model.gpt, cfg32, prefix, bc)
-    plain = beam_search(model.gpt, cfg32, prefix, bc.plain())
-    torch.cuda.synchronize()
-    for what, a, b in zip(("tokens", "lengths", "order"),
-                          (kern[0], kern[1], kern[3]),
-                          (plain[0], plain[1], plain[3])):
-        require(torch.equal(a, b), f"f32 token identity: {what} differ "
-                                   "between the kernels and the plain path")
-    score_err = max_err(kern[2], plain[2])
-    require(score_err <= 1e-4, f"f32 scores differ by {score_err}")
-    bf16 = beam_search(bf16_gpt, cfg.gpt2, prefix, bc)
-    return dict(images=len(embeds), f32_identical=True,
-                f32_score_max_abs_err=score_err,
-                bf16_f32_top_beam_token_share=top_beam_share(kern, bf16))
+def _decode(beam, gpt, gpt_cfg, prefix, dc):
+    """beam_search, or greedy_topp_search as (tokens, lengths)."""
+    from capdec_tpu_torch.decode import beam_search, greedy_topp_search
+    return (beam_search if beam else greedy_topp_search)(gpt, gpt_cfg,
+                                                         prefix, dc)
 
 
-def int8_agreement(model, cfg, bc, bc8, bf16_gpt, embeds):
-    """The int8 path in f32, kernels against plain (share >= 0.98), and
-    the int8 path's top beams against the bf16 path's (reported)."""
-    from capdec_tpu_torch.decode import beam_search
+def _share(beam, a, b) -> float:
+    return top_beam_share(a, b) if beam else token_share(*a, *b)
+
+
+def token_identity(model, cfg, beam, dc, bf16_gpt, embeds):
+    """f32 through the kernels and through the plain versions: identical
+    tokens, lengths (and beam order; scores within 1e-4). Reports the
+    share of (top-beam) tokens the bf16 path shares with f32."""
     prefix = mapped_prefix(model, cfg, embeds)
     cfg32 = dataclasses.replace(cfg.gpt2, compute_dtype=torch.float32)
-    kern = beam_search(model.gpt, cfg32, prefix, bc8)
-    plain = beam_search(model.gpt, cfg32, prefix, bc8.plain())
+    kern = _decode(beam, model.gpt, cfg32, prefix, dc)
+    plain = _decode(beam, model.gpt, cfg32, prefix, dc.plain())
     torch.cuda.synchronize()
-    require(bool(torch.isfinite(kern[2]).all()),
-            "int8 f32: non-finite scores")
-    share = top_beam_share(kern, plain)
-    require(share >= 0.98, f"int8 f32 kernels vs plain: top-beam token "
-                           f"share {share} < 0.98")
-    identical = all(torch.equal(a, b) for a, b in
-                    zip((kern[0], kern[1], kern[3]),
-                        (plain[0], plain[1], plain[3])))
-    i8 = beam_search(bf16_gpt, cfg.gpt2, prefix, bc8)
-    fp = beam_search(bf16_gpt, cfg.gpt2, prefix, bc)
-    return dict(images=len(embeds), int8_f32_top_beam_token_share=share,
-                int8_f32_identical=identical,
-                int8_f32_score_max_abs_err=max_err(kern[2], plain[2]),
-                int8_bf16_vs_bf16_top_beam_token_share=top_beam_share(i8,
-                                                                      fp))
+    out = dict(images=len(embeds), f32_identical=True)
+    for what, i in (("tokens", 0), ("lengths", 1), ("order", 3))[
+            :3 if beam else 2]:
+        require(torch.equal(kern[i], plain[i]),
+                f"f32 token identity: {what} differ between the kernels "
+                "and the plain path")
+    if beam:
+        out["f32_score_max_abs_err"] = max_err(kern[2], plain[2])
+        require(out["f32_score_max_abs_err"] <= 1e-4,
+                f"f32 scores differ by {out['f32_score_max_abs_err']}")
+    bf16 = _decode(beam, bf16_gpt, cfg.gpt2, prefix, dc)
+    out["bf16_f32_token_share"] = _share(beam, kern, bf16)
+    return out
+
+
+def int8_agreement(model, cfg, beam, dc, dc8, bf16_gpt, embeds):
+    """An int8 path in f32, kernels against plain (top-beam, or greedy,
+    token share >= 0.98), and its bf16 run against the bf16 path of `dc`
+    (reported)."""
+    prefix = mapped_prefix(model, cfg, embeds)
+    cfg32 = dataclasses.replace(cfg.gpt2, compute_dtype=torch.float32)
+    kern = _decode(beam, model.gpt, cfg32, prefix, dc8)
+    plain = _decode(beam, model.gpt, cfg32, prefix, dc8.plain())
+    torch.cuda.synchronize()
+    if beam:
+        require(bool(torch.isfinite(kern[2]).all()),
+                "int8 f32: non-finite scores")
+    share = _share(beam, kern, plain)
+    require(share >= 0.98, f"int8 f32 kernels vs plain: token share "
+                           f"{share} < 0.98")
+    fields = (0, 1, 3) if beam else (0, 1)
+    i8 = _decode(beam, bf16_gpt, cfg.gpt2, prefix, dc8)
+    fp = _decode(beam, bf16_gpt, cfg.gpt2, prefix, dc)
+    return dict(images=len(embeds), int8_f32_token_share=share,
+                int8_f32_identical=all(torch.equal(kern[i], plain[i])
+                                       for i in fields),
+                int8_bf16_vs_bf16_token_share=_share(beam, i8, fp))
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from capdec_tpu_torch.decode.beam import cast_params_for_decode, \
+        resolve_config
     from capdec_tpu_torch.ops import _build
     from capdec_tpu_torch.utils.torch_setup import setup_torch
 
@@ -623,47 +935,69 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     kernels = [check_lm_head(gen), check_decode_attention(gen),
                *check_cache_kernels(gen), check_quantising_write(gen),
-               check_int8_attention(gen), check_whole_row_fork(gen)]
+               check_int8_attention(gen), check_whole_row_fork(gen),
+               check_chunked_attention(gen),
+               check_chunked_int8_attention(gen), check_seqmajor_write(gen)]
     for k in kernels:
         log(json.dumps({"phase": "kernel_check", **k}))
 
     # the weights have a generator of their own, so the checks above do
     # not change them (scripts/torch_serve_profile.py builds the same)
-    server, model, cfg, bc = build_server(
-        torch.Generator(device=DEVICE).manual_seed(SEED))
-    server.warmup()
     embeds = np.random.RandomState(SEED).randn(
         MAIN["requests"], MAIN["prefix_size"]).astype(np.float32)
-    main_path = serve_main_path(server, embeds, BF16_PATH)
-    log(json.dumps({"phase": "main_path", **main_path}))
-    server8, _, _, bc8 = build_server(None, kv_cache_int8=True, model=model)
-    server8.warmup()
-    int8_path = serve_main_path(server8, embeds, INT8_PATH)
-    log(json.dumps({"phase": "int8_path", **int8_path}))
+    model, configs, served = None, {}, {}
+    for phase, beam, knobs, path in PATHS:
+        server, model, cfg, dc = build_server(
+            torch.Generator(device=DEVICE).manual_seed(SEED) if model is None
+            else None, model=model, beam=beam, **knobs)
+        if phase == "v3_int8_path":
+            require(resolve_config(dc).int8_prefix,
+                    "v3 int8 path: int8_prefix must resolve on")
+        server.warmup()
+        served[phase] = serve_path(server, embeds, path)
+        configs[phase] = dc
+        log(json.dumps({"phase": phase, **served[phase]}))
+        del server
     for k in kernels:
-        path = main_path if k["name"] in BF16_PATH else int8_path
-        k["launches"] = path["launches"][k["name"]]
+        k["launches_by_path"] = {
+            phase: run["launches"][k["name"]]
+            for phase, run in served.items() if run["launches"][k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
 
-    from capdec_tpu_torch.decode.beam import cast_params_for_decode
     bf16_gpt = cast_params_for_decode(model.gpt, cfg.gpt2)
-    ident = token_identity(model, cfg, bc, bf16_gpt,
-                           embeds[:MAIN["identity_images"]])
-    log(json.dumps({"phase": "token_identity", **ident}))
-    agree = int8_agreement(model, cfg, bc, bc8, bf16_gpt,
-                           embeds[:MAIN["int8_images"]])
-    log(json.dumps({"phase": "int8_agreement", **agree}))
+    few, many = (embeds[:MAIN[k]] for k in ("identity_images", "int8_images"))
+    checks = (  # (phase, the check)
+        ("token_identity", lambda: token_identity(
+            model, cfg, True, configs["main_path"], bf16_gpt, few)),
+        ("int8_agreement", lambda: int8_agreement(
+            model, cfg, True, configs["main_path"], configs["int8_path"],
+            bf16_gpt, many)),
+        ("v3_token_identity", lambda: token_identity(
+            model, cfg, True, configs["v3_path"], bf16_gpt, few)),
+        ("v3_int8_agreement", lambda: int8_agreement(
+            model, cfg, True, configs["v3_path"], configs["v3_int8_path"],
+            bf16_gpt, many)),
+        ("greedy_token_identity", lambda: token_identity(
+            model, cfg, False, configs["greedy_path"], bf16_gpt, few)),
+        ("greedy_k13_token_identity", lambda: token_identity(
+            model, cfg, False, configs["greedy_k13_path"], bf16_gpt, few)),
+        ("greedy_int8_agreement", lambda: int8_agreement(
+            model, cfg, False, configs["greedy_path"],
+            configs["greedy_int8_path"], bf16_gpt, many)))
+    for phase, call in checks:
+        log(json.dumps({"phase": phase, **call()}))
 
     name = torch.cuda.get_device_name(0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err_f32", "shape")
+            "max_abs_err_f32", "launches_by_path", "bf16_prefix", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
-                    "captions_per_s": main_path["captions_per_s"],
-                    "int8_captions_per_s": int8_path["captions_per_s"],
+                    **{f"{phase}_captions_per_s": run["captions_per_s"]
+                       for phase, run in served.items()},
                     "smoke_s": time.perf_counter() - t0}))
     for line in smi:
         log(line)
-    log(json.dumps({"kernels": [{k: kern[k] for k in keys}
+    log(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                 for kern in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

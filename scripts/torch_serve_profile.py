@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Where one beam-serving batch of the PyTorch port spends its time, on
-one NVIDIA GPU.
+"""Where one serving batch of the PyTorch port spends its time, on one
+NVIDIA GPU.
 
-    python3 scripts/torch_serve_profile.py [--int8_kv]
+    python3 scripts/torch_serve_profile.py [--int8_kv] [--chunks 8]
+        [--greedy [--chunk_slot_write]]
 
 Builds chip_smoke.py's main-path server (seeded full-width GPT-2 124M +
-8-layer TransformerMapper, bf16, batch 64 x beam 5, entry_length 67;
-with `--int8_kv` the int8 generated KV cache and staged cache growth),
-warms it up, then decodes one batch of 64 requests under torch.profiler.
+8-layer TransformerMapper, bf16, batch 64, entry_length 67; beam 5, or
+with `--greedy` greedy decoding, the default ToppConfig), warms it up,
+then decodes one batch of 64 requests under torch.profiler. The flags
+pick the path: `--int8_kv` the int8 generated KV cache (beam: staged
+growth; greedy: with `--chunks`, the fused chunked int8 route);
+`--chunks N` the slot-bounded kernels in N-slot tiles
+(`fused_slot_chunks`; greedy: the fused row-major route);
+`--chunk_slot_write` greedy's kernel slot write (K13).
 Prints one JSON line: the batch's wall time (unprofiled, and under the
 profiler), the device time summed over its kernels, the device busy share
-(device time / unprofiled wall), the number of
-kernel launches and decode steps, and the top device-time consumers.
-Then, without the profiler, it serves 128 requests twice each way in the
-order A B B A: A = `serve()` (the batch in flight decodes on the worker
-thread), B = back-to-back synchronous `caption()` calls of 64, and prints
-each run's captions/s. With `--int8_kv` it also serves 256 requests
-through `serve()` on the bf16 path (A) and the int8 path (B) of the same
-weights, in the order A B B A, for a comparison of the two paths inside
-one process.
+(device time / unprofiled wall), the number of kernel launches and decode
+steps, and the top device-time consumers. Then, without the profiler, it
+serves 128 requests twice each way in the order A B B A: A = `serve()`
+(the batch in flight decodes on the worker thread), B = back-to-back
+synchronous `caption()` calls of 64, and prints each run's captions/s.
+With `--int8_kv` it also serves 256 requests through `serve()` on the
+same path without int8 (A) and with it (B), in the order A B B A, for a
+comparison of the two inside one process.
 """
 from __future__ import annotations
 
@@ -37,8 +42,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--int8_kv", action="store_true",
-                   help="serve with BeamConfig(kv_cache_int8=True)")
+                   help="the int8 generated KV cache (kv_cache_int8)")
+    p.add_argument("--chunks", type=int, default=0,
+                   help="fused_slot_chunks: slot-bounded attention tiles")
+    p.add_argument("--greedy", action="store_true",
+                   help="greedy decoding (ServeConfig(beam=False))")
+    p.add_argument("--chunk_slot_write", action="store_true",
+                   help="greedy: the seq-major kernel slot write")
     args = p.parse_args(argv)
+    knobs = {}
+    if args.chunks:
+        knobs["fused_slot_chunks"] = args.chunks
+        if args.greedy:
+            knobs["fused_attention"] = True
+    if args.chunk_slot_write:
+        knobs["chunk_slot_write"] = True
+    path = dict(knobs, kv_cache_int8=True) if args.int8_kv else knobs
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -48,8 +67,8 @@ def main(argv=None) -> int:
 
     setup_torch()
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    server, model, *_ = chip_smoke.build_server(gen,
-                                                kv_cache_int8=args.int8_kv)
+    beam = not args.greedy
+    server, model, *_ = chip_smoke.build_server(gen, beam=beam, **path)
     server.warmup()
     embeds = np.random.RandomState(1).randn(
         chip_smoke.MAIN["N"], chip_smoke.MAIN["prefix_size"]).astype(
@@ -105,7 +124,8 @@ def main(argv=None) -> int:
                            ("caption", via_caption), ("serve", via_serve))]
     paths_ab = None
     if args.int8_kv:
-        bf16_server, *_ = chip_smoke.build_server(None, model=model)
+        bf16_server, *_ = chip_smoke.build_server(None, model=model,
+                                                  beam=beam, **knobs)
         bf16_server.warmup()
         reqs4 = np.concatenate([reqs, reqs])  # 4 batches a run
         paths_ab = [{"path": name, "captions_per_s":
@@ -115,7 +135,8 @@ def main(argv=None) -> int:
                                       ("bf16", bf16_server))]
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
-        "int8_kv": args.int8_kv,
+        "beam": beam,
+        "knobs": path,
         "serve_ab": ab,
         "paths_ab": paths_ab,
         "batch_wall_ms": wall_plain * 1e3,

@@ -131,10 +131,13 @@ def test_resolve_config_defaults_and_unported_knobs():
     with pytest.raises(ValueError, match="fused"):
         beam.resolve_config(beam.BeamConfig(kv_cache_int8=True,
                                             fused_attention=False))
-    for knobs in (dict(int8_prefix=True, kv_cache_int8=True),
-                  dict(fused_slot_chunks=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            beam.resolve_config(beam.BeamConfig(**knobs))
+    # the slot-bounded v3 knobs, ported: they resolve as in JAX
+    v3 = beam.resolve_config(beam.BeamConfig(fused_slot_chunks=8))
+    assert v3.fused_slot_chunks == 8 and not v3.full_alloc
+    assert v3.bounded_fork_copy and not v3.int8_prefix
+    v3_8 = beam.resolve_config(beam.BeamConfig(kv_cache_int8=True,
+                                               fused_slot_chunks=8))
+    assert v3_8.int8_prefix and v3_8.bounded_fork_copy
 
 
 def _servers(models, stop):
@@ -197,10 +200,18 @@ def test_serve_keeps_running_past_exhaust_and_honors_shutdown(models):
 def test_server_refuses_unported_modes_and_a_missing_card(models,
                                                           monkeypatch):
     _, _, tcfg, model = models
-    for cfg in (serve.ServeConfig(beam=False), serve.ServeConfig(mesh=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.CaptionServer(model, tcfg, ByteTokenizer(), cfg,
-                                device="cpu")
+    # greedy/top-p serving is ported; mesh-sharded serving is not
+    greedy = serve.CaptionServer(
+        model, tcfg, ByteTokenizer(),
+        serve.ServeConfig(batch_size=2, beam=False,
+                          topp_config=serve.ToppConfig(entry_length=E)),
+        device="cpu")
+    texts = greedy.caption(np.random.RandomState(3).randn(2, 32).astype(
+        np.float32))
+    assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.CaptionServer(model, tcfg, ByteTokenizer(),
+                            serve.ServeConfig(mesh=4), device="cpu")
     # no card and no explicit device: raise, never fall back to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -5,11 +5,13 @@ one; run them there with
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: K1 indices identical and values/lse within 2e-3 (bf16) or
-1e-4 (f32) on operands whose sums are exact in f32; K2 and K6 within 2e-2
-(bf16) or 1e-4 (f32), with NaN in the slots (K2) or scales (K6) they must
-not read; K3/K4/K5/K7 bit-exact; a tiny beam search in f32 gives
-identical tokens through the kernels and through the plain versions, for
-the bf16/f32 cache and for the int8 cache with staged growth.
+1e-4 (f32) on operands whose sums are exact in f32; the attention kernels
+K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
+(K2, K8) or scales (K6, K9) they must not read, R = 1 and 5 for K8/K9;
+K3/K4/K5/K7/K13 bit-exact; tiny beam searches (bf16/f32 cache, int8 cache
+with staged growth, the slot-bounded v3 paths) and greedy searches (every
+route) in f32 give identical tokens through the kernels and through the
+plain versions (int8: a token share of at least 0.98).
 """
 import pytest
 import torch
@@ -178,3 +180,123 @@ def test_beam_search_kernels_match_plain_path(dev, gen, int8):
             torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
         else:
             assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("R", [1, 5])
+@pytest.mark.parametrize("step", [0, 1, 8, 17, 66])
+def test_chunked_decode_attention_kernel(dev, gen, dtype, _, tol, R, step):
+    N, L, K, E, D = 8, 3, 40, 72, 768
+    B = N * R
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    q, kn, vn = r(B, 3 * D).split(D, dim=-1)
+    pk, pv, gk, gv = r(L, N, K, D), r(L, N, K, D), r(B, L, E, D), r(B, L, E, D)
+    gk[:, :, step:] = float("nan")
+    gv[:, :, step:] = float("nan")
+    args = (q, kn, vn, pk, pv, gk, gv, step, 2)
+    kw = dict(beams_per_image=R, head_dim=64, chunk=8)
+    n0 = decode_attention.beam_decode_attention_chunked.launches
+    out = decode_attention.beam_decode_attention_chunked(*args, **kw)
+    ref = decode_attention.beam_decode_attention_chunked_plain(*args, **kw)
+    assert decode_attention.beam_decode_attention_chunked.launches == n0 + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("int8_prefix", [False, True])
+@pytest.mark.parametrize("R", [1, 5])
+@pytest.mark.parametrize("step", [1, 17, 66])
+def test_chunked_int8_decode_attention_kernel(dev, gen, dtype, _, tol,
+                                              int8_prefix, R, step):
+    N, L, K, E, D = 8, 3, 40, 72, 768
+    B = N * R
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    lev = lambda *s: torch.randint(-127, 128, s, generator=gen, device=dev,
+                                   dtype=torch.int8)
+    sc = lambda *s: torch.rand(*s, generator=gen, device=dev) * 3 / 127
+    q, kn, vn = r(B, 3 * D).split(D, dim=-1)
+    pk, pv = r(L, N, K, D), r(L, N, K, D)
+    pre = {}
+    if int8_prefix:
+        pk, pv = lev(L, N, K, D), lev(L, N, K, D)
+        pre = dict(pks=sc(L, N, 1, K), pvs=sc(L, N, 1, K))
+    gk, gv = lev(B, L, E, D), lev(B, L, E, D)
+    gks, gvs = sc(B, L, 1, E), sc(B, L, 1, E)
+    gks[..., step:] = float("nan")
+    gvs[..., step:] = float("nan")
+    args = (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, 2)
+    kw = dict(beams_per_image=R, head_dim=64, chunk=8, **pre)
+    out = decode_attention.beam_decode_attention_chunked_q(*args, **kw)
+    ref = decode_attention.beam_decode_attention_chunked_q_plain(*args, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_seqmajor_slot_write_kernel_bit_exact(dev, gen, dtype):
+    L, B, E, D = 3, 40, 24, 768
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    k, v, nk, nv = r(L, B, E, D), r(L, B, E, D), r(L, B, D), r(L, B, D)
+    n0 = cache_reorder.write_gen_slot_chunk_seqmajor.launches
+    a = cache_reorder.write_gen_slot_chunk_seqmajor(k.clone(), v.clone(), nk,
+                                                    nv, 9)
+    b = cache_reorder.write_gen_slot_chunk_seqmajor_plain(
+        k.clone(), v.clone(), nk, nv, 9)
+    assert cache_reorder.write_gen_slot_chunk_seqmajor.launches == n0 + 1
+    assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    other = torch.arange(E, device=dev) != 9
+    assert torch.equal(a["k"][:, :, other], k[:, :, other])
+
+
+def test_lm_head_kernel_top1(dev, gen):
+    h = (torch.randint(-4, 5, (64, 768), generator=gen, device=dev) / 4)
+    w = (torch.randint(-4, 5, (50257, 768), generator=gen, device=dev) / 8)
+    for dtype in (torch.bfloat16, torch.float32):
+        kv, ki, kl = lm_head.lm_head_topk(h.to(dtype), w.to(dtype), 1)
+        pv, pi, pl = lm_head.lm_head_topk_plain(h.to(dtype), w.to(dtype), 1)
+        assert torch.equal(ki, pi)
+
+
+def _tiny(dev, gen):
+    cfg = caption_model.CaptionModelConfig(
+        prefix_length=5, clip_length=5, prefix_size=32, num_layers=2,
+        gpt2=gpt2.GPT2Config(vocab_size=300, n_positions=64, n_embd=128,
+                             n_layer=2, n_head=2))
+    model = caption_model.init_params(cfg, gen, device=dev)
+    return cfg, model, torch.randn(3, 5, 128, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_v3_beam_search_kernels_match_plain_path(dev, gen, int8):
+    cfg, model, prefix = _tiny(dev, gen)
+    bc = beam.BeamConfig(beam_size=4, entry_length=20, stop_token=-1,
+                         fused_slot_chunks=8, kv_cache_int8=int8)
+    a = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc)
+    b = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc.plain())
+    if int8:  # a level that rounds the other way may move a near-tie
+        assert torch.isfinite(a[2]).all()
+        assert (a[0] == b[0]).float().mean() >= 0.98
+        return
+    for name, x, y in zip(("tokens", "lengths", "scores", "order"), a, b):
+        if name == "scores":
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, dict(chunk_slot_write=True), dict(fused_attention=True),
+    dict(fused_attention=True, fused_slot_chunks=8),
+    dict(fused_attention=True, fused_slot_chunks=8, kv_cache_int8=True)])
+def test_greedy_kernels_match_plain_path(dev, gen, knobs):
+    from capdec_tpu_torch.decode import topp
+    cfg, model, prefix = _tiny(dev, gen)
+    tc = topp.ToppConfig(entry_length=20, stop_token=-1, extra_stop_token=-1,
+                         **knobs)
+    a = topp.greedy_topp_search(model.gpt, cfg.gpt2, prefix, tc)
+    b = topp.greedy_topp_search(model.gpt, cfg.gpt2, prefix, tc.plain())
+    if knobs.get("kv_cache_int8"):
+        assert (a[0] == b[0]).float().mean() >= 0.98
+        return
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
