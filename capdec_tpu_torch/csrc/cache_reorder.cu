@@ -1,6 +1,6 @@
-// K3, K4, K5 and K7: in-place updates of the row-major generated KV cache
-// [B, L, E, D]; K13: K3 for the seq-major cache [L, B, E, D]. K3, K4, K7
-// and K13 move bytes only, so one kernel serves every
+// K3, K4, K5, K7 and K14: in-place updates of the row-major generated KV
+// cache [B, L, E, D]; K13: K3 for the seq-major cache [L, B, E, D]. K3, K4,
+// K7, K13 and K14 move bytes only, so one kernel serves every
 // dtype: rows move as 16-byte words (the wrappers require
 // D·itemsize % 16 == 0).
 //
@@ -10,6 +10,16 @@
 // Bound: bytes, 2·B·L·D·itemsize read and as many written. One block per
 // (row, layer) copies its D values; only the written slot is touched (the
 // TPU kernel's aligned 8-slot chunk was a tiling workaround).
+//
+// K14 replaces capdec_tpu/ops/cache_reorder.py::write_gen_slot (:452,
+// pallas_call :480), which computes what K3 computes: slot `step` of the
+// row-major caches takes new_k/new_v. The TPU wrote a 2-slot pair window at
+// the even slot below `step`, read back first, only because Mosaic's
+// (2, 128) bf16 tiling makes a one-slot DMA illegal; Hopper has no such
+// rule, so K14 launches K3's kernel through K3's entry, which writes the one
+// slot. Its own wrapper (ops/cache_reorder.py::write_gen_slot) keeps its own
+// launch count, so a run shows which of the two routes wrote the slot.
+// Bound: K3's.
 //
 // K13 write_gen_slot_seqmajor replaces
 // capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk_seqmajor (:380,

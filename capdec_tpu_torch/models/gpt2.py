@@ -17,13 +17,15 @@ float32. Two functions carry the beam-decode path:
     decode attention (ops/decode_attention.py) -> c_proj -> ln_2 -> MLP,
     then one slot write of the step's K/V for all layers
     (ops/cache_reorder.py), in place. The beam engine's row-major cache
-    [B, L, E, D] takes kernel K2 and the slot write K3, or the
+    [B, L, E, D] takes kernel K2 and the slot write K3 (or K14), or the
     slot-bounded K8 (`fused_slot_chunks`); an int8 generated cache
     (`init_gen_cache_rowmajor_int8`: levels plus per-slot scales) takes
     K6 or K9 and the quantising slot write K5, and K9 also reads an int8
-    prefix cache (`quantize_prefix_cache`). Greedy's seq-major cache
-    [L, B, E, D] (`init_gen_cache`, `init_gen_cache_int8`) takes the
-    plain attention math and the slot write K13.
+    prefix cache (`quantize_prefix_cache`). The seq-major cache
+    [L, B, E, D] (`init_gen_cache`, `init_gen_cache_int8`; greedy, and
+    the beam engine's `rowmajor_cache=False`) takes the plain attention
+    math and the slot write K13 or its plain version; so does ancestry
+    attention, which reads each beam's slots from the rows that hold them.
 """
 from __future__ import annotations
 
@@ -315,7 +317,8 @@ def init_gen_cache_rowmajor_int8(cfg: GPT2Config, batch: int, max_new: int,
 
 def _decode_routes(prefix_cache: Cache, gen_cache: Cache, *, rowmajor: bool,
                    fused_attention: bool, chunk_slot_write: bool,
-                   fused_slot_chunks: int, e_cap: Optional[int]):
+                   slot_write_kernel: bool, fused_slot_chunks: int,
+                   e_cap: Optional[int], anc_rows: Optional[torch.Tensor]):
     """(attend, attention keywords, write) of one decode_step: which
     kernel wrapper, or which plain version, each part runs."""
     da, cr = decode_attention, cache_reorder
@@ -323,19 +326,27 @@ def _decode_routes(prefix_cache: Cache, gen_cache: Cache, *, rowmajor: bool,
     if "ks" in prefix_cache and not (rowmajor and int8 and fused_slot_chunks):
         raise ValueError("int8 prefix cache requires the chunked fused "
                          "kernel (fused_slot_chunks > 0)")
-    if not rowmajor:
-        # Seq-major [L, B, E, D]: attention is the plain PyTorch math, the
-        # counterpart of the JAX XLA path, which has no Pallas kernel; an
-        # int8 cache quantises its slot in plain PyTorch, as XLA does.
+    if anc_rows is not None and (int8 or fused_attention):
+        raise ValueError("ancestry attention runs the plain attention math "
+                         "over a float cache (fused_attention=False)")
+    if not rowmajor or anc_rows is not None:
+        # Seq-major [L, B, E, D], or ancestry: attention is the plain
+        # PyTorch math, the counterpart of the JAX XLA path, which has no
+        # Pallas kernel; an int8 cache quantises its slot in plain
+        # PyTorch, as XLA does.
         attend = (da.beam_decode_attention_rowmajor_q_plain if int8
                   else da.beam_decode_attention_rowmajor_plain)
-        if int8:
-            write = cr.write_gen_slot_chunk_q_plain
-        else:
-            write = (cr.write_gen_slot_chunk_seqmajor if chunk_slot_write
-                     else cr.write_gen_slot_chunk_seqmajor_plain)
-        return attend, {"e_cap": None}, write
-    if fused_slot_chunks:  # v3: K8, or K9 over int8 caches
+        kw = {"e_cap": e_cap if rowmajor else None}
+        if anc_rows is not None:
+            kw["anc_rows"] = anc_rows
+        if not rowmajor:
+            if int8:
+                write = cr.write_gen_slot_chunk_q_plain
+            else:
+                write = (cr.write_gen_slot_chunk_seqmajor if chunk_slot_write
+                         else cr.write_gen_slot_chunk_seqmajor_plain)
+            return attend, kw, write
+    elif fused_slot_chunks:  # v3: K8, or K9 over int8 caches
         kw = {"chunk": fused_slot_chunks}
         if int8:
             attend = (da.beam_decode_attention_chunked_q if fused_attention
@@ -352,12 +363,17 @@ def _decode_routes(prefix_cache: Cache, gen_cache: Cache, *, rowmajor: bool,
         else:
             attend = (da.beam_decode_attention_rowmajor if fused_attention
                       else da.beam_decode_attention_rowmajor_plain)
+    # the JAX engine's precedence (gpt2.py:773-799): the chunked write,
+    # then the slot-write kernel, then the plain write; int8 quantises
     if int8:
         write = (cr.write_gen_slot_chunk_q if chunk_slot_write
                  else cr.write_gen_slot_chunk_q_plain)
+    elif chunk_slot_write:
+        write = cr.write_gen_slot_chunk
+    elif slot_write_kernel:
+        write = cr.write_gen_slot
     else:
-        write = (cr.write_gen_slot_chunk if chunk_slot_write
-                 else cr.write_gen_slot_chunk_plain)
+        write = cr.write_gen_slot_chunk_plain
     return attend, kw, write
 
 
@@ -370,6 +386,8 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
                 chunk_slot_write: bool = True,
                 fused_slot_chunks: int = 0,
                 rowmajor: bool = True,
+                slot_write_kernel: bool = False,
+                anc_rows: Optional[torch.Tensor] = None,
                 return_hidden: bool = True) -> torch.Tensor:
     """One decode step over split caches.
 
@@ -388,10 +406,17 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     `fused_slot_chunks` > 0 takes the slot-bounded kernels, K8 (K9 over
     int8 caches), else K2 (K6), read up to `e_cap` (the caller guarantees
     step < e_cap; the chunked kernels are bounded by `step` alone); the
-    slot write is K3 (K5 over int8). Seq-major: the plain attention math,
-    and the slot write K13 (int8: a quantising write in plain PyTorch).
-    `fused_attention` / `chunk_slot_write` choose the kernel wrappers
-    (True) or their plain PyTorch versions (False).
+    slot write is K3 (`chunk_slot_write`; K5 over int8), else K14
+    (`slot_write_kernel`), else the plain write. Seq-major: the plain
+    attention math, and the slot write K13 (int8: a quantising write in
+    plain PyTorch). `fused_attention` / `chunk_slot_write` /
+    `slot_write_kernel` choose the kernel wrappers (True) or their plain
+    PyTorch versions (False).
+
+    `anc_rows` [B, E] int64 (ancestry attention, either layout): row b's
+    slot e lives in cache row anc_rows[b, e]; the cache never moves, and
+    the attention is the plain math with that gather
+    (decode_attention._attention_plain).
     """
     B, D = token_embed.shape
     L, N, K, _ = prefix_cache["k"].shape
@@ -401,7 +426,8 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     attend, kw, write = _decode_routes(
         prefix_cache, gen_cache, rowmajor=rowmajor,
         fused_attention=fused_attention, chunk_slot_write=chunk_slot_write,
-        fused_slot_chunks=fused_slot_chunks, e_cap=e_cap)
+        slot_write_kernel=slot_write_kernel,
+        fused_slot_chunks=fused_slot_chunks, e_cap=e_cap, anc_rows=anc_rows)
     gk, gv = gen_cache["k"], gen_cache["v"]
     scales = (gen_cache["ks"], gen_cache["vs"]) if "ks" in gen_cache else ()
     # the attention reads [B, L, ...] layouts; seq-major caches as views

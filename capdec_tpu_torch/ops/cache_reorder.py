@@ -1,15 +1,22 @@
-"""K3, K4, K5 and K7: in-place updates of the row-major generated KV cache
-(port of capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk,
-::copy_forked_rows_bounded, ::write_gen_slot_chunk_q and
-::copy_forked_rows); K13, the slot write of the seq-major cache
-[L, B, E, D] (::write_gen_slot_chunk_seqmajor); and the int8
-quantisation they share (`absmax_int8_quant`).
-
-All update `k`/`v` [B, L, E, D] (K13: [L, B, E, D]; and the int8 cache's
-scales) IN PLACE (the JAX versions alias their buffers) and return them
-in a dict. On CUDA tensors the wrappers launch csrc/cache_reorder.cu (its
-note says what bounds each on the H100 and how the design answers); on
-CPU tensors they run the plain PyTorch versions beside them.
+"""The generated KV cache's byte movers (port of
+capdec_tpu/ops/cache_reorder.py):
+  * in place, as the JAX versions alias their buffers: K3
+    `write_gen_slot_chunk` and K14 `write_gen_slot` (one slot of the
+    row-major cache [B, L, E, D]), K4 `copy_forked_rows_bounded`, K5
+    `write_gen_slot_chunk_q` (int8, with `absmax_int8_quant`), K7
+    `copy_forked_rows`, and K13 `write_gen_slot_chunk_seqmajor` (the
+    seq-major cache [L, B, E, D]);
+  * out of place, into output caches that must not overlap the input: the
+    row gathers K10 `reorder_rows_leading` (row-major), K11
+    `reorder_cache_rows` and K12 `reorder_cache_rows_bounded` (seq-major,
+    K12 over the slots below `count`). Their `src` values must lie in
+    [0, B): the plain versions raise on the CPU (`index_select`), and the
+    kernel trips a device-side assert (as `index_select` does on the card;
+    a host check would wait for the device at every step).
+Each returns the caches in a dict. On CUDA tensors the wrappers launch
+csrc/cache_reorder.cu or csrc/cache_gather.cu (their notes say what bounds
+each on the H100 and how the design answers); on CPU tensors they run the
+plain PyTorch versions beside them.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 
 from . import _build
 
-# cache dtypes of the byte-moving kernels (K3, K4, K7)
+# cache dtypes of the byte-moving kernels (K3, K4, K7, K10-K14)
 MOVABLE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
@@ -39,8 +46,8 @@ def _check_cache(k, v, name):
     return row_bytes
 
 
-def _check_src(src, k):
-    if src.shape != (k.shape[0],) or src.dtype != torch.int64 or \
+def _check_src(src, k, axis=0):
+    if src.shape != (k.shape[axis],) or src.dtype != torch.int64 or \
             src.device != k.device or not src.is_contiguous():
         raise ValueError("src must be a contiguous int64 [B] on the "
                          "cache's device")
@@ -73,6 +80,34 @@ def write_gen_slot_chunk_plain(k: torch.Tensor, v: torch.Tensor,
     return {"k": k, "v": v}
 
 
+def _check_slot_write(k, v, new_k, new_v, step, name):
+    """Validate a byte-moving slot write (K3, K13, K14) on CUDA tensors:
+    new_k/new_v are [k.shape[0], k.shape[1], D] of the cache's dtype.
+    Returns the bytes of one slot row."""
+    row_bytes = _check_cache(k, v, name)
+    A, C, E, D = k.shape
+    for n in (new_k, new_v):
+        if n.shape != (A, C, D) or n.dtype != k.dtype or \
+                n.device != k.device or not n.is_contiguous() or \
+                n.data_ptr() % 16:
+            raise ValueError(f"{name}: new_k/new_v must be contiguous "
+                             f"{[A, C, D]} of the cache's dtype")
+    if not 0 <= step < E:
+        raise ValueError(f"{name}: step {step} out of range for E={E}")
+    return row_bytes
+
+
+def _write_slot_rowmajor(k, v, new_k, new_v, step, name):
+    """Launch K3's kernel (the C entry of K3 and K14) on CUDA tensors."""
+    row_bytes = _check_slot_write(k, v, new_k, new_v, step, name)
+    B, L, E, D = k.shape
+    lib = _build.library()
+    _build.check(lib.capdec_write_gen_slot(
+        k.data_ptr(), v.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+        B, L, E, step, row_bytes, _build.stream(k.device)), name)
+    return {"k": k, "v": v}
+
+
 def write_gen_slot_chunk(k: torch.Tensor, v: torch.Tensor,
                          new_k: torch.Tensor, new_v: torch.Tensor,
                          step: int) -> Dict[str, torch.Tensor]:
@@ -80,23 +115,10 @@ def write_gen_slot_chunk(k: torch.Tensor, v: torch.Tensor,
     row-major caches k/v [B, L, E, D], in place."""
     if _build.on_cpu(k):
         return write_gen_slot_chunk_plain(k, v, new_k, new_v, step)
-    row_bytes = _check_cache(k, v, "write_gen_slot_chunk")
-    B, L, E, D = k.shape
-    for n in (new_k, new_v):
-        if n.shape != (B, L, D) or n.dtype != k.dtype or \
-                n.device != k.device or not n.is_contiguous() or \
-                n.data_ptr() % 16:
-            raise ValueError("new_k/new_v must be contiguous [B, L, D] of "
-                             "the cache's dtype")
-    if not 0 <= step < E:
-        raise ValueError(f"step {step} out of range for E={E}")
-    lib = _build.library()
-    _build.check(lib.capdec_write_gen_slot(
-        k.data_ptr(), v.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-        B, L, E, step, row_bytes, _build.stream(k.device)),
-        "write_gen_slot_chunk")
+    out = _write_slot_rowmajor(k, v, new_k, new_v, step,
+                               "write_gen_slot_chunk")
     write_gen_slot_chunk.launches += 1
-    return {"k": k, "v": v}
+    return out
 
 
 write_gen_slot_chunk.launches = 0
@@ -114,16 +136,9 @@ def write_gen_slot_chunk_seqmajor(k: torch.Tensor, v: torch.Tensor,
     place."""
     if _build.on_cpu(k):
         return write_gen_slot_chunk_seqmajor_plain(k, v, new_k, new_v, step)
-    row_bytes = _check_cache(k, v, "write_gen_slot_chunk_seqmajor")
+    row_bytes = _check_slot_write(k, v, new_k, new_v, step,
+                                  "write_gen_slot_chunk_seqmajor")
     L, B, E, D = k.shape
-    for n in (new_k, new_v):
-        if n.shape != (L, B, D) or n.dtype != k.dtype or \
-                n.device != k.device or not n.is_contiguous() or \
-                n.data_ptr() % 16:
-            raise ValueError("new_k/new_v must be contiguous [L, B, D] of "
-                             "the cache's dtype")
-    if not 0 <= step < E:
-        raise ValueError(f"step {step} out of range for E={E}")
     lib = _build.library()
     _build.check(lib.capdec_write_gen_slot_seqmajor(
         k.data_ptr(), v.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
@@ -134,6 +149,26 @@ def write_gen_slot_chunk_seqmajor(k: torch.Tensor, v: torch.Tensor,
 
 
 write_gen_slot_chunk_seqmajor.launches = 0
+
+
+# K14's plain version: K3's.
+write_gen_slot_plain = write_gen_slot_chunk_plain
+
+
+def write_gen_slot(k: torch.Tensor, v: torch.Tensor, new_k: torch.Tensor,
+                   new_v: torch.Tensor, step: int) -> Dict[str, torch.Tensor]:
+    """`write_gen_slot_chunk` by the other route of the JAX engine
+    (`BeamConfig.pallas_slot_write`): the same one-slot update of the
+    row-major caches k/v [B, L, E, D] by new_k/new_v [B, L, D], in place,
+    with a launch count of its own."""
+    if _build.on_cpu(k):
+        return write_gen_slot_plain(k, v, new_k, new_v, step)
+    out = _write_slot_rowmajor(k, v, new_k, new_v, step, "write_gen_slot")
+    write_gen_slot.launches += 1
+    return out
+
+
+write_gen_slot.launches = 0
 
 
 def write_gen_slot_chunk_q_plain(k: torch.Tensor, v: torch.Tensor,
@@ -259,3 +294,144 @@ def copy_forked_rows(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor
 
 
 copy_forked_rows.launches = 0
+
+
+def _span(t: torch.Tensor) -> Tuple[int, int]:
+    return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+
+
+def _gather_out(k, v, out_k, out_v, name):
+    """The output caches of an out-of-place gather: fresh ones when none
+    are given; given ones must be contiguous caches like k/v and overlap
+    neither input nor each other (`src` may name one source for several
+    rows, so an in-place gather would overwrite a row before it is read)."""
+    if out_k is None and out_v is None:
+        return torch.empty_like(k), torch.empty_like(v)
+    if out_k is None or out_v is None:
+        raise ValueError(f"{name}: give both out_k and out_v, or neither")
+    for o in (out_k, out_v):
+        if o.shape != k.shape or o.dtype != k.dtype or \
+                o.device != k.device or not o.is_contiguous():
+            raise ValueError(f"{name}: the output caches must be contiguous "
+                             "and match k/v")
+    for a, b in ((out_k, k), (out_k, v), (out_v, k), (out_v, v),
+                 (out_k, out_v)):
+        (a0, a1), (b0, b1) = _span(a), _span(b)
+        if a0 < b1 and b0 < a1:
+            raise ValueError(f"{name}: the output must not overlap the "
+                             "input or the other output")
+    return out_k, out_v
+
+
+def reorder_rows_leading_plain(k: torch.Tensor, v: torch.Tensor,
+                               src: torch.Tensor, out_k=None, out_v=None
+                               ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version: out row b = row src[b] (index_select on
+    axis 0)."""
+    out_k, out_v = _gather_out(k, v, out_k, out_v, "reorder_rows_leading")
+    torch.index_select(k, 0, src, out=out_k)
+    torch.index_select(v, 0, src, out=out_v)
+    return {"k": out_k, "v": out_v}
+
+
+def reorder_rows_leading(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor,
+                         out_k=None, out_v=None) -> Dict[str, torch.Tensor]:
+    """Gather the rows of the row-major caches k/v [B, L, E, D] by `src`
+    [B] int64 into out_k/out_v (fresh caches when not given): out row b is
+    row src[b], whole. Any dtype of `MOVABLE_DTYPES`, bit for bit."""
+    if _build.on_cpu(k):
+        return reorder_rows_leading_plain(k, v, src, out_k, out_v)
+    row_bytes = _check_cache(k, v, "reorder_rows_leading")
+    _check_src(src, k)
+    out_k, out_v = _gather_out(k, v, out_k, out_v, "reorder_rows_leading")
+    B, L, E, _ = k.shape
+    span = L * E * row_bytes  # a row is one contiguous span
+    lib = _build.library()
+    _build.check(lib.capdec_gather_rows(
+        k.data_ptr(), v.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
+        src.data_ptr(), B, 1, 0, span, span, _build.stream(k.device)),
+        "reorder_rows_leading")
+    reorder_rows_leading.launches += 1
+    return {"k": out_k, "v": out_v}
+
+
+reorder_rows_leading.launches = 0
+
+
+def reorder_cache_rows_bounded_plain(k: torch.Tensor, v: torch.Tensor,
+                                     src: torch.Tensor, count: int,
+                                     out_k=None, out_v=None
+                                     ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version: out[:, b, :count] = in[:, src[b], :count]
+    (index_select on axis 1); the output's other slots are left as they
+    were."""
+    out_k, out_v = _gather_out(k, v, out_k, out_v,
+                               "reorder_cache_rows_bounded")
+    out_k[:, :, :count] = torch.index_select(k[:, :, :count], 1, src)
+    out_v[:, :, :count] = torch.index_select(v[:, :, :count], 1, src)
+    return {"k": out_k, "v": out_v}
+
+
+def reorder_cache_rows_plain(k: torch.Tensor, v: torch.Tensor,
+                             src: torch.Tensor, out_k=None, out_v=None
+                             ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version: out[:, b] = in[:, src[b]] (index_select on
+    axis 1)."""
+    out_k, out_v = _gather_out(k, v, out_k, out_v, "reorder_cache_rows")
+    torch.index_select(k, 1, src, out=out_k)
+    torch.index_select(v, 1, src, out=out_v)
+    return {"k": out_k, "v": out_v}
+
+
+def _gather_seqmajor(k, v, src, count, out_k, out_v, name):
+    """Launch the gather of seq-major rows over the slots below `count`
+    (no launch for count 0: nothing moves). Returns (the output caches,
+    whether the kernel launched)."""
+    row_bytes = _check_cache(k, v, name)
+    _check_src(src, k, axis=1)
+    out_k, out_v = _gather_out(k, v, out_k, out_v, name)
+    L, B, E, _ = k.shape
+    if not 0 <= count <= E:
+        raise ValueError(f"{name}: count {count} out of range for E={E}")
+    if count:
+        lib = _build.library()
+        _build.check(lib.capdec_gather_rows(
+            k.data_ptr(), v.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
+            src.data_ptr(), B, L, 1, E * row_bytes, count * row_bytes,
+            _build.stream(k.device)), name)
+    return {"k": out_k, "v": out_v}, count > 0
+
+
+def reorder_cache_rows(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor,
+                       out_k=None, out_v=None) -> Dict[str, torch.Tensor]:
+    """Gather the rows of the seq-major caches k/v [L, B, E, D] along axis
+    1 by `src` [B] int64 into out_k/out_v (fresh caches when not given):
+    out[:, b] is in[:, src[b]]. Any dtype of `MOVABLE_DTYPES`, bit for
+    bit."""
+    if _build.on_cpu(k):
+        return reorder_cache_rows_plain(k, v, src, out_k, out_v)
+    out, launched = _gather_seqmajor(k, v, src, k.shape[2], out_k, out_v,
+                                     "reorder_cache_rows")
+    reorder_cache_rows.launches += launched
+    return out
+
+
+reorder_cache_rows.launches = 0
+
+
+def reorder_cache_rows_bounded(k: torch.Tensor, v: torch.Tensor,
+                               src: torch.Tensor, count: int, out_k=None,
+                               out_v=None) -> Dict[str, torch.Tensor]:
+    """`reorder_cache_rows` over the slots below `count` only (the written
+    ones): the output's slots at or above `count` are left as they were,
+    uninitialised in fresh caches; decode attention never reads them."""
+    if _build.on_cpu(k):
+        return reorder_cache_rows_bounded_plain(k, v, src, count, out_k,
+                                                out_v)
+    out, launched = _gather_seqmajor(k, v, src, count, out_k, out_v,
+                                     "reorder_cache_rows_bounded")
+    reorder_cache_rows_bounded.launches += launched
+    return out
+
+
+reorder_cache_rows_bounded.launches = 0

@@ -35,14 +35,19 @@ NEG_INF = -1e9
 
 
 def _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
-                     e_cap, gks=None, gvs=None, pks=None, pvs=None):
+                     e_cap, gks=None, gvs=None, pks=None, pvs=None,
+                     anc_rows=None):
     """The un-fused attention math of the JAX reference's decode_step
     (gpt2.py:612-664): products in the input dtype, reductions and softmax
     in f32. With gks/gvs (an int8 generated cache's scales [B, L, 1, E])
     each generated score takes its slot's K scale and each generated
     probability its slot's V scale (gpt2.py:629-646); pks/pvs (an int8
     prefix cache's scales [L, N, 1, K]) do the same for the prefix slots
-    (decode_attention.py:373-392)."""
+    (decode_attention.py:373-392). With `anc_rows` [B, >= E] int64
+    (ancestry attention: the cache never moves) row b reads its slot e
+    from cache row anc_rows[b, e]: the JAX reference's one-hot sum over
+    source rows (gpt2.py:619-628, 652-660) adds exact zeros only, so the
+    gather gives its result bit for bit."""
     B, D = q.shape
     L, N, K, _ = pk.shape
     H = D // hd
@@ -53,6 +58,9 @@ def _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
     pv_l = pv[layer].to(q.dtype)
     gk_l = gk[:, layer, :E].to(q.dtype)            # [B, E, D]
     gv_l = gv[:, layer, :E].to(q.dtype)
+    if anc_rows is not None:
+        idx = anc_rows[:, :E, None].expand(B, E, D)
+        gk_l, gv_l = gk_l.gather(0, idx), gv_l.gather(0, idx)
     scale = 1.0 / hd ** 0.5
 
     def heads(prod):  # [..., D] -> [..., H] per-head sums in f32
@@ -88,10 +96,14 @@ def beam_decode_attention_rowmajor_plain(
         q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
         gv: torch.Tensor, step: int, layer: int, *, beams_per_image: int,
-        head_dim: int, e_cap: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of K2 (same signature and result)."""
+        head_dim: int, e_cap: Optional[int] = None,
+        anc_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K2 (same signature and result). It alone
+    takes `anc_rows`, the ancestry table of `_attention_plain`: the JAX
+    engine runs ancestry attention only through its un-fused math."""
     return _attention_plain(q, k_new, v_new, pk, pv, gk, gv, step, layer,
-                            beams_per_image, head_dim, e_cap)
+                            beams_per_image, head_dim, e_cap,
+                            anc_rows=anc_rows)
 
 
 def _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,

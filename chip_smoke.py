@@ -6,15 +6,16 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. The card's name and power limit (nvidia-smi) and the build of the
      hand-written kernels from capdec_tpu_torch/csrc.
-  2. Each kernel (K1-K9, K13) against its plain PyTorch version on the
+  2. Each kernel (K1-K14) against its plain PyTorch version on the
      card, at the served paths' shapes, in bf16 and f32 (int8 caches for
-     K5-K7 and K9, with and without K9's int8 prefix; NaN in the slots or
-     scales the attention kernels must not read); the kernel's time beside
-     the plain version's, one PyTorch library call's where one computes
-     the same function, and the bound (the least time the card could
-     take). The slot writes K3, K5 and K13 are timed over inputs and
-     slots rotated through more than twice the L2, so that they read
-     device memory as their bound assumes.
+     K5-K7 and K9, with and without K9's int8 prefix, and for the gathers
+     K10-K12; NaN in the slots or scales the attention kernels must not
+     read); the kernel's time beside the plain version's, one PyTorch
+     library call's where one computes the same function, and the bound
+     (the least time the card could take). The slot writes K3, K5, K13
+     and K14 are timed over inputs and slots rotated through more than
+     twice the L2, so that they read device memory as their bound
+     assumes.
   3. The served paths: a CaptionServer on full-width weights made from a
      seed (GPT-2 124M + the 8-layer TransformerMapper, prefix 640 -> 40,
      bf16, batch 64, entry_length 67) serves 128 requests on each path;
@@ -24,10 +25,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      fused_slot_chunks=8 (K1, K8, K3, K4); (b) its int8 form with the
      int8 prefix (K1, K9, K5, K4); (c) greedy, the default ToppConfig
      (K1); (d) greedy with chunk_slot_write (K1, K13); (e) greedy's fused
-     chunked int8 route (K1, K9, K5).
+     chunked int8 route (K1, K9, K5); (f) non-lane beam, lane_beams=False
+     (K1, K2, K3, K10); (g) seq-major beam, rowmajor_cache=False (K1,
+     K11); (h) the K14 slot write, chunk_slot_write=False with
+     pallas_slot_write (K1, K2, K14, K4); (i) ancestry=True (K1, K3).
+     K12 lies on no served path (the JAX engine calls it nowhere) and
+     must launch on none.
   4. Kernels against plain versions over whole decodes, in f32: 8 images
-     on the beam path, (a), (c) and (d) give identical tokens (the bf16
-     path's token share with f32 is reported); a batch of 64 images on
+     on the beam path, (a), (c), (d) and (f)-(i) give identical tokens
+     (the bf16 path's token share with f32 is reported), and (f)'s
+     tokens, lengths and beam order equal the beam path's (the cache
+     moves are exact copies); a batch of 64 images on
      the int8 path, (b) and (e) shares >= 0.98 of the top-beam (greedy:
      all) tokens (a level that rounds the other way may move a near-tie;
      exact identity and the share with the fp path are reported).
@@ -711,6 +719,159 @@ def check_seqmajor_write(gen):
               f"over {n} sets and the {E} slots")
 
 
+def check_gathers(gen):
+    """K10, K11 and K12 bit-identical to their plain versions in bf16, f32
+    and int8 at the served paths' full shapes (K10: the row-major cache of
+    (f); K11/K12: the seq-major cache of (g); K12 at count 66, the slots
+    outside it untouched), with a `src` in which several rows read one
+    source. Timed in bf16 into output caches made once."""
+    from capdec_tpu_torch.ops import cache_reorder as cr
+    N, R, L, E, D = (MAIN[k] for k in ("N", "R", "L", "E", "D"))
+    B, count = N * R, MAIN["entry_length"] - 1
+    cpu_gen = torch.Generator().manual_seed(SEED + 1)
+    # each row takes a source beam of its own image, as the selections do
+    src = (torch.arange(N)[:, None] * R
+           + torch.randint(R, (N, R), generator=cpu_gen)).reshape(-1)
+    src = src.to(DEVICE)
+    # bound: each source row read once (several rows share one), each
+    # output row written once, for k and v; and src
+    rows = int(src.unique().numel()) + B
+    full = 2 * rows * L * E * D * 2 + B * 8
+
+    def rand(dtype, *shape):
+        if dtype == torch.int8:
+            return _int8(gen, *shape)
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        k, v = rand(dtype, B, L, E, D), rand(dtype, B, L, E, D)
+        a = cr.reorder_rows_leading(k, v, src)
+        b = cr.reorder_rows_leading_plain(k, v, src)
+        torch.cuda.synchronize()
+        require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
+                f"K10 {dtype}: gather differs from the plain version")
+        if dtype == torch.bfloat16:
+            timed["rows"] = (k, v, a["k"], a["v"])
+        del k, v, a, b
+        k, v = rand(dtype, L, B, E, D), rand(dtype, L, B, E, D)
+        a = cr.reorder_cache_rows(k, v, src)
+        b = cr.reorder_cache_rows_plain(k, v, src)
+        torch.cuda.synchronize()
+        require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
+                f"K11 {dtype}: gather differs from the plain version")
+        del a, b
+        fill = rand(dtype, L, B, E, D)
+        a = cr.reorder_cache_rows_bounded(k, v, src, count, out_k=fill.clone(),
+                                          out_v=fill.clone())
+        b = cr.reorder_cache_rows_bounded_plain(k, v, src, count,
+                                                out_k=fill.clone(),
+                                                out_v=fill.clone())
+        torch.cuda.synchronize()
+        require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
+                f"K12 {dtype}: gather differs from the plain version")
+        require(torch.equal(a["v"][:, :, count:], fill[:, :, count:]),
+                f"K12 {dtype}: wrote a slot at or above count")
+        if dtype == torch.bfloat16:
+            timed["seq"] = (k, v, a["k"], a["v"])
+        del k, v, a, b, fill
+    res = []
+    k, v, ok, ov = timed["rows"]
+    b_ms, b_by = bound_ms(full, 0, torch.bfloat16)
+
+    def library_rows():
+        torch.index_select(k, 0, src, out=ok)
+        torch.index_select(v, 0, src, out=ov)
+
+    res.append(dict(
+        name="reorder_rows_leading", route="cuda",
+        source="capdec_tpu_torch/csrc/cache_gather.cu",
+        replaces="capdec_tpu/ops/cache_reorder.py:516",
+        max_abs_err=0.0, max_abs_err_f32=0.0,
+        ms=time_ms(lambda: cr.reorder_rows_leading(k, v, src, ok, ov)),
+        plain_ms=time_ms(
+            lambda: cr.reorder_rows_leading_plain(k, v, src, ok, ov)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library_rows),
+        library_note="torch.index_select on axis 0, once for k and once "
+                     "for v",
+        shape=f"B={B} sources={rows - B} L={L} E={E} D={D} bf16 "
+              "(row-major)"))
+    del timed["rows"], k, v, ok, ov
+    k, v, ok, ov = timed["seq"]
+
+    def library_seq():
+        torch.index_select(k, 1, src, out=ok)
+        torch.index_select(v, 1, src, out=ov)
+
+    res.append(dict(
+        name="reorder_cache_rows", route="cuda",
+        source="capdec_tpu_torch/csrc/cache_gather.cu",
+        replaces="capdec_tpu/ops/cache_reorder.py:550",
+        max_abs_err=0.0, max_abs_err_f32=0.0,
+        ms=time_ms(lambda: cr.reorder_cache_rows(k, v, src, ok, ov)),
+        plain_ms=time_ms(
+            lambda: cr.reorder_cache_rows_plain(k, v, src, ok, ov)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library_seq),
+        library_note="torch.index_select on axis 1, once for k and once "
+                     "for v",
+        shape=f"L={L} B={B} sources={rows - B} E={E} D={D} bf16 "
+              "(seq-major)"))
+    b_ms, b_by = bound_ms(2 * rows * L * count * D * 2 + B * 8, 0,
+                          torch.bfloat16)
+    res.append(dict(
+        name="reorder_cache_rows_bounded", route="cuda",
+        source="capdec_tpu_torch/csrc/cache_gather.cu",
+        replaces="capdec_tpu/ops/cache_reorder.py:64",
+        max_abs_err=0.0, max_abs_err_f32=0.0,
+        ms=time_ms(lambda: cr.reorder_cache_rows_bounded(k, v, src, count,
+                                                         ok, ov)),
+        plain_ms=time_ms(lambda: cr.reorder_cache_rows_bounded_plain(
+            k, v, src, count, ok, ov)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note="null: no one PyTorch call gathers only the slots "
+                     "below count into a full-shape cache",
+        shape=f"L={L} B={B} sources={rows - B} E={E} count={count} D={D} "
+              "bf16 (seq-major)"))
+    return res
+
+
+def check_single_slot_write(gen):
+    """K14 bit-identical to its plain version (K3's plain write) at K3's
+    shapes in bf16 and f32, at steps 0, odd, even and E-1; every other
+    slot untouched."""
+    from capdec_tpu_torch.ops import cache_reorder as cr
+    N, R, L, E, D = (MAIN[k] for k in ("N", "R", "L", "E", "D"))
+    B = N * R
+    for dtype in (torch.bfloat16, torch.float32):
+        rand = lambda *s: torch.randn(*s, generator=gen,
+                                      device=DEVICE).to(dtype)
+        k0, v0 = rand(B, L, E, D), rand(B, L, E, D)
+        nk, nv = rand(B, L, D), rand(B, L, D)
+        for step in (0, 7, 8, E - 1):
+            a = cr.write_gen_slot(k0.clone(), v0.clone(), nk, nv, step)
+            b = cr.write_gen_slot_plain(k0.clone(), v0.clone(), nk, nv, step)
+            torch.cuda.synchronize()
+            require(torch.equal(a["k"], b["k"]) and
+                    torch.equal(a["v"], b["v"]),
+                    f"K14 {dtype} step {step}: slot write differs from the "
+                    "plain version")
+            other = torch.arange(E, device=DEVICE) != step
+            require(torch.equal(a["k"][:, :, other], k0[:, :, other]),
+                    f"K14 {dtype} step {step}: touched another slot")
+        if dtype == torch.bfloat16:
+            k, v = k0, v0
+    n = n_kv_sets((B, L, D))
+    return dict(
+        name="write_gen_slot", route="cuda",
+        source="capdec_tpu_torch/csrc/cache_reorder.cu",
+        replaces="capdec_tpu/ops/cache_reorder.py:452",
+        max_abs_err=0.0, max_abs_err_f32=0.0,
+        **slot_write_times(gen, cr.write_gen_slot, cr.write_gen_slot_plain,
+                           k, v, (B, L, D)),
+        shape=f"B={B} L={L} E={E} D={D} bf16 (K3's kernel), inputs rotated "
+              f"over {n} sets and the {E} slots")
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
@@ -762,7 +923,12 @@ def counters():
             "beam_decode_attention_chunked_q":
                 decode_attention.beam_decode_attention_chunked_q,
             "write_gen_slot_chunk_seqmajor":
-                cache_reorder.write_gen_slot_chunk_seqmajor}
+                cache_reorder.write_gen_slot_chunk_seqmajor,
+            "reorder_rows_leading": cache_reorder.reorder_rows_leading,
+            "reorder_cache_rows": cache_reorder.reorder_cache_rows,
+            "reorder_cache_rows_bounded":
+                cache_reorder.reorder_cache_rows_bounded,
+            "write_gen_slot": cache_reorder.write_gen_slot}
 
 
 # The served paths: (phase, beam search?, decode knobs, the kernels the
@@ -793,6 +959,22 @@ PATHS = (
      dict(fused_attention=True, kv_cache_int8=True, **CHUNKED),
      ("lm_head_topk", "beam_decode_attention_chunked_q",
       "write_gen_slot_chunk_q")),
+    # (f) non-lane beam: one full-size cache gathered after each selection
+    ("nonlane_path", True, dict(lane_beams=False),
+     ("lm_head_topk", "beam_decode_attention_rowmajor",
+      "write_gen_slot_chunk", "reorder_rows_leading")),
+    # (g) seq-major lane beam, staged growth: plain attention and slot
+    # write, the whole cache gathered by the lanes' sources each step
+    ("seqmajor_path", True, dict(rowmajor_cache=False),
+     ("lm_head_topk", "reorder_cache_rows")),
+    # (h) the lane path with the slot write K14 in place of K3
+    ("slot_write_path", True,
+     dict(chunk_slot_write=False, pallas_slot_write=True),
+     ("lm_head_topk", "beam_decode_attention_rowmajor", "write_gen_slot",
+      "copy_forked_rows_bounded")),
+    # (i) ancestry attention: the cache never moves
+    ("ancestry_path", True, dict(ancestry=True),
+     ("lm_head_topk", "write_gen_slot_chunk")),
 )
 
 
@@ -855,10 +1037,12 @@ def _share(beam, a, b) -> float:
     return top_beam_share(a, b) if beam else token_share(*a, *b)
 
 
-def token_identity(model, cfg, beam, dc, bf16_gpt, embeds):
+def token_identity(model, cfg, beam, dc, bf16_gpt, embeds, same_as=None):
     """f32 through the kernels and through the plain versions: identical
     tokens, lengths (and beam order; scores within 1e-4). Reports the
-    share of (top-beam) tokens the bf16 path shares with f32."""
+    share of (top-beam) tokens the bf16 path shares with f32. With
+    `same_as`, another configuration's f32 kernel decode must give the
+    same tokens, lengths and beam order too."""
     prefix = mapped_prefix(model, cfg, embeds)
     cfg32 = dataclasses.replace(cfg.gpt2, compute_dtype=torch.float32)
     kern = _decode(beam, model.gpt, cfg32, prefix, dc)
@@ -870,6 +1054,12 @@ def token_identity(model, cfg, beam, dc, bf16_gpt, embeds):
         require(torch.equal(kern[i], plain[i]),
                 f"f32 token identity: {what} differ between the kernels "
                 "and the plain path")
+    if same_as is not None:
+        other = _decode(beam, model.gpt, cfg32, prefix, same_as)
+        for what, i in (("tokens", 0), ("lengths", 1), ("order", 3)):
+            require(torch.equal(kern[i], other[i]),
+                    f"f32: {what} differ from the other configuration's")
+        out["f32_identical_to_main_path"] = True
     if beam:
         out["f32_score_max_abs_err"] = max_err(kern[2], plain[2])
         require(out["f32_score_max_abs_err"] <= 1e-4,
@@ -937,7 +1127,8 @@ def main() -> int:
                *check_cache_kernels(gen), check_quantising_write(gen),
                check_int8_attention(gen), check_whole_row_fork(gen),
                check_chunked_attention(gen),
-               check_chunked_int8_attention(gen), check_seqmajor_write(gen)]
+               check_chunked_int8_attention(gen), check_seqmajor_write(gen),
+               *check_gathers(gen), check_single_slot_write(gen)]
     for k in kernels:
         log(json.dumps({"phase": "kernel_check", **k}))
 
@@ -983,7 +1174,13 @@ def main() -> int:
             model, cfg, False, configs["greedy_k13_path"], bf16_gpt, few)),
         ("greedy_int8_agreement", lambda: int8_agreement(
             model, cfg, False, configs["greedy_path"],
-            configs["greedy_int8_path"], bf16_gpt, many)))
+            configs["greedy_int8_path"], bf16_gpt, many)),
+        ("nonlane_token_identity", lambda: token_identity(
+            model, cfg, True, configs["nonlane_path"], bf16_gpt, few,
+            same_as=configs["main_path"])),
+        *((f"{p}_token_identity", lambda p=p: token_identity(
+            model, cfg, True, configs[f"{p}_path"], bf16_gpt, few))
+          for p in ("seqmajor", "slot_write", "ancestry")))
     for phase, call in checks:
         log(json.dumps({"phase": phase, **call()}))
 

@@ -3,7 +3,8 @@
 NVIDIA GPU.
 
     python3 scripts/torch_serve_profile.py [--int8_kv] [--chunks 8]
-        [--greedy [--chunk_slot_write]]
+        [--greedy [--chunk_slot_write]] [--no_lanes] [--seqmajor]
+        [--pallas_slot_write] [--ancestry]
 
 Builds chip_smoke.py's main-path server (seeded full-width GPT-2 124M +
 8-layer TransformerMapper, bf16, batch 64, entry_length 67; beam 5, or
@@ -13,7 +14,12 @@ pick the path: `--int8_kv` the int8 generated KV cache (beam: staged
 growth; greedy: with `--chunks`, the fused chunked int8 route);
 `--chunks N` the slot-bounded kernels in N-slot tiles
 (`fused_slot_chunks`; greedy: the fused row-major route);
-`--chunk_slot_write` greedy's kernel slot write (K13).
+`--chunk_slot_write` greedy's kernel slot write (K13); and for the beam
+search `--no_lanes` beams in rank order with the whole cache gathered
+after each selection (`lane_beams=False`, K10), `--seqmajor` the
+seq-major cache (`rowmajor_cache=False`, K11), `--pallas_slot_write` the
+slot write K14 in place of K3 (`chunk_slot_write=False,
+pallas_slot_write=True`) and `--ancestry` ancestry attention.
 Prints one JSON line: the batch's wall time (unprofiled, and under the
 profiler), the device time summed over its kernels, the device busy share
 (device time / unprofiled wall), the number of kernel launches and decode
@@ -49,8 +55,27 @@ def main(argv=None) -> int:
                    help="greedy decoding (ServeConfig(beam=False))")
     p.add_argument("--chunk_slot_write", action="store_true",
                    help="greedy: the seq-major kernel slot write")
+    p.add_argument("--no_lanes", action="store_true",
+                   help="beam: lane_beams=False (K10 gathers)")
+    p.add_argument("--seqmajor", action="store_true",
+                   help="beam: rowmajor_cache=False (K11 gathers)")
+    p.add_argument("--pallas_slot_write", action="store_true",
+                   help="beam: the slot write K14 in place of K3")
+    p.add_argument("--ancestry", action="store_true",
+                   help="beam: ancestry attention (the cache never moves)")
     args = p.parse_args(argv)
     knobs = {}
+    if args.no_lanes:
+        knobs["lane_beams"] = False
+    if args.seqmajor:
+        knobs["rowmajor_cache"] = False
+    if args.pallas_slot_write:
+        knobs.update(chunk_slot_write=False, pallas_slot_write=True)
+    if args.ancestry:
+        knobs["ancestry"] = True
+    if args.greedy and knobs:
+        p.error("--no_lanes, --seqmajor, --pallas_slot_write and --ancestry "
+                "are beam-search knobs")
     if args.chunks:
         knobs["fused_slot_chunks"] = args.chunks
         if args.greedy:

@@ -8,11 +8,18 @@ Tolerances: K1 indices identical and values/lse within 2e-3 (bf16) or
 1e-4 (f32) on operands whose sums are exact in f32; the attention kernels
 K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
 (K2, K8) or scales (K6, K9) they must not read, R = 1 and 5 for K8/K9;
-K3/K4/K5/K7/K13 bit-exact; tiny beam searches (bf16/f32 cache, int8 cache
-with staged growth, the slot-bounded v3 paths) and greedy searches (every
-route) in f32 give identical tokens through the kernels and through the
-plain versions (int8: a token share of at least 0.98).
+K3/K4/K5/K7/K13 bit-exact; the gathers K10-K12 and the slot write K14
+bit-exact in f32, bf16 and int8, and the gathers refuse an output that
+overlaps their input and assert on a source outside the batch; tiny beam searches (bf16/f32 cache, int8 cache with
+staged growth, the slot-bounded v3 paths, the non-lane, seq-major, K14,
+ancestry and temperature paths) and greedy searches (every route) in f32
+give identical tokens through the kernels and through the plain versions
+(int8: a token share of at least 0.98).
 """
+import pathlib
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -23,6 +30,7 @@ from capdec_tpu_torch.ops import cache_reorder, decode_attention, lm_head
 pytestmark = pytest.mark.cuda
 
 DTYPES = [(torch.bfloat16, 2e-3, 2e-2), (torch.float32, 1e-4, 1e-4)]
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -300,3 +308,124 @@ def test_greedy_kernels_match_plain_path(dev, gen, knobs):
         assert (a[0] == b[0]).float().mean() >= 0.98
         return
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+MOVABLE = [torch.float32, torch.bfloat16, torch.int8]
+
+
+def _rand_cache(gen, dev, dtype, *shape):
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+# B = 41 (odd); several rows read one source, some sources are read by none
+GATHER_SRC = [(7 * b + 3) % 41 if b % 3 else 5 for b in range(41)]
+
+
+@pytest.mark.parametrize("dtype", MOVABLE)
+def test_gather_kernels_bit_exact(dev, gen, dtype):
+    L, B, E, D = 3, len(GATHER_SRC), 40, 768
+    src = torch.tensor(GATHER_SRC, device=dev)
+    k, v = (_rand_cache(gen, dev, dtype, B, L, E, D) for _ in range(2))
+    n0 = cache_reorder.reorder_rows_leading.launches
+    a = cache_reorder.reorder_rows_leading(k, v, src)
+    b = cache_reorder.reorder_rows_leading_plain(k, v, src)
+    assert cache_reorder.reorder_rows_leading.launches == n0 + 1
+    assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    assert torch.equal(a["k"], k[src])
+    k, v = (_rand_cache(gen, dev, dtype, L, B, E, D) for _ in range(2))
+    n0 = cache_reorder.reorder_cache_rows.launches
+    a = cache_reorder.reorder_cache_rows(k, v, src)
+    b = cache_reorder.reorder_cache_rows_plain(k, v, src)
+    assert cache_reorder.reorder_cache_rows.launches == n0 + 1
+    assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    assert torch.equal(a["v"], v[:, src])
+    for count in (0, 1, 16, 17, 33, 40):
+        fill = _rand_cache(gen, dev, dtype, 2, L, B, E, D)
+        n0 = cache_reorder.reorder_cache_rows_bounded.launches
+        a = cache_reorder.reorder_cache_rows_bounded(
+            k, v, src, count, out_k=fill[0].clone(), out_v=fill[1].clone())
+        b = cache_reorder.reorder_cache_rows_bounded_plain(
+            k, v, src, count, out_k=fill[0].clone(), out_v=fill[1].clone())
+        assert cache_reorder.reorder_cache_rows_bounded.launches == \
+            n0 + (count > 0)
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+        assert torch.equal(a["k"][:, :, count:], fill[0][:, :, count:])
+
+
+@pytest.mark.parametrize("gather,args", [
+    (cache_reorder.reorder_rows_leading, ()),
+    (cache_reorder.reorder_cache_rows, ()),
+    (cache_reorder.reorder_cache_rows_bounded, (5,))])
+def test_gather_kernels_refuse_an_overlapping_output(dev, gen, gather, args):
+    k, v = (_rand_cache(gen, dev, torch.bfloat16, 6, 6, 8, 128)
+            for _ in range(2))
+    src = torch.tensor([1, 1, 0, 5, 4, 4], device=dev)
+    n0 = gather.launches
+    for out_k, out_v in ((k, torch.empty_like(v)), (torch.empty_like(k), v),
+                         (k[1:], torch.empty_like(v))):
+        with pytest.raises(ValueError, match="overlap|match"):
+            gather(k, v, src, *args, out_k=out_k, out_v=out_v)
+    both = torch.empty(2, *k.shape, dtype=k.dtype, device=dev)
+    with pytest.raises(ValueError, match="overlap"):
+        gather(k, v, src, *args, out_k=both[0], out_v=both[0])
+    assert gather.launches == n0
+    gather(k, v, src, *args, out_k=both[0], out_v=both[1])
+    assert gather.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", MOVABLE)
+@pytest.mark.parametrize("step", [0, 9, 10, 23])
+def test_single_slot_write_kernel_bit_exact(dev, gen, dtype, step):
+    B, L, E, D = 41, 3, 24, 768
+    k, v = (_rand_cache(gen, dev, dtype, B, L, E, D) for _ in range(2))
+    nk, nv = (_rand_cache(gen, dev, dtype, B, L, D) for _ in range(2))
+    n0 = cache_reorder.write_gen_slot.launches
+    a = cache_reorder.write_gen_slot(k.clone(), v.clone(), nk, nv, step)
+    b = cache_reorder.write_gen_slot_plain(k.clone(), v.clone(), nk, nv, step)
+    assert cache_reorder.write_gen_slot.launches == n0 + 1
+    assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    other = torch.arange(E, device=dev) != step
+    assert torch.equal(a["v"][:, :, other], v[:, :, other])
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(lane_beams=False), dict(lane_beams=False, fused_slot_chunks=8),
+    dict(rowmajor_cache=False), dict(rowmajor_cache=False, lane_beams=False),
+    dict(chunk_slot_write=False, pallas_slot_write=True),
+    dict(ancestry=True), dict(ancestry=True, rowmajor_cache=False),
+    dict(temperature=0.7)])
+def test_new_beam_paths_kernels_match_plain_path(dev, gen, knobs):
+    cfg, model, prefix = _tiny(dev, gen)
+    bc = beam.BeamConfig(beam_size=4, entry_length=20, stop_token=-1,
+                         **knobs)
+    a = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc)
+    b = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc.plain())
+    for name, x, y in zip(("tokens", "lengths", "scores", "order"), a, b):
+        if name == "scores":
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("gather,shape", [
+    ("reorder_rows_leading", (6, 2, 8, 128)),
+    ("reorder_cache_rows", (2, 6, 8, 128))])
+def test_gather_kernels_assert_on_a_source_outside_the_batch(dev, gather,
+                                                             shape):
+    """A source outside [0, B) trips the kernel's device-side assert, as
+    index_select's does on the card (in a process of its own: the assert
+    ends the process's CUDA context)."""
+    code = (
+        "import torch\n"
+        "from capdec_tpu_torch.ops import cache_reorder as cr\n"
+        f"k = torch.zeros({shape}, device='cuda', dtype=torch.bfloat16)\n"
+        "src = torch.tensor([0, 1, 2, 3, 4, 6], device='cuda')\n"
+        f"cr.{gather}(k, k.clone(), src)\n"
+        "torch.cuda.synchronize()\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert run.returncode != 0
+    assert "device-side assert" in run.stderr, run.stderr[-2000:]
