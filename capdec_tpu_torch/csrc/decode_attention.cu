@@ -42,10 +42,25 @@
 // layout; the groups then reduce across the warp and hand the per-dim
 // partial to the K2 layout through shared memory.
 //
-// Both are one kernel template, beam_attn<T, Gen>: the prefix, the current
-// token, the softmax and the output are shared, and the policy Gen
-// (GenSlots for K2, GenSlotsInt8 for K6) scores the generated slots and
-// adds their values.
+// K15: the v1 fused decode attention with the slot write fused in.
+// Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention
+// (pl.pallas_call at :825, body _kernel :67-136). Its read side is K2's
+// function for one layer (gk/gv [B, E, D] are the row-major [B, 1, E, D])
+// with n_gen = step: the row's slots below `step` are read, the slots at
+// or above it never. Its write side stores k_new/v_new into slot `step`
+// of gk/gv in place (the TPU kernel's aliased outputs). The block for
+// (head h, image n) stores head h's hd columns of its R rows: no block
+// reads slot `step`, and no two blocks write the same bytes, so the write
+// needs no ordering against any read. Bound on the H100: bytes, K2's plus
+// the one slot written (2·B·D). The TPU kernel's head-grouping matmul G,
+// its [TB, E, 1, D] block reshape and its bf16 products are Mosaic
+// workarounds and are not carried over: the products here are f32.
+//
+// All three are one kernel template, beam_attn<T, Gen>: the prefix, the
+// current token, the softmax and the output are shared, and the policy
+// Gen (GenSlots for K2, GenSlotsInt8 for K6, GenSlotsWrite for K15)
+// scores the generated slots, adds their values and, for K15, writes the
+// step's slot.
 #include "common.cuh"
 
 namespace capdec {
@@ -74,6 +89,31 @@ struct GenSlots {
     const T* base = gv + bl * E * D + (size_t)h * hd;
     for (int s = 0; s < n; ++s)
       head_axpy(acc, sc[s], base + (size_t)s * D, lane, nj);
+  }
+
+  // K2 reads only: the slot write is K3's (or K14's) launch.
+  __device__ void write(const T*, const T*, size_t, size_t, int, int, int,
+                        int, int, int, int) const {}
+};
+
+// K15's generated slots: K2's reads, and the step's K/V stored into slot
+// n_gen (= step) of wk/wv, the same caches as gk/gv. Each lane stores the
+// head dims it owns, lane + 32·j.
+template <typename T>
+struct GenSlotsWrite : GenSlots<T> {
+  T* wk;
+  T* wv;
+
+  __device__ void write(const T* kn, const T* vn, size_t qoff, size_t bl,
+                        int h, int slot, int E, int D, int hd, int lane,
+                        int nj) const {
+    const size_t dst = (bl * E + slot) * D + (size_t)h * hd;
+#pragma unroll
+    for (int j = 0; j < MAX_J; ++j)
+      if (j < nj) {
+        wk[dst + lane + 32 * j] = kn[qoff + lane + 32 * j];
+        wv[dst + lane + 32 * j] = vn[qoff + lane + 32 * j];
+      }
   }
 };
 
@@ -146,6 +186,11 @@ struct GenSlotsInt8 {
     for (int j = 0; j < MAX_J; ++j)
       if (j < nj) acc[j] += part[lane + 32 * j];
   }
+
+  // K6 reads only: the slot write is K5's launch.
+  template <typename T>
+  __device__ void write(const T*, const T*, size_t, size_t, int, int, int,
+                        int, int, int, int) const {}
 };
 
 template <typename T, typename Gen>
@@ -215,6 +260,7 @@ __global__ void beam_attn(const T* __restrict__ q, const T* __restrict__ kn,
 #pragma unroll
   for (int j = 0; j < MAX_J; ++j)
     if (j < nj) orow[lane + 32 * j] = acc[j] * inv;
+  gen.write(kn, vn, qoff, bl, h, n_gen, E, D, hd, lane, nj);
 }
 
 template <typename T, typename Gen>
@@ -277,5 +323,32 @@ extern "C" int capdec_beam_decode_attention_rowmajor_q(
                                           stream)
           : capdec::launch<float>(q, kn, vn, qs, pk, pv, gen, out, N, R, L,
                                   K, E, D, hd, layer, n_gen, stream);
+  return static_cast<int>(err);
+}
+
+extern "C" int capdec_beam_decode_attention(
+    const void* q, const void* kn, const void* vn, long qs, const void* pk,
+    const void* pv, void* gk, void* gv, float* out, int N, int R, int K,
+    int E, int D, int hd, int step, int dtype, cudaStream_t stream) {
+  // one layer: the caches [B, E, D] are the row-major [B, 1, E, D], and
+  // the slots below `step` are read (n_gen = step)
+  using capdec::GenSlotsWrite;
+  using B16 = __nv_bfloat16;
+  cudaError_t err =
+      dtype == capdec::kBF16
+          ? capdec::launch<B16>(
+                q, kn, vn, qs, pk, pv,
+                GenSlotsWrite<B16>{{static_cast<const B16*>(gk),
+                                    static_cast<const B16*>(gv)},
+                                   static_cast<B16*>(gk),
+                                   static_cast<B16*>(gv)},
+                out, N, R, 1, K, E, D, hd, 0, step, stream)
+          : capdec::launch<float>(
+                q, kn, vn, qs, pk, pv,
+                GenSlotsWrite<float>{{static_cast<const float*>(gk),
+                                      static_cast<const float*>(gv)},
+                                     static_cast<float*>(gk),
+                                     static_cast<float*>(gv)},
+                out, N, R, 1, K, E, D, hd, 0, step, stream);
   return static_cast<int>(err);
 }

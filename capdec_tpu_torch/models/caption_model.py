@@ -2,16 +2,26 @@
 
 `ClipCaptionModel` holds `gpt` (GPT-2) and `clip_project` (the mapper),
 so its `state_dict` keys are the reference checkpoint's `gpt.*` +
-`clip_project.*` layout. This slice ports inference: `map_prefix` and the
-weight loaders. Loss and training come in a later slice.
+`clip_project.*` layout.
+
+Forward contract (reference train.py:251-260):
+    embedding_cat = concat(mapper(prefix_clip) -> [B,K,768],
+                           wte(tokens)        -> [B,T,768])
+    logits = gpt2(inputs_embeds=embedding_cat, attention_mask=mask)
+
+Loss contract (train.py:349-350): cross-entropy of logits[:, K-1:-1]
+against `tokens` with ignore_index=0 (padded positions hold token 0).
+`map_prefix` is the serving path's (no gradients); `forward` and
+`loss_forward` run with gradients.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import gpt2, mappers
 
@@ -23,6 +33,12 @@ class CaptionModelConfig:
     prefix_size: int = 640           # 640 for RN50x4, 512 for ViT-B/32
     num_layers: int = 8
     mapping_type: str = "transformer"
+    only_prefix: bool = False        # freeze GPT-2; train the mapper only
+    # Chunked, recomputed CE (loss_forward): the LM head and CE run in row
+    # chunks of this size under torch.utils.checkpoint, so the [B, T, V]
+    # f32 logits never exist at once; backward recomputes each chunk's
+    # logits. 0 = single shot.
+    ce_chunk_rows: int = 0
     gpt2: gpt2.GPT2Config = dataclasses.field(default_factory=gpt2.GPT2Config)
 
     @property
@@ -59,6 +75,103 @@ def map_prefix(model: ClipCaptionModel, cfg: CaptionModelConfig,
                prefix: torch.Tensor) -> torch.Tensor:
     """CLIP embedding [B, prefix_size] -> prefix embeddings [B, K, 768]."""
     return model.clip_project(prefix)
+
+
+def _embeds(model: ClipCaptionModel, cfg: CaptionModelConfig,
+            tokens: torch.Tensor, prefix: torch.Tensor) -> torch.Tensor:
+    """[mapper(prefix) | wte(tokens)]: [B, K + T, D], with gradients."""
+    tok = gpt2.embed_tokens(model.gpt, tokens)
+    pre = model.clip_project(prefix).to(tok.dtype)
+    return torch.cat([pre, tok], dim=1)
+
+
+def forward(model: ClipCaptionModel, cfg: CaptionModelConfig,
+            tokens: torch.Tensor, prefix: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training forward: f32 logits [B, K+T, V]."""
+    return gpt2.forward(model.gpt, cfg.gpt2,
+                        _embeds(model, cfg, tokens, prefix), mask)
+
+
+def loss_fn(logits: torch.Tensor, tokens: torch.Tensor,
+            prefix_length: int) -> torch.Tensor:
+    """Masked-mean CE over logits[:, K-1:-1] vs tokens, ignore_index=0."""
+    shifted = logits[:, prefix_length - 1:-1].float()
+    logp = torch.log_softmax(shifted, dim=-1)
+    nll = -logp.gather(-1, tokens[..., None])[..., 0]
+    valid = (tokens != 0).float()
+    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def loss_forward(model: ClipCaptionModel, cfg: CaptionModelConfig,
+                 tokens: torch.Tensor, prefix: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """forward + loss_fn fused: the LM head runs only over the scored slice.
+
+    The loss scores only the T positions K-1..K+T-2, so the hidden states
+    are sliced before ln_f and the tied head (half the 50k-wide product
+    at K = T = 40), and the CE is logsumexp minus the gathered logit, in
+    f32, summed over valid tokens and divided by max(valid, 1): the same
+    math as `loss_fn(forward(...))`. With `cfg.ce_chunk_rows` = C < B the
+    rows run in chunks of C (the last one ragged when C does not divide
+    B) under torch.utils.checkpoint: one chunk's logits exist at a time,
+    in the forward and in the backward."""
+    K = cfg.prefix_length
+    hidden = gpt2.forward_hidden(model.gpt, cfg.gpt2,
+                                 _embeds(model, cfg, tokens, prefix), mask)
+    scored = hidden[:, K - 1:-1]
+
+    def nll_sums(hid, toks):
+        """(sum of the masked nll, valid count) of rows hid/toks."""
+        logits = gpt2.final_logits(model.gpt, cfg.gpt2, hid)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, toks[..., None])[..., 0]
+        valid = (toks != 0).float()
+        return ((lse - picked) * valid).sum(), valid.sum()
+
+    B, C = tokens.shape[0], cfg.ce_chunk_rows
+    if C and B > C:
+        s = v = torch.zeros((), device=hidden.device)
+        for i in range(0, B, C):
+            cs, cv = checkpoint(nll_sums, scored[i:i + C], tokens[i:i + C],
+                                use_reentrant=False)
+            s, v = s + cs, v + cv
+    else:
+        s, v = nll_sums(scored, tokens)
+    return s / v.clamp_min(1.0)
+
+
+def trainable_mask(model: ClipCaptionModel,
+                   cfg: CaptionModelConfig) -> Dict[str, bool]:
+    """Parameter name -> whether it trains. only_prefix mirrors
+    `ClipCaptionPrefix` (train.py:276-284): GPT-2 is frozen and only the
+    mapper trains."""
+    return {name: not (cfg.only_prefix and name.startswith("gpt."))
+            for name, _ in model.named_parameters()}
+
+
+def set_trainable(model: ClipCaptionModel,
+                  cfg: CaptionModelConfig) -> List[nn.Parameter]:
+    """Set `requires_grad` from `trainable_mask` (frozen parameters take
+    no gradient at all) and return the trainable parameters."""
+    mask = trainable_mask(model, cfg)
+    params = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            params.append(p)
+    return params
+
+
+def params_to_torch_state_dict(model: ClipCaptionModel,
+                               cfg: CaptionModelConfig
+                               ) -> Dict[str, torch.Tensor]:
+    """The reference checkpoint layout (`gpt.*`, tied `gpt.lm_head.weight`
+    included, + `clip_project.*`) as float32 CPU tensors."""
+    out = gpt2.params_to_torch_state_dict(model.gpt, prefix="gpt.")
+    out.update(mappers.mapper_to_torch_state_dict(
+        model.clip_project, cfg.mapper, prefix="clip_project."))
+    return out
 
 
 def params_from_torch_state_dict(sd: Dict[str, Any], cfg: CaptionModelConfig,

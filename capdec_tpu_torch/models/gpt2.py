@@ -9,7 +9,9 @@ matrices stored [in, out].
 The compute follows the JAX reference: matrix products run in
 `GPT2Config.compute_dtype` (bfloat16 on the card) and are read back in
 float32 before the bias add; layernorm statistics and softmaxes stay in
-float32. Two functions carry the beam-decode path:
+float32. `forward_hidden` / `forward` run the full sequence with
+gradients (training; the JAX `forward_hidden`, gpt2.py:238-295), through
+the block `prefill` shares. Two functions carry the beam-decode path:
 
   * `prefill` runs the [N, K, D] prefix once and returns the last
     position's logits plus the per-image prefix cache {k, v: [L, N, K, D]}.
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -222,6 +224,81 @@ def _block_mlp(x: torch.Tensor, blk: Block, cdt) -> torch.Tensor:
     return x + h.to(x.dtype)
 
 
+def _block(x: torch.Tensor, blk: Block, bias: torch.Tensor,
+           cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """One transformer block on the full sequence x [B, T, D] with the
+    additive f32 attention bias (broadcastable to [B, H, T, T]); returns
+    (y, k, v), k/v [B, T, D] in the compute dtype (JAX `_block`,
+    gpt2.py:158-204)."""
+    B, T, D = x.shape
+    H, hd = cfg.n_head, cfg.head_dim
+    cdt = cfg.compute_dtype
+    h = _layer_norm(x, blk.ln_1)
+    qkv = _dense(h, blk.attn.c_attn, cdt).to(cdt)
+    q, k, v = qkv.split(D, dim=-1)
+    heads = lambda a: a.reshape(B, T, H, hd).transpose(1, 2)
+    attn = _attention(heads(q), heads(k), heads(v), bias)
+    attn = attn.transpose(1, 2).reshape(B, T, D).to(cdt)
+    attn = _dense(attn, blk.attn.c_proj, cdt)
+    return _block_mlp(x + attn.to(x.dtype), blk, cdt), k, v
+
+
+def _causal_bias(T: int, device) -> torch.Tensor:
+    causal = torch.ones(T, T, dtype=torch.bool, device=device).tril()
+    return torch.where(causal, 0.0, NEG_INF).to(torch.float32)
+
+
+def forward_hidden(model: GPT2LMHeadModel, cfg: GPT2Config,
+                   inputs_embeds: torch.Tensor,
+                   attention_mask: Optional[torch.Tensor] = None,
+                   position_offset: Union[int, torch.Tensor] = 0,
+                   attention_bias: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Transformer stack only: [B, T, D] -> final hidden states [B, T, D]
+    in the compute dtype (before ln_f and the LM head), with gradients.
+
+    `attention_mask`: optional [B, T] 1/0 key mask (HF semantics: masked
+    keys leave the attention; queries still produce outputs).
+    `attention_bias`: optional additive bias REPLACING the causal mask
+    (sequence packing): [T, T], [B, T, T] (the batch axis leads: row b's
+    mask applies to every head of row b) or [B, H, T, T].
+    `positions`: optional explicit wpe indices [T]; default
+    `position_offset + arange(T)`."""
+    B, T, D = inputs_embeds.shape
+    t = model.transformer
+    if positions is None:
+        positions = position_offset + torch.arange(
+            T, device=inputs_embeds.device)
+    x = (inputs_embeds + t.wpe.weight[positions]).to(cfg.compute_dtype)
+    if attention_bias is None:
+        bias = _causal_bias(T, x.device)[None, None]
+    else:
+        bias = attention_bias
+        if bias.dim() == 2:        # [T, T] -> [1, 1, T, T]
+            bias = bias[None, None]
+        elif bias.dim() == 3:      # [B, T, T] -> [B, 1, T, T]
+            bias = bias[:, None]
+    if attention_mask is not None:
+        bias = bias + torch.where(attention_mask[:, None, None, :] > 0,
+                                  0.0, NEG_INF)
+    bias = bias.to(torch.float32)
+    for blk in t.h:
+        x = _block(x, blk, bias, cfg)[0]
+    return x
+
+
+def forward(model: GPT2LMHeadModel, cfg: GPT2Config,
+            inputs_embeds: torch.Tensor,
+            attention_mask: Optional[torch.Tensor] = None,
+            position_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
+    """Full-sequence forward with a causal mask: inputs_embeds [B, T, D]
+    -> f32 logits [B, T, V]. `attention_mask` as in `forward_hidden`."""
+    x = forward_hidden(model, cfg, inputs_embeds, attention_mask,
+                       position_offset)
+    return final_logits(model, cfg, x)
+
+
 @torch.no_grad()
 def prefill(model: GPT2LMHeadModel, cfg: GPT2Config,
             inputs_embeds: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
@@ -230,23 +307,12 @@ def prefill(model: GPT2LMHeadModel, cfg: GPT2Config,
     K x K causal attention is plain matmul + softmax (it was XLA, not
     Pallas, in the reference)."""
     N, K, D = inputs_embeds.shape
-    H, hd = cfg.n_head, cfg.head_dim
-    cdt = cfg.compute_dtype
     t = model.transformer
-    x = (inputs_embeds + t.wpe.weight[:K]).to(cdt)
-    causal = torch.ones(K, K, dtype=torch.bool,
-                        device=x.device).tril()
-    bias = torch.where(causal, 0.0, NEG_INF).to(torch.float32)
+    x = (inputs_embeds + t.wpe.weight[:K]).to(cfg.compute_dtype)
+    bias = _causal_bias(K, x.device)
     ks, vs = [], []
     for blk in t.h:
-        h = _layer_norm(x, blk.ln_1)
-        qkv = _dense(h, blk.attn.c_attn, cdt).to(cdt)
-        q, k, v = qkv.split(D, dim=-1)
-        heads = lambda a: a.reshape(N, K, H, hd).transpose(1, 2)
-        attn = _attention(heads(q), heads(k), heads(v), bias)
-        attn = attn.transpose(1, 2).reshape(N, K, D).to(cdt)
-        attn = _dense(attn, blk.attn.c_proj, cdt)
-        x = _block_mlp(x + attn.to(x.dtype), blk, cdt)
+        x, k, v = _block(x, blk, bias, cfg)
         ks.append(k)
         vs.append(v)
     logits = final_logits(model, cfg, x[:, -1])
@@ -491,6 +557,15 @@ def params_from_torch_state_dict(state_dict: Dict[str, Any],
     model = GPT2LMHeadModel(cfg, device=device)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def params_to_torch_state_dict(model: GPT2LMHeadModel, prefix: str = ""
+                               ) -> Dict[str, torch.Tensor]:
+    """HF key layout (under `prefix`) of the model's weights as float32
+    CPU tensors, the tied `lm_head.weight` included: the inverse of
+    `params_from_torch_state_dict`."""
+    return {prefix + k: v.detach().to("cpu", torch.float32)
+            for k, v in model.state_dict().items()}
 
 
 def state_dict_from_jax_numpy(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:

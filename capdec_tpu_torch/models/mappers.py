@@ -1,6 +1,7 @@
 """CLIP -> GPT-2 prefix mappers in PyTorch (port of capdec_tpu/models/mappers.py).
 
-This slice ports the two mappers the serving path loads:
+The two mappers the serving and training paths use are ported, and run
+with gradients:
   * `mlp`         — Tanh MLP, sizes (prefix_size, 768*K/2, 768*K)
   * `transformer` — TransformerMapper (alias `transformer_encoder`):
                     linear -> clip_length pseudo tokens, concat a learned
@@ -176,6 +177,16 @@ def init_params(mapper: nn.Module, generator: torch.Generator) -> nn.Module:
             mapper.prefix_const.shape, generator=generator,
             device=mapper.prefix_const.device))
     return mapper
+
+
+def mapper_to_torch_state_dict(mapper: nn.Module, cfg: MapperConfig,
+                               prefix: str = "clip_project."
+                               ) -> Dict[str, torch.Tensor]:
+    """The reference key layout (under `prefix`) of a ported mapper's
+    weights as float32 CPU tensors (the JAX `mapper_to_torch_state_dict`,
+    mappers.py:364, for the two ported types)."""
+    return {prefix + k: v.detach().to("cpu", torch.float32)
+            for k, v in mapper.state_dict().items()}
 
 
 def state_dict_from_jax_numpy(tree: Dict[str, Any], cfg: MapperConfig,

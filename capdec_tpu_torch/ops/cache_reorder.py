@@ -297,7 +297,9 @@ copy_forked_rows.launches = 0
 
 
 def _span(t: torch.Tensor) -> Tuple[int, int]:
-    return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+    """The bytes a (strided) tensor reaches: [first, last + 1)."""
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
 
 
 def _gather_out(k, v, out_k, out_v, name):

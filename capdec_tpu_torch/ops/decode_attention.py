@@ -1,7 +1,7 @@
-"""K2, K6, K8 and K9: fused beam-decode attention over split KV caches
+"""K2, K6, K8, K9 and K15: fused beam-decode attention over split KV caches
 (port of capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor,
-::beam_decode_attention_rowmajor_q, ::beam_decode_attention_chunked and
-::beam_decode_attention_chunked_q).
+::beam_decode_attention_rowmajor_q, ::beam_decode_attention_chunked,
+::beam_decode_attention_chunked_q and ::beam_decode_attention).
 
 One decode step of one transformer layer. For beam row b (image
 n = b // R) and each head, a softmax over the image's shared prefix
@@ -10,9 +10,12 @@ and the current token, then the weighted sum of V: f32 [B, D]. K6 reads
 an int8 generated cache with per-(row, layer, slot) f32 scales. K8 and K9
 (the slot-bounded "v3" kernels) read the generated cache in `chunk`-slot
 tiles below `step`, with an online softmax; K9 reads an int8 generated
-cache and, optionally, an int8 prefix cache with per-slot scales.
+cache and, optionally, an int8 prefix cache with per-slot scales. K15
+(the v1 kernel, which no path of the JAX package calls) attends over one
+layer's caches [B, E, D] and also writes the step's K/V into slot `step`,
+in place.
 
-On a CUDA tensor a wrapper launches csrc/decode_attention.cu (K2, K6) or
+On a CUDA tensor a wrapper launches csrc/decode_attention.cu (K2, K6, K15) or
 csrc/decode_attention_chunked.cu (K8, K9); each note says what bounds the
 kernel on the H100 and how the design answers. On a CPU tensor it runs
 its plain version, the un-fused attention math of the JAX reference's
@@ -30,6 +33,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .cache_reorder import _span
 
 NEG_INF = -1e9
 
@@ -385,3 +389,70 @@ def beam_decode_attention_chunked_q(
 
 
 beam_decode_attention_chunked_q.launches = 0
+
+
+def beam_decode_attention_plain(
+        q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+        pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
+        gv: torch.Tensor, step: int, *, beams_per_image: int,
+        head_dim: int):
+    """Plain PyTorch version of K15 (same signature and result): K2's
+    attention math for one layer, then the slot write, in place."""
+    if pk.dim() != 3 or gk.dim() != 3 or not 0 <= step < gk.shape[1]:
+        raise ValueError(f"K15 takes pk/pv [N, K, D], gk/gv [B, E, D] and "
+                         f"0 <= step < E; got pk {tuple(pk.shape)}, gk "
+                         f"{tuple(gk.shape)}, step {step}")
+    out = _attention_plain(q, k_new, v_new, pk[None], pv[None], gk[:, None],
+                           gv[:, None], step, 0, beams_per_image, head_dim,
+                           None)
+    gk[:, step].copy_(k_new)
+    gv[:, step].copy_(v_new)
+    return out, gk, gv
+
+
+def beam_decode_attention(
+        q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+        pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
+        gv: torch.Tensor, step: int, *, beams_per_image: int,
+        head_dim: int):
+    """Fused decode attention of one layer with the slot write fused in
+    (K15, the v1 kernel).
+
+    q/k_new/v_new: [B, D] rows with unit column stride and one shared row
+    stride; pk/pv: [N, K, D]; gk/gv: [B, E, D], contiguous; step: an int
+    in [0, E). Each row b (image b // R) attends over its image's prefix,
+    its slots below `step` and the current token; slots at or above
+    `step` are never read. Slot `step` of gk/gv then holds k_new/v_new.
+    The caches are updated IN PLACE and returned, the counterpart of the
+    JAX kernel's donated, aliased buffers: returns (out f32 [B, D], gk,
+    gv)."""
+    if _build.on_cpu(q):
+        return beam_decode_attention_plain(
+            q, k_new, v_new, pk, pv, gk, gv, step,
+            beams_per_image=beams_per_image, head_dim=head_dim)
+    R, hd = beams_per_image, head_dim
+    if pk.dim() != 3 or gk.dim() != 3:
+        raise ValueError("K15 takes pk/pv [N, K, D] and gk/gv [B, E, D]")
+    n_gen = _check_args(q, k_new, v_new, pk[None], pv[None], gk[:, None],
+                        gv[:, None], step, 0, R, hd, None, q.dtype)
+    for c in (gk, gv):  # the kernel writes them while it reads the rest
+        for t in (q, k_new, v_new, pk, pv, gv if c is gk else gk):
+            (a0, a1), (b0, b1) = _span(c), _span(t)
+            if a0 < b1 and b0 < a1:
+                raise ValueError("K15 writes gk/gv in place: they must not "
+                                 "overlap each other or the other inputs")
+    B, D = q.shape
+    N, K, _ = pk.shape
+    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
+    lib = _build.library()
+    _build.check(lib.capdec_beam_decode_attention(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
+        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+        out.data_ptr(), N, R, K, gk.shape[1], D, hd, n_gen,
+        _build.dtype_code(q), _build.stream(q.device)),
+        "beam_decode_attention")
+    beam_decode_attention.launches += 1
+    return out, gk, gv
+
+
+beam_decode_attention.launches = 0

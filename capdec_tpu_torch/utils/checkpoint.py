@@ -2,10 +2,13 @@
 
 Checkpoints are plain torch state_dicts in the reference's key layout
 (`gpt.*` + `clip_project.*`), which is exactly the port's module tree, so
-a reference `.pt` loads with `load_state_dict(strict=True)`.
+a reference `.pt` loads with `load_state_dict(strict=True)`. Naming as
+the reference's (train.py:359-371): `{prefix}-{epoch:03d}.pt` per epoch,
+`{prefix}_latest.pt` mid-epoch.
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict
 
@@ -32,3 +35,25 @@ def load_caption_checkpoint(path: str,
     """The caption model of a reference-layout checkpoint, strictly."""
     return caption_model.params_from_torch_state_dict(
         load_state_dict(path), cfg, device)
+
+
+def save_state_dict(sd: Dict[str, torch.Tensor], path: str) -> None:
+    """torch.save a state_dict as CPU tensors."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, path)
+
+
+def save_caption_checkpoint(model: caption_model.ClipCaptionModel,
+                            cfg: caption_model.CaptionModelConfig,
+                            path: str) -> None:
+    """The model's weights as a reference-layout `.pt` (float32)."""
+    save_state_dict(caption_model.params_to_torch_state_dict(model, cfg),
+                    path)
+
+
+def epoch_checkpoint_path(out_dir: str, prefix: str, epoch: int) -> str:
+    return os.path.join(out_dir, f"{prefix}-{epoch:03d}.pt")
+
+
+def latest_checkpoint_path(out_dir: str, prefix: str) -> str:
+    return os.path.join(out_dir, f"{prefix}_latest.pt")

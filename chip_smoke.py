@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. The card's name and power limit (nvidia-smi) and the build of the
      hand-written kernels from capdec_tpu_torch/csrc.
-  2. Each kernel (K1-K14) against its plain PyTorch version on the
+  2. Each kernel (K1-K15) against its plain PyTorch version on the
      card, at the served paths' shapes, in bf16 and f32 (int8 caches for
      K5-K7 and K9, with and without K9's int8 prefix, and for the gathers
      K10-K12; NaN in the slots or scales the attention kernels must not
@@ -29,8 +29,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (K1, K2, K3, K10); (g) seq-major beam, rowmajor_cache=False (K1,
      K11); (h) the K14 slot write, chunk_slot_write=False with
      pallas_slot_write (K1, K2, K14, K4); (i) ancestry=True (K1, K3).
-     K12 lies on no served path (the JAX engine calls it nowhere) and
-     must launch on none.
+     K12 and K15 lie on no served path (the JAX engine calls neither)
+     and must launch on none; K15 (the v1 attention with its fused slot
+     write) is checked at the beam path's per-layer shapes in phase 2.
   4. Kernels against plain versions over whole decodes, in f32: 8 images
      on the beam path, (a), (c), (d) and (f)-(i) give identical tokens
      (the bf16 path's token share with f32 is reported), and (f)'s
@@ -39,7 +40,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the int8 path, (b) and (e) shares >= 0.98 of the top-beam (greedy:
      all) tokens (a level that rounds the other way may move a near-tie;
      exact identity and the share with the fp path are reported).
-  5. A JSON line of the kernels, then {"ok": true, "device": ...} last.
+  5. Training at full width (GPT-2 124M + the 8-layer mapper, bf16
+     products over f32 weights, batch 30, captions of 40 tokens, noise
+     variance 0.016) through train.loop.train on a corpus pickle made
+     from the seed: (j) only_prefix and (k) both trained, each 3 warm-up
+     steps and 20 timed ones (samples/s, ms per step, MFU against 989
+     TFLOP/s bf16); finite losses, the no-noise loss on the corpus's
+     rows falling, (j) leaving GPT-2 bit-unchanged, no decode kernel
+     launched, and the saved `smoke-000.pt` serving a batch of 64. Then
+     one f32 step at batch 2 on the card against the CPU (loss and
+     mapper gradient).
+  6. A JSON line of the kernels, then {"ok": true, "device": ...} last.
 Without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -49,6 +60,7 @@ import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -872,9 +884,109 @@ def check_single_slot_write(gen):
               f"over {n} sets and the {E} slots")
 
 
+def check_v1_attention(gen):
+    """K15 against its plain version at the main path's per-layer shapes
+    (N=64 images x R=5, K=40, E=72, D=768, 12 heads x 64), bf16 and f32,
+    steps 0, 66 and 71: the output within K2's tolerances, slot `step`
+    of the caches equal to k_new/v_new bit for bit, every other slot's
+    bits untouched, NaN in the slots above `step` never read. Timed at
+    step 66 in bf16; the library yardstick is SDPA on keys concatenated
+    beforehand plus `index_copy_` of the slot."""
+    from capdec_tpu_torch.ops import decode_attention as da
+    N, R, K, E, D, H = (MAIN[k] for k in ("N", "R", "K", "E", "D", "H"))
+    B, hd = N * R, D // H
+    kw = dict(beams_per_image=R, head_dim=hd)
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        rand = lambda *s: torch.randn(*s, generator=gen,
+                                      device=DEVICE).to(dtype)
+        q, kn, vn = rand(B, 3 * D).split(D, dim=-1)
+        pk, pv, gk0, gv0 = rand(N, K, D), rand(N, K, D), rand(B, E, D), \
+            rand(B, E, D)
+        err = 0.0
+        for step in (0, MAIN["entry_length"] - 1, E - 1):
+            k0, v0 = gk0.clone(), gv0.clone()
+            k0[:, step + 1:] = float("nan")  # never read, never written
+            v0[:, step + 1:] = float("nan")
+            gk, gv = k0.clone(), v0.clone()
+            out = da.beam_decode_attention(q, kn, vn, pk, pv, gk, gv, step,
+                                           **kw)[0]
+            ref, rk, _ = da.beam_decode_attention_plain(
+                q, kn, vn, pk, pv, k0.clone(), v0.clone(), step, **kw)
+            torch.cuda.synchronize()
+            what = f"K15 {dtype} step {step}"
+            require(bool(torch.isfinite(out).all()),
+                    f"{what}: non-finite output")
+            require(torch.allclose(out, ref, atol=tol, rtol=tol),
+                    f"{what}: max abs err {max_err(out, ref)}")
+            require(torch.equal(gk[:, step], kn) and
+                    torch.equal(gv[:, step], vn),
+                    f"{what}: slot {step} does not hold k_new/v_new")
+            other = torch.arange(E, device=DEVICE) != step
+            for a, b in ((gk, k0), (gv, v0), (rk, k0)):
+                require(torch.equal(a[:, other].view(bits[dtype]),
+                                    b[:, other].view(bits[dtype])),
+                        f"{what}: another slot's bits changed")
+            err = max(err, max_err(out, ref))
+        errs[dtype] = err
+        if dtype == torch.bfloat16:
+            timed = (q, kn, vn, pk, pv, gk0, gv0)
+    q, kn, vn, pk, pv, gk, gv = timed
+    step = MAIN["entry_length"] - 1
+    args = (q, kn, vn, pk, pv, gk, gv, step)
+    keys = torch.cat([pk.repeat_interleave(R, 0), gk[:, :step],
+                      kn[:, None]], 1)
+    vals = torch.cat([pv.repeat_interleave(R, 0), gv[:, :step],
+                      vn[:, None]], 1)
+    heads = lambda t, s: t.reshape(B, s, H, hd).transpose(1, 2)
+    sq, sk, sv = heads(q.contiguous(), 1), heads(keys, K + step + 1), \
+        heads(vals, K + step + 1)
+    slot = torch.tensor([step], device=DEVICE)
+
+    def library():
+        torch.nn.functional.scaled_dot_product_attention(sq, sk, sv)
+        gk.index_copy_(1, slot, kn[:, None])
+        gv.index_copy_(1, slot, vn[:, None])
+
+    # q/k/v read, the prefix once per image, the live slots, the slot
+    # written, f32 out
+    nbytes = ((3 * B * D + 2 * N * K * D + 2 * B * step * D + 2 * B * D) * 2
+              + B * D * 4)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * (K + step + 1),
+                          torch.bfloat16)
+    return dict(
+        name="beam_decode_attention", route="cuda",
+        source="capdec_tpu_torch/csrc/decode_attention.cu",
+        replaces="capdec_tpu/ops/decode_attention.py:794",
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_f32=errs[torch.float32],
+        ms=time_ms(lambda: da.beam_decode_attention(*args, **kw)),
+        plain_ms=time_ms(lambda: da.beam_decode_attention_plain(*args, **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+        library_note="scaled_dot_product_attention on keys concatenated "
+                     "beforehand, plus index_copy_ of slot `step` of k "
+                     "and v",
+        shape=f"N={N} R={R} K={K} E={E} step={step} D={D} bf16, caches "
+              "[B, E, D] written in place")
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
+
+
+def model_config(compute_dtype=torch.bfloat16, **kw):
+    """The full-width model: GPT-2 124M + the 8-layer TransformerMapper,
+    prefix 640 -> 40 (`kw`: only_prefix, ce_chunk_rows)."""
+    from capdec_tpu_torch.models import caption_model, gpt2
+    return caption_model.CaptionModelConfig(
+        prefix_length=MAIN["K"], clip_length=MAIN["K"],
+        prefix_size=MAIN["prefix_size"], num_layers=MAIN["mapper_layers"],
+        mapping_type="transformer",
+        gpt2=gpt2.GPT2Config(vocab_size=MAIN["V"], n_embd=MAIN["D"],
+                             n_layer=MAIN["L"], n_head=MAIN["H"],
+                             compute_dtype=compute_dtype), **kw)
 
 
 def build_server(gen, model=None, beam=True, **knobs):
@@ -882,15 +994,9 @@ def build_server(gen, model=None, beam=True, **knobs):
     greedy/top-p decoding with ToppConfig(**knobs). `model` reuses weights
     made before. Returns (server, model, cfg, the decode config)."""
     from capdec_tpu_torch import serve
-    from capdec_tpu_torch.models import caption_model, gpt2
+    from capdec_tpu_torch.models import caption_model
     from capdec_tpu_torch.utils.tokenizer import ByteTokenizer
-    cfg = caption_model.CaptionModelConfig(
-        prefix_length=MAIN["K"], clip_length=MAIN["K"],
-        prefix_size=MAIN["prefix_size"], num_layers=MAIN["mapper_layers"],
-        mapping_type="transformer",
-        gpt2=gpt2.GPT2Config(vocab_size=MAIN["V"], n_embd=MAIN["D"],
-                             n_layer=MAIN["L"], n_head=MAIN["H"],
-                             compute_dtype=torch.bfloat16))
+    cfg = model_config()
     if model is None:
         model = caption_model.init_params(cfg, gen, device=DEVICE)
     E = MAIN["entry_length"]
@@ -928,7 +1034,8 @@ def counters():
             "reorder_cache_rows": cache_reorder.reorder_cache_rows,
             "reorder_cache_rows_bounded":
                 cache_reorder.reorder_cache_rows_bounded,
-            "write_gen_slot": cache_reorder.write_gen_slot}
+            "write_gen_slot": cache_reorder.write_gen_slot,
+            "beam_decode_attention": decode_attention.beam_decode_attention}
 
 
 # The served paths: (phase, beam search?, decode knobs, the kernels the
@@ -1093,6 +1200,177 @@ def int8_agreement(model, cfg, beam, dc, dc8, bf16_gpt, embeds):
                 int8_bf16_vs_bf16_token_share=_share(beam, i8, fp))
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: training
+# ---------------------------------------------------------------------------
+
+# The training slice: the JAX bench's flagship step (bench.py:102-108,
+# 301-319) on the reference's COCO preset (capdec_tpu/cli/train.py:80-82):
+# batch 30, caption length 40, noise variance 0.016, bf16 products over
+# f32 master weights. lr 1e-4 with no warmup, in place of the reference's
+# 2e-5 with warmup 5000, under which the lr stays below 1e-7 for 20 steps
+# and no loss can fall; the step's time does not depend on the lr.
+TRAIN = dict(batch=30, T=40, variance=0.016, lr=1e-4, warm_steps=3,
+             steps=20, distinct=30, cpu_batch=2)
+WORDS = ("a", "man", "woman", "dog", "riding", "on", "the", "red", "bus",
+         "street", "with", "two", "people", "standing", "next", "to",
+         "large", "white", "building", "field", "holding", "kite")
+
+
+def write_corpus(path, rng) -> None:
+    """A corpus pickle in the reference schema (capdec_tpu/data/dataset.py
+    :3-7): TRAIN["steps"] batches of rows cycling through
+    TRAIN["distinct"] captions of 14 random words (more than T bytes) and
+    their random CLIP text and image embeddings."""
+    import pickle
+    n, rows = TRAIN["distinct"], TRAIN["steps"] * TRAIN["batch"]
+    texts = [" ".join(rng.choice(WORDS, 14)) + "." for _ in range(n)]
+    caps = [{"caption": texts[i % n], "image_id": i % n, "id": i,
+             "clip_embedding": i % n} for i in range(rows)]
+    image = rng.randn(n, MAIN["prefix_size"]).astype(np.float32)
+    text = image + 0.3 * rng.randn(n, MAIN["prefix_size"]).astype(np.float32)
+    with open(path, "wb") as f:
+        pickle.dump({"clip_embedding": image, "captions": caps,
+                     "clip_embedding_text_dave": text}, f)
+
+
+def train_mode(only_prefix, ds, out_dir, embeds):
+    """Mode (j) (only_prefix: GPT-2 frozen, the mapper trains) or (k)
+    (both train) at full width through train.loop.train: a warm-up run
+    of TRAIN["warm_steps"] steps, then one epoch of TRAIN["steps"] steps
+    whose metrics.jsonl (logged every step, each log waiting for the
+    step's loss) gives samples/s and ms per step. Asserts finite losses,
+    the no-noise loss on the corpus's distinct rows falling, (j)'s GPT-2
+    bit-unchanged and the mapper changed (both under (k)), no decode
+    kernel launched, and the epoch checkpoint `smoke-000.pt` equal to the
+    weights and serving a batch of 64 on the beam path."""
+    import pathlib
+    from capdec_tpu_torch.models import caption_model
+    from capdec_tpu_torch.train import loop, step
+    from capdec_tpu_torch.utils import checkpoint, flops
+    cfg = model_config(only_prefix=only_prefix)
+    model = caption_model.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rows = np.arange(TRAIN["distinct"])
+    fixed = {"tokens": ds.tokens[rows], "mask": ds.mask[rows],
+             "prefix": ds.batch_prefixes(rows)}
+    eval_fn = step.make_eval_step(cfg)
+    loss0 = float(eval_fn(model, fixed))
+    noise = step.NoiseConfig(variance=TRAIN["variance"])
+    out_dir = pathlib.Path(out_dir)
+
+    def run(name, **kw):
+        return loop.train(cfg, loop.TrainLoopConfig(
+            epochs=1, batch_size=TRAIN["batch"], lr=TRAIN["lr"],
+            warmup_steps=0, out_dir=str(out_dir / name), prefix="smoke",
+            log_every=1, seed=SEED, save_state=False, **kw), ds, noise,
+            params=model, device=DEVICE)
+
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run("warm", max_steps=TRAIN["warm_steps"])
+    run("timed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters().items()}
+    require(not any(launches.values()),
+            f"training launched decode kernels: {launches}")
+    with open(out_dir / "timed" / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    losses = [m["loss"] for m in logged]
+    require(len(losses) == TRAIN["steps"] and np.isfinite(losses).all(),
+            f"training: {len(losses)} steps, losses {losses}")
+    loss1 = float(eval_fn(model, fixed))
+    require(np.isfinite(loss1) and loss1 < loss0,
+            f"training: the loss on the distinct rows went {loss0} -> {loss1}")
+    changed = {n for n, p in model.named_parameters()
+               if not torch.equal(p.detach(), before[n])}
+    gpt_changed = any(n.startswith("gpt.") for n in changed)
+    require(any(n.startswith("clip_project.") for n in changed),
+            "training: the mapper did not change")
+    require(gpt_changed != only_prefix,
+            "training: GPT-2 must stay bit-unchanged under only_prefix and "
+            "train without it")
+    del before
+    path = checkpoint.epoch_checkpoint_path(str(out_dir / "timed"), "smoke", 0)
+    served = checkpoint.load_caption_checkpoint(path, cfg, DEVICE)
+    for n, p in model.state_dict().items():
+        require(torch.equal(served.state_dict()[n], p),
+                f"checkpoint: {n} differs from the trained weights")
+    server = build_server(None, model=served)[0]
+    captions = server.caption(embeds[:MAIN["N"]])
+    require(len(captions) == MAIN["N"] and
+            all(isinstance(c, str) for c in captions),
+            "train -> serve: the checkpoint must caption a batch")
+    rate = logged[-1]
+    flop = flops.train_step_matmul_flops(cfg, TRAIN["batch"], TRAIN["T"])
+    sd = caption_model.params_to_torch_state_dict(model, cfg)
+    del model, served, server
+    torch.cuda.empty_cache()
+    return dict(
+        mode="j only_prefix" if only_prefix else "k both train",
+        batch=TRAIN["batch"], T=TRAIN["T"], steps=TRAIN["steps"],
+        samples_per_s=rate["samples_per_sec"],
+        ms_per_step=1e3 / rate["steps_per_sec"],
+        mfu=flop * rate["steps_per_sec"] / PEAK_FLOPS[torch.bfloat16],
+        step_matmul_tflop=flop / 1e12, first_loss=losses[0],
+        last_loss=losses[-1], distinct_rows_loss=[loss0, loss1],
+        parameters_changed=len(changed), wall_s=wall,
+        served_from_checkpoint=len(captions)), sd
+
+
+def card_cpu_step(sd, ds):
+    """One f32 step's loss and mapper gradient at full width, batch 2, on
+    the card and on the CPU from the same (trained) weights, batch and
+    noise draws: the loss within 1e-4 relative, the mapper gradient (all
+    its tensors as one vector) within 1e-3 relative in L2. Both sides are
+    f32; their rounding differs op by op (sum orders, exp/tanh/rsqrt)
+    and the backward carries it through 20 layers of trained weights
+    (7.4e-5 measured on an H100); a bf16, dtype or kernel fault moves the
+    loss by 1e-3 or more and the gradient by order 1. The worst single
+    tensor's error relative to its largest magnitude is reported beside
+    it."""
+    from capdec_tpu_torch.models import caption_model
+    from capdec_tpu_torch.ops import noise
+    cfg = model_config(torch.float32)
+    rows = np.arange(TRAIN["cpu_batch"])
+    draws = np.random.RandomState(SEED).randn(
+        len(rows), MAIN["prefix_size"]).astype(np.float32)
+    got = {}
+    for dev in ("cpu", DEVICE):
+        model = caption_model.params_from_torch_state_dict(sd, cfg, dev)
+        as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+        prefix = noise.noise_injection(
+            as_t(ds.batch_prefixes(rows)), TRAIN["variance"],
+            normal=as_t(draws))
+        loss = caption_model.loss_forward(model, cfg,
+                                          as_t(ds.tokens[rows]).long(),
+                                          prefix, as_t(ds.mask[rows]))
+        loss.backward()
+        got[dev] = (float(loss.detach()),
+                    {n: p.grad.cpu()
+                     for n, p in model.clip_project.named_parameters()})
+        del model
+    (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got[DEVICE]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    diff2 = sum(float((g_card[n] - g).double().pow(2).sum())
+                for n, g in g_cpu.items())
+    norm2 = sum(float(g.double().pow(2).sum()) for g in g_cpu.values())
+    grad_rel = (diff2 / norm2) ** 0.5
+    worst = max((float((g_card[n] - g).abs().max()
+                       / g.abs().max().clamp_min(1e-30)), n)
+                for n, g in g_cpu.items())
+    require(loss_rel <= 1e-4, f"card vs CPU f32 step: loss {l_card} vs "
+                              f"{l_cpu} ({loss_rel} relative)")
+    require(grad_rel <= 1e-3, f"card vs CPU f32 step: mapper gradient "
+                              f"{grad_rel} relative (L2)")
+    return dict(batch=len(rows), loss_cpu=l_cpu, loss_card=l_card,
+                loss_rel_err=loss_rel, mapper_grad_rel_l2_err=grad_rel,
+                worst_tensor_rel_max_err=worst[0], worst_tensor=worst[1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1128,7 +1406,8 @@ def main() -> int:
                check_int8_attention(gen), check_whole_row_fork(gen),
                check_chunked_attention(gen),
                check_chunked_int8_attention(gen), check_seqmajor_write(gen),
-               *check_gathers(gen), check_single_slot_write(gen)]
+               *check_gathers(gen), check_single_slot_write(gen),
+               check_v1_attention(gen)]
     for k in kernels:
         log(json.dumps({"phase": "kernel_check", **k}))
 
@@ -1183,6 +1462,25 @@ def main() -> int:
           for p in ("seqmajor", "slot_write", "ancestry")))
     for phase, call in checks:
         log(json.dumps({"phase": phase, **call()}))
+    del model, bf16_gpt
+    torch.cuda.empty_cache()
+
+    from capdec_tpu_torch.data import dataset as data_lib
+    from capdec_tpu_torch.utils.tokenizer import ByteTokenizer
+    trained = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = f"{tmp}/corpus.pkl"
+        write_corpus(corpus, np.random.RandomState(SEED))
+        ds = data_lib.load_caption_dataset(
+            corpus, MAIN["K"], ByteTokenizer(), normalize_prefix=True,
+            max_seq_len_override=TRAIN["T"])
+        for phase, only_prefix in (("train_j", True), ("train_k", False)):
+            trained[phase], sd = train_mode(only_prefix, ds,
+                                            f"{tmp}/{phase}", embeds)
+            log(json.dumps({"phase": phase, **trained[phase]}))
+        log(json.dumps({"phase": "train_card_vs_cpu",
+                        **card_cpu_step(sd, ds)}))
+        del sd
 
     name = torch.cuda.get_device_name(0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1191,6 +1489,8 @@ def main() -> int:
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},
+                    **{f"{phase}_{k}": run[k] for phase, run in trained.items()
+                       for k in ("samples_per_s", "ms_per_step", "mfu")},
                     "smoke_s": time.perf_counter() - t0}))
     for line in smi:
         log(line)

@@ -5,8 +5,9 @@ and the port's independence from it.
     in the port strictly and captions exactly as the JAX server does.
   * `python -m capdec_tpu_torch.cli.serve` on a tiny pickle prints the
     same captions as the JAX serving CLI (float32, CPU).
-  * No module of capdec_tpu_torch/, and not chip_smoke.py, imports `jax`
-    or `capdec_tpu`.
+  * No module of capdec_tpu_torch/, not chip_smoke.py and no
+    scripts/torch_*.py imports `jax`, `capdec_tpu` or the JAX training
+    stack (`optax`, `orbax`, `flax`).
 """
 import ast
 import json
@@ -127,8 +128,12 @@ def _imported_modules(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "capdec_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert len(scripts) >= 2
+    files += scripts
     assert len(files) > 10 and all(f.exists() for f in files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "capdec_tpu"), (f, mod)
+            assert top not in ("jax", "jaxlib", "capdec_tpu", "optax",
+                               "orbax", "flax"), (f, mod)

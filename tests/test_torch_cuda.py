@@ -10,7 +10,10 @@ K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
 (K2, K8) or scales (K6, K9) they must not read, R = 1 and 5 for K8/K9;
 K3/K4/K5/K7/K13 bit-exact; the gathers K10-K12 and the slot write K14
 bit-exact in f32, bf16 and int8, and the gathers refuse an output that
-overlaps their input and assert on a source outside the batch; tiny beam searches (bf16/f32 cache, int8 cache with
+overlaps their input and assert on a source outside the batch; K15 (v1
+attention with the fused slot write) within K2's tolerances, its slot
+write bit-exact, every other slot untouched, NaN tails unread, and bad
+shapes, dtypes and overlapping caches refused; tiny beam searches (bf16/f32 cache, int8 cache with
 staged growth, the slot-bounded v3 paths, the non-lane, seq-major, K14,
 ancestry and temperature paths) and greedy searches (every route) in f32
 give identical tokens through the kernels and through the plain versions
@@ -429,3 +432,62 @@ def test_gather_kernels_assert_on_a_source_outside_the_batch(dev, gather,
                          text=True, timeout=300, cwd=REPO)
     assert run.returncode != 0
     assert "device-side assert" in run.stderr, run.stderr[-2000:]
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("R,step", [(5, 0), (5, 17), (5, 66), (5, 71),
+                                    (1, 30), (24, 5)])
+def test_v1_attention_kernel(dev, gen, dtype, _, tol, R, step):
+    """K15 against its plain version: the same output, slot `step` of the
+    caches equal to k_new/v_new bit for bit, every other slot untouched,
+    NaN in the slots above `step` never read."""
+    N, K, E, D = 8, 40, 72, 768
+    B = N * R
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    q, kn, vn = r(B, 3 * D).split(D, dim=-1)
+    pk, pv, gk0, gv0 = r(N, K, D), r(N, K, D), r(B, E, D), r(B, E, D)
+    gk0[:, step + 1:] = float("nan")
+    gv0[:, step + 1:] = float("nan")
+    kw = dict(beams_per_image=R, head_dim=64)
+    n0 = decode_attention.beam_decode_attention.launches
+    gk, gv = gk0.clone(), gv0.clone()
+    out, gk2, gv2 = decode_attention.beam_decode_attention(
+        q, kn, vn, pk, pv, gk, gv, step, **kw)
+    assert gk2 is gk and gv2 is gv
+    assert decode_attention.beam_decode_attention.launches == n0 + 1
+    ref, rk, rv = decode_attention.beam_decode_attention_plain(
+        q, kn, vn, pk, pv, gk0.clone(), gv0.clone(), step, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    assert torch.equal(gk[:, step], kn) and torch.equal(gv[:, step], vn)
+    other = torch.arange(E, device=dev) != step
+    # NaN != NaN: compare the bits of the untouched slots
+    for a, b in ((gk, gk0), (gv, gv0), (rk, gk0)):
+        assert torch.equal(a[:, other].view(torch.int16 if dtype ==
+                                              torch.bfloat16 else torch.int32),
+                           b[:, other].view(torch.int16 if dtype ==
+                                            torch.bfloat16 else torch.int32))
+
+
+def test_v1_attention_kernel_refuses_bad_arguments(dev, gen):
+    N, R, K, E, D = 2, 5, 8, 16, 256
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    q, kn, vn = r(N * R, D), r(N * R, D), r(N * R, D)
+    pk, pv, gk, gv = r(N, K, D), r(N, K, D), r(N * R, E, D), r(N * R, E, D)
+    kw = dict(beams_per_image=R, head_dim=64)
+    v1 = decode_attention.beam_decode_attention
+    n0 = v1.launches
+    with pytest.raises(ValueError, match="step"):
+        v1(q, kn, vn, pk, pv, gk, gv, E, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        v1(q, kn, vn, pk, pv, gk.bfloat16(), gv.bfloat16(), 3, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        v1(q, kn, vn, pk, pv, gk[:-1], gv[:-1], 3, **kw)
+    with pytest.raises(ValueError, match="gk/gv"):
+        v1(q, kn, vn, pk, pv, gk[:, None], gv[:, None], 3, **kw)
+    with pytest.raises(ValueError, match="overlap"):
+        v1(q, kn, vn, pk, pv, gk, gk, 3, **kw)
+    with pytest.raises(ValueError, match="overlap"):
+        v1(gk[:, 0], gk[:, 1], gk[:, 2], pk, pv, gk, gv, 3, **kw)
+    assert v1.launches == n0
