@@ -1,7 +1,10 @@
-// K2: one layer's beam-decode attention over split, row-major KV caches.
+// K6 and K15: one layer's beam-decode attention over split, row-major KV
+// caches, on the warp-per-beam template beam_attn.
 //
-// Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor
-// (pl.pallas_call at :765, body _kernel_rm :186-241). For each beam row b
+// The function is K2's (capdec_tpu/ops/decode_attention.py::
+// beam_decode_attention_rowmajor, pl.pallas_call at :765, body _kernel_rm
+// :186-241), which runs on decode_attention_async.cu; the template keeps
+// its first design as the base of K6 and K15. For each beam row b
 // of image n = b / R and each head, a softmax over three slot sets:
 //   * the image's shared prefix  pk/pv [L, N, K, D]  (all K slots),
 //   * the row's generated slots  gk/gv [B, L, E, D]  below n_gen,
@@ -56,17 +59,18 @@
 // its [TB, E, 1, D] block reshape and its bf16 products are Mosaic
 // workarounds and are not carried over: the products here are f32.
 //
-// All three are one kernel template, beam_attn<T, Gen>: the prefix, the
+// Both are one kernel template, beam_attn<T, Gen>: the prefix, the
 // current token, the softmax and the output are shared, and the policy
-// Gen (GenSlots for K2, GenSlotsInt8 for K6, GenSlotsWrite for K15)
-// scores the generated slots, adds their values and, for K15, writes the
-// step's slot.
+// Gen (GenSlotsInt8 for K6, GenSlotsWrite for K15, on K2's reads in
+// GenSlots) scores the generated slots, adds their values and, for K15,
+// writes the step's slot.
 #include "common.cuh"
 
 namespace capdec {
 namespace {
 
-// K2's generated slots: values of type T, in the head layout.
+// K2's function's generated slots: values of type T, in the head layout
+// (the reads of K15's GenSlotsWrite).
 template <typename T>
 struct GenSlots {
   static constexpr bool kPartial = false;  // needs no shared partial
@@ -287,28 +291,6 @@ cudaError_t launch(const void* q, const void* kn, const void* vn, long qs,
 
 }  // namespace
 }  // namespace capdec
-
-extern "C" int capdec_beam_decode_attention_rowmajor(
-    const void* q, const void* kn, const void* vn, long qs, const void* pk,
-    const void* pv, const void* gk, const void* gv, float* out, int N, int R,
-    int L, int K, int E, int D, int hd, int layer, int n_gen, int dtype,
-    cudaStream_t stream) {
-  using capdec::GenSlots;
-  using B16 = __nv_bfloat16;
-  cudaError_t err =
-      dtype == capdec::kBF16
-          ? capdec::launch<B16>(
-                q, kn, vn, qs, pk, pv,
-                GenSlots<B16>{static_cast<const B16*>(gk),
-                              static_cast<const B16*>(gv)},
-                out, N, R, L, K, E, D, hd, layer, n_gen, stream)
-          : capdec::launch<float>(
-                q, kn, vn, qs, pk, pv,
-                GenSlots<float>{static_cast<const float*>(gk),
-                                static_cast<const float*>(gv)},
-                out, N, R, L, K, E, D, hd, layer, n_gen, stream);
-  return static_cast<int>(err);
-}
 
 extern "C" int capdec_beam_decode_attention_rowmajor_q(
     const void* q, const void* kn, const void* vn, long qs, const void* pk,

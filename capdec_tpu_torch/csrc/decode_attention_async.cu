@@ -1,0 +1,656 @@
+// K2 and K8: one layer's beam-decode attention, its head slices staged in
+// shared memory by asynchronous copies that complete on mbarriers.
+//
+// Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor
+// (the function at :719, pl.pallas_call at :765, body _kernel_rm :186-241)
+// and ::beam_decode_attention_chunked (the function at :484, pl.pallas_call
+// at :523, body _kernel_rm_chunked :326-454). Both compute one function:
+// for beam row b of image n = b / R and each head, a softmax over
+//   * the image's prefix slots      pk/pv [L, N, K, D]  (all K),
+//   * the row's generated slots     gk/gv [B, L, E, D]  below n_gen,
+//   * the current token             k_new/v_new [B, D]  (row stride qs),
+// then the probability-weighted sum of V, written as f32 out [B, D]. K2
+// reads n_gen = min(step, e_cap) slots, K8 n_gen = step: the caller passes
+// n_gen, and the K8 entry is the K2 entry under its own name.
+//
+// Bound on the H100: bytes. A call reads one layer's prefix once per image
+// (2·N·K·D values), each row's live generated slots (2·B·n_gen·D) and
+// q/k/v, and does about 4 operations per byte: at the served shape (N 64 x
+// R 5, K 40, step 66, D 768, bf16) 75.2 MB, 22.4 µs at 3.35 TB/s. What
+// reaches the bound is bytes in flight, not arithmetic: the kernels this
+// one replaced kept about one 128-byte row per warp in flight behind a
+// serial chain of warp sums, and ran at 2.8-3.2x the bound.
+//
+// Design: one block per (head, image) serves the image's R rows (the prefix
+// leaves device memory once per image): 128 threads, about 25 KB of shared
+// memory at the served shape, so six blocks share an SM and the served
+// call's 768 blocks run in one wave. The last warp produces: it streams the
+// block's head slices through a ring of two stages in shared memory as
+// 16-byte `cp.async` copies (a copy holds no register; neighbouring lanes
+// on neighbouring addresses; values kept in their stored type), each lane
+// arriving on the stage's "full" mbarrier once its copies have landed
+// (`cp.async.mbarrier.arrive.noinc`). The stages are the prefix K (with q,
+// k_new, v_new), the K of chunks of `tile` = 2 ceil(K / R) generated slots
+// of all R rows, then the prefix V and the V chunks. The other three warps
+// consume each stage as it lands and release it on its "empty" mbarrier:
+// they score the K stages, take one exact softmax over all of a row's
+// scores (while the producer refills the freed ring with V), then sum the
+// V stages. In bf16 the products run on the tensor cores (mma.sync
+// m16n8k16, f32 sums): scores as K Q^T, 16 slots by 8 rows, and values as
+// V^T P^T (P rounded to bf16, as the plain version rounds it), 16 dims by
+// 8 rows, fed by ldmatrix from rows whose 16-byte words are swizzled so
+// that eight slices meet eight bank groups; a gen chunk's unit keeps one
+// row's column of the 8. The f32 path (parity, not speed) keeps FMA: LP =
+// hd / 4 lanes take LP slots of one row, each lane one 16-byte word of all
+// of them, and a reduce-scatter (LP - 1 shuffles) leaves each lane one
+// slot's score. The consumer warps' value sums meet in shared memory in a
+// fixed order, so the result does not depend on the timing.
+//
+// Not chosen, as measured on the H100 (PERF.md §6): one `cp.async.bulk`
+// per 128-byte slice (the copy engine keeps too few such copies in flight)
+// and whole items resident in two large blocks an SM (their waves run in
+// step, and the memory idles while every block computes).
+//
+// Slots at or above n_gen may hold stale or NaN bits (a bounded fork copy,
+// and at slot E - 1 the next slot in memory is the next layer's slot 0): no
+// copy reaches them, so they never enter shared memory; the current token's
+// slot is read from the copied k_new/v_new rows.
+//
+// Not carried over from the TPU kernels: the 0/1 head-grouping matmul (the
+// head sums are lane shuffles), the 8-slot prefix padding (a copy takes any
+// slot count) and the sequential `chunk` grid axis (blocks run in no order;
+// the chunks are parts of one block's work, and their tile is the plan's,
+// not the caller's `chunk`).
+#include "common.cuh"
+
+namespace capdec {
+namespace {
+
+__host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// Shared-memory layout of one block, as byte offsets from the dynamic base
+// (each 16-byte aligned). The wrapper's plan (ops/decode_attention.py
+// attention_plan) computes the same total; the launch refuses a mismatch.
+struct Layout {
+  int rowb;   // bytes of one head slice
+  int lp;     // 16-byte words a head slice
+  int NC;     // consumer warps; the last warp of the block produces
+  int J;      // f32 value pass: consumer threads per (row, 16-byte word)
+  int srows;  // head slices a stage: max(K, R * tile)
+  int scw;    // score row width: K + nchunks * tile
+  // where each region starts; the mbarriers (nbuf full, nbuf empty) first
+  int ring;   // nbuf stages of srows slices of T
+  int red;    // bf16: the consumer warps' value sums f32 [NC][R/8][8][hd],
+              // over the spent ring
+  int cur;    // q, k_new, v_new: [3][R][hd] of T
+  int sc;     // scores, then exp(score - max): f32 [R][scw]
+  int part;   // f32: the value sums f32 [R][J][hd]
+  int stats;  // the softmax sums: f32 [R]
+  int total;
+  __host__ __device__ Layout(int R, int K, int hd, int tsize, int tile,
+                             int nbuf, int threads, int n_gen) {
+    rowb = hd * tsize;
+    lp = rowb / 16;
+    NC = threads / 32 - 1;
+    J = imax(1, NC * 32 / (R * lp));
+    srows = imax(K, R * tile);
+    scw = K + (n_gen + tile) / tile * tile;
+    ring = up16(16 * nbuf);
+    red = ring;
+    cur = ring + nbuf * srows * rowb;
+    if (tsize == 2) cur = imax(cur, red + NC * ((R + 7) / 8) * 8 * hd * 4);
+    sc = cur + 3 * R * rowb;
+    part = sc + up16(R * scw * 4);
+    stats = part + (tsize == 2 ? 0 : R * J * hd * 4);
+    total = stats + up16(R * 4);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier whose phase completes after `count` arrivals.
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The consumer warps' own barrier (the producer warp never joins it).
+__device__ __forceinline__ void consumers_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+// 16 bytes from device to shared memory (both 16-byte aligned), cached in
+// the L2 only.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// This thread's arrival on `bar`, made once all its copies so far have
+// landed.
+__device__ __forceinline__ void arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The values of one 16-byte word of shared memory as f32.
+__device__ __forceinline__ void load_word(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+}
+__device__ __forceinline__ void load_word(const __nv_bfloat16* p,
+                                          float (&f)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const unsigned u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // bf16 -> f32 is exact: the top 16 bits
+    f[2 * j] = __uint_as_float(u[j] << 16);
+    f[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+  }
+}
+
+// Word w of head slice `idx` of a region sits at word w ^ swz(idx) in bf16
+// (none in f32): the eight consecutive slices an ldmatrix reads then meet
+// eight different bank groups.
+template <typename T, int HD>
+__device__ __forceinline__ int swz(int idx) {
+  constexpr int W = HD * (int)sizeof(T) / 16;  // 16-byte words a slice
+  if constexpr (sizeof(T) != 2) {
+    return 0;
+  } else {
+    constexpr int RPL = W >= 8 ? 1 : 8 / W;  // slices a 128-byte line
+    return (idx / RPL) & ((W < 8 ? W : 8) - 1);
+  }
+}
+
+// Word w of slice idx of a region starting at base.
+template <typename T, int HD>
+__device__ __forceinline__ const T* word_at(const T* base, int idx, int w) {
+  return base + idx * HD + (w ^ swz<T, HD>(idx)) * (16 / (int)sizeof(T));
+}
+
+// A head slice in shared memory: its region and its index there.
+template <typename T>
+struct Slice {
+  const T* base;
+  int idx;
+};
+
+// The head slices of one stage (the prefix, or one chunk of generated
+// slots; K or V) in shared memory: row r's slot s. Prefix slots are shared
+// by the R rows (stride 0); slot `cur_s` of a chunk is the current token,
+// slice cidx + r of the region `cb` (q, k_new, v_new).
+template <typename T>
+struct Part {
+  const T* base;
+  const T* cb;
+  int cidx;    // R (k_new) in a K stage, 2 R (v_new) in a V stage
+  int stride;  // slices per beam row: 0 (prefix) or tile
+  int cur_s;   // the current token's slot in the part, or -1
+  int cnt;     // slots in the part
+  __device__ Slice<T> row(int r, int s) const {
+    return s == cur_s ? Slice<T>{cb, cidx + r}
+                      : Slice<T>{base, r * stride + s};
+  }
+};
+
+// bf16 tensor-core pieces: m16n8k16 products with f32 sums.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&a)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 128-thread blocks (three consumer warps and a producer) of head_dim <= 64
+// fit six to an SM by registers.
+template <typename T, int HD>
+__global__ void __launch_bounds__(128, HD <= 64 ? 6 : 3)
+async_attn(const T* __restrict__ q, const T* __restrict__ kn,
+           const T* __restrict__ vn, long qs, const T* __restrict__ pk,
+           const T* __restrict__ pv, const T* __restrict__ gk,
+           const T* __restrict__ gv, float* __restrict__ out, int N, int R,
+           int L, int K, int E, int D, int layer, int n_gen, int tile,
+           int nbuf, float scale) {
+  constexpr bool kMma = sizeof(T) == 2;  // bf16: tensor cores
+  constexpr int V = 16 / sizeof(T);      // values per 16-byte word
+  constexpr int LP = HD / V;             // 16-byte words a head slice
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(R, K, HD, sizeof(T), tile, nbuf, blockDim.x, n_gen);
+  const int h = blockIdx.x, n = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int NC = lay.NC, NCT = NC * 32, J = lay.J, scw = lay.scw;
+  const int G = n_gen + 1;  // the generated slots and the current token
+  const int nchunks = (G + tile - 1) / tile;
+  const int nst = 2 * (1 + nchunks);  // K: prefix, chunks; V: the same
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + nbuf;
+  T* ring = reinterpret_cast<T*>(smem + lay.ring);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  T* cur = reinterpret_cast<T*>(smem + lay.cur);
+  float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  float* part = reinterpret_cast<float*>(smem + lay.part);
+  float* den = reinterpret_cast<float*>(smem + lay.stats);
+
+  if (tid == 0) {
+    for (int b = 0; b < nbuf; ++b) {
+      bar_init(full + b, 32);  // the producer's lanes, once their copies land
+      bar_init(empty + b, NC);  // the consumer warps, done with the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (!kMma)
+    for (int i = tid; i < R * J * HD; i += blockDim.x) part[i] = 0.f;
+  __syncthreads();
+
+  // Stage s: 0 the prefix K (and q, k_new, v_new), 1 .. nchunks the K
+  // chunks of `tile` slots of all R rows; then the prefix V and the V
+  // chunks. Stage s fills buffer s % nbuf.
+  auto chunk_of = [&](int s) { return s > nchunks ? s - nchunks - 2 : s - 1; };
+  if (warp == NC) {
+    // The producer: every stage's slices as 16-byte copies, lane group grp
+    // taking slices grp, grp + ngrp, ..., lane sub its word sub; each lane
+    // arrives on the stage's full barrier once its copies have landed.
+    const int sub = lane % LP, grp = lane / LP, ngrp = 32 / LP;
+    const size_t hoff = (size_t)h * HD + sub * V;
+    auto dst = [&](T* base, int idx) {
+      return const_cast<T*>(word_at<T, HD>(base, idx, sub));
+    };
+    for (int i = grp; i < 3 * R; i += ngrp) {
+      const T* src = i < R ? q : i < 2 * R ? kn : vn;
+      copy16(dst(cur, i), src + (size_t)(n * R + i % R) * qs + hoff);
+    }
+    for (int s = 0; s < nst; ++s) {
+      const int b = s % nbuf, u = s / nbuf, c = chunk_of(s);
+      const bool vside = s > nchunks;
+      if (u > 0) bar_wait(empty + b, (u - 1) & 1);
+      T* buf = ring + (size_t)b * lay.srows * HD;
+      if (c < 0) {
+        const size_t base = ((size_t)layer * N + n) * K * D + hoff;
+        for (int i = grp; i < K; i += ngrp)
+          copy16(dst(buf, i), (vside ? pv : pk) + base + (size_t)i * D);
+      } else {
+        const int g0 = c * tile;
+        const int live = imin(g0 + tile, n_gen) - g0;  // cached slots
+        for (int r = 0; r < R; ++r) {
+          const T* src = (vside ? gv : gk) +
+                         (((size_t)(n * R + r) * L + layer) * E + g0) * D +
+                         hoff;
+          for (int i = grp; i < live; i += ngrp)
+            copy16(dst(buf, r * tile + i), src + (size_t)i * D);
+        }
+      }
+      arrive_on_copies(full + b);
+    }
+    return;
+  }
+
+  // The consumers: stage s as a part, its first score column col0.
+  auto part_of = [&](int s) {
+    const int c = chunk_of(s), cidx = s > nchunks ? 2 * R : R;
+    const T* buf = ring + (size_t)(s % nbuf) * lay.srows * HD;
+    if (c < 0) return Part<T>{buf, cur, cidx, 0, -1, K};
+    const int g0 = c * tile, cnt = imin(tile, G - g0);
+    return Part<T>{buf, cur, cidx, tile, n_gen - g0 < cnt ? n_gen - g0 : -1,
+                   cnt};
+  };
+  auto col_of = [&](int s) {
+    const int c = chunk_of(s);
+    return c < 0 ? 0 : K + c * tile;
+  };
+  // wait for stage s; afterwards, release it to the producer
+  auto take = [&](int s) { bar_wait(full + s % nbuf, (s / nbuf) & 1); };
+  auto give = [&](int s) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(empty + s % nbuf);
+  };
+
+  // bf16: units of 16 slots of one row (of all rows for the prefix) for
+  // the rows 8 qt .. 8 qt + 7; the consumer warps take them in turn, the
+  // turn carried from stage to stage in ub
+  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
+  const int nqt = (R + 7) / 8;            // query tiles (R <= 16)
+  auto first_unit = [&](int units, int& ub) {
+    const int first = ((warp - ub) % NC + NC) % NC;
+    ub += units;
+    return first;
+  };
+  // scores S^T = K Q^T of a part's units
+  auto score_mma = [&](const Part<T>& p, int qt, int col0, int& ub) {
+    const int r0 = 8 * qt, nr = imin(8, R - r0), nm = (p.cnt + 15) / 16;
+    const int units = p.stride == 0 ? nm : nr * nm;
+    const int first = first_unit(units, ub);
+    if (first >= units) return;
+    uint32_t qb[HD / 16][2];  // Q^T fragments; rows past R repeat row R-1
+    const int qrow = imin(r0 + g, R - 1);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = kk * 16 + 2 * t + 8 * i;
+        qb[kk][i] = *reinterpret_cast<const uint32_t*>(
+            word_at<T, HD>(cur, qrow, e / 8) + e % 8);
+      }
+    for (int u = first; u < units; u += NC) {
+      const int r = p.stride == 0 ? -1 : r0 + u / nm, m0 = (u % nm) * 16;
+      const Slice<T> sl = p.row(
+          r < 0 ? 0 : r, imin(m0 + (lane & 7) + (lane & 8), p.cnt - 1));
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, word_at<T, HD>(sl.base, sl.idx, 2 * kk + (lane >> 4)));
+        mma_bf16(c, a, qb[kk][0], qb[kk][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // (slot m0 + g (+8), row r0 + 2t (+1))
+        const int s = m0 + g + (e >> 1) * 8, row = r0 + 2 * t + (e & 1);
+        if (s < p.cnt && row < R && (r < 0 || row == r))
+          sc[row * scw + col0 + s] = c[e] * scale;
+      }
+    }
+  };
+  // values O^T += V^T P^T of a part's units (dims by rows)
+  auto values_mma = [&](const Part<T>& p, int qt, int col0,
+                        float (&o)[HD / 16][4], int& ub) {
+    const int r0 = 8 * qt, nr = imin(8, R - r0), nk = (p.cnt + 15) / 16;
+    const int units = p.stride == 0 ? nk : nr * nk;
+    for (int u = first_unit(units, ub); u < units; u += NC) {
+      const int r = p.stride == 0 ? -1 : r0 + u / nk, k0 = (u % nk) * 16;
+      const int row = r0 + g;  // this lane's column of P^T
+      const bool use = row < R && (r < 0 || row == r);
+      float pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // slots k0 + 2t, +1, +8, +9
+        const int s = k0 + 2 * t + (i & 1) + (i >> 1) * 8;
+        pr[i] = use && s < p.cnt ? sc[row * scw + col0 + s] : 0.f;
+      }
+      const uint32_t b0 = pack_bf16(pr[0], pr[1]);
+      const uint32_t b1 = pack_bf16(pr[2], pr[3]);
+      const Slice<T> sl = p.row(
+          r < 0 ? 0 : r, imin(k0 + (lane & 7) + (lane >> 4) * 8, p.cnt - 1));
+#pragma unroll
+      for (int mt = 0; mt < HD / 16; ++mt) {
+        uint32_t a[4];
+        ldsm_x4_t(a, word_at<T, HD>(sl.base, sl.idx,
+                                    2 * mt + ((lane >> 3) & 1)));
+        mma_bf16(o[mt], a, b0, b1);
+      }
+    }
+  };
+
+  // f32 scores of a part: a unit of LP lanes takes LP slots of one row;
+  // lane sub sums its word of each slot, and a reduce-scatter leaves it
+  // slot sub's score. The trip count is every consumer's, so every lane
+  // reaches the shuffles.
+  const int sub = tid % LP, grp = tid / LP, ngrp = NCT / LP;
+  auto score_fma = [&](const Part<T>& p, int col0) {
+    const int nu = (p.cnt + LP - 1) / LP;  // units a row
+    for (int u0 = 0; u0 < R * nu; u0 += ngrp) {
+      const int u = u0 + grp;
+      const bool live = u < R * nu;
+      const int r = live ? u / nu : 0, s0 = live ? (u % nu) * LP : 0;
+      float qv[V];
+      load_word(word_at<T, HD>(cur, r, sub), qv);
+      float acc[LP];
+#pragma unroll
+      for (int j = 0; j < LP; ++j) {
+        acc[j] = 0.f;
+        if (live && s0 + j < p.cnt) {
+          const Slice<T> sl = p.row(r, s0 + j);
+          float kv[V];
+          load_word(word_at<T, HD>(sl.base, sl.idx, sub), kv);
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[j] = fmaf(qv[k], kv[k], acc[j]);
+        }
+      }
+#pragma unroll
+      for (int lv = 1; lv < LP; lv *= 2) {
+        const int w = LP / (2 * lv);
+        const bool hi = sub & w;  // keep the upper half of the 2w slots
+#pragma unroll
+        for (int j = 0; j < w; ++j) {
+          const float send = hi ? acc[j] : acc[j + w];
+          acc[j] = (hi ? acc[j + w] : acc[j]) +
+                   __shfl_xor_sync(0xffffffffu, send, w);
+        }
+      }
+      if (live && s0 + sub < p.cnt)
+        sc[r * scw + col0 + s0 + sub] = acc[0] * scale;
+    }
+  };
+  // f32 values of a part into the sums of thread (row r, j, word col):
+  // slots j, j + J, ..., two loads in flight.
+  auto values_fma = [&](const Part<T>& p, int col0) {
+    for (int ow = tid; ow < R * J * LP; ow += NCT) {
+      const int col = ow % LP, rj = ow / LP, j = rj % J, r = rj / J;
+      float* acc = part + (size_t)rj * HD + col * V;
+      const float* w = sc + r * scw + col0;
+      float a[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) a[k] = acc[k];
+      int s = j;
+      for (; s + J < p.cnt; s += 2 * J) {
+        const Slice<T> s0 = p.row(r, s), s1 = p.row(r, s + J);
+        float v0[V], v1[V];
+        load_word(word_at<T, HD>(s0.base, s0.idx, col), v0);
+        load_word(word_at<T, HD>(s1.base, s1.idx, col), v1);
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          a[k] = fmaf(w[s + J], v1[k], fmaf(w[s], v0[k], a[k]));
+      }
+      if (s < p.cnt) {
+        const Slice<T> s0 = p.row(r, s);
+        float v0[V];
+        load_word(word_at<T, HD>(s0.base, s0.idx, col), v0);
+#pragma unroll
+        for (int k = 0; k < V; ++k) a[k] = fmaf(w[s], v0[k], a[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = a[k];
+    }
+  };
+
+  // Scores of every K stage as it lands.
+  int ub = 0;
+  for (int s = 0; s <= nchunks; ++s) {
+    take(s);
+    const Part<T> p = part_of(s);
+    if constexpr (kMma) {
+#pragma unroll
+      for (int qt = 0; qt < 2; ++qt)
+        if (qt < nqt) score_mma(p, qt, col_of(s), ub);
+    } else {
+      score_fma(p, col_of(s));
+    }
+    give(s);
+  }
+  consumers_sync(NCT);
+  // One softmax over all K + G scores of a row, a warp per row (the
+  // producer meanwhile fills the freed buffers with V stages).
+  const int width = K + G;
+  for (int r = warp; r < R; r += NC) {
+    float* row = sc + r * scw;
+    float m = -INFINITY;
+    for (int s = lane; s < width; s += 32) m = fmaxf(m, row[s]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int s = lane; s < width; s += 32) {
+      const float e = expf(row[s] - m);
+      row[s] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    if (lane == 0) den[r] = l;
+  }
+  consumers_sync(NCT);
+  // Values of every V stage as it lands.
+  float o[2][HD / 16][4] = {};  // bf16: O^T of the (at most two) query tiles
+  ub = 0;
+  for (int s = nchunks + 1; s < nst; ++s) {
+    take(s);
+    const Part<T> p = part_of(s);
+    if constexpr (kMma) {
+#pragma unroll
+      for (int qt = 0; qt < 2; ++qt)
+        if (qt < nqt) values_mma(p, qt, col_of(s), o[qt], ub);
+    } else {
+      values_fma(p, col_of(s));
+    }
+    give(s);
+  }
+  consumers_sync(NCT);
+
+  if constexpr (kMma) {
+    // the consumer warps' O^T [NC][tile][8 rows][HD], over the spent ring,
+    // summed in a fixed order
+#pragma unroll
+    for (int qt = 0; qt < 2; ++qt)
+      if (qt < nqt) {
+        float* mine = red + ((warp * nqt + qt) * 8 + 2 * t) * HD + g;
+#pragma unroll
+        for (int mt = 0; mt < HD / 16; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // (dim 16 mt + g (+8), row 2t (+1))
+            mine[(e & 1) * HD + 16 * mt + (e >> 1) * 8] = o[qt][mt][e];
+      }
+    consumers_sync(NCT);
+  }
+  for (int i = tid; i < R * HD; i += NCT) {
+    const int r = i / HD, d = i % HD;
+    float s = 0.f;
+    if constexpr (kMma) {
+      for (int w = 0; w < NC; ++w)
+        s += red[((w * nqt + r / 8) * 8 + r % 8) * HD + d];
+    } else {
+      for (int j = 0; j < J; ++j) s += part[(r * J + j) * HD + d];
+    }
+    out[(size_t)(n * R + r) * D + (size_t)h * HD + d] = s / den[r];
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* kn, const void* vn, long qs,
+                   const void* pk, const void* pv, const void* gk,
+                   const void* gv, float* out, int N, int R, int L, int K,
+                   int E, int D, int layer, int n_gen, int tile, int nbuf,
+                   int threads, int smem, cudaStream_t stream) {
+  const Layout lay(R, K, HD, sizeof(T), tile, nbuf, threads, n_gen);
+  if (lay.total != smem || threads % 32 || threads < 64 || threads > 128 ||
+      tile < 1 || nbuf < 2 || R > 16)
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        async_attn<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(D / HD, N);
+  async_attn<T, HD><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kn),
+      static_cast<const T*>(vn), qs, static_cast<const T*>(pk),
+      static_cast<const T*>(pv), static_cast<const T*>(gk),
+      static_cast<const T*>(gv), out, N, R, L, K, E, D, layer, n_gen, tile,
+      nbuf, 1.f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_hd(const void* q, const void* kn, const void* vn, long qs,
+                      const void* pk, const void* pv, const void* gk,
+                      const void* gv, float* out, int N, int R, int L, int K,
+                      int E, int D, int hd, int layer, int n_gen, int tile,
+                      int nbuf, int threads, int smem, cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return launch<T, 32>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E,
+                           D, layer, n_gen, tile, nbuf, threads, smem, stream);
+    case 64:
+      return launch<T, 64>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E,
+                           D, layer, n_gen, tile, nbuf, threads, smem, stream);
+    case 128:
+      return launch<T, 128>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K,
+                            E, D, layer, n_gen, tile, nbuf, threads, smem,
+                            stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int run(const void* q, const void* kn, const void* vn, long qs,
+        const void* pk, const void* pv, const void* gk, const void* gv,
+        float* out, int N, int R, int L, int K, int E, int D, int hd,
+        int layer, int n_gen, int tile, int nbuf, int threads, int smem,
+        int dtype, cudaStream_t stream) {
+  cudaError_t err =
+      dtype == kBF16
+          ? launch_hd<__nv_bfloat16>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R,
+                                     L, K, E, D, hd, layer, n_gen, tile, nbuf,
+                                     threads, smem, stream)
+          : launch_hd<float>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K,
+                             E, D, hd, layer, n_gen, tile, nbuf, threads,
+                             smem, stream);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+}  // namespace capdec
+
+// K2: n_gen = min(step, e_cap).
+extern "C" int capdec_beam_decode_attention_rowmajor(
+    const void* q, const void* kn, const void* vn, long qs, const void* pk,
+    const void* pv, const void* gk, const void* gv, float* out, int N, int R,
+    int L, int K, int E, int D, int hd, int layer, int n_gen, int tile,
+    int nbuf, int threads, int smem, int dtype, cudaStream_t stream) {
+  return capdec::run(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E, D, hd,
+                     layer, n_gen, tile, nbuf, threads, smem, dtype, stream);
+}
+
+// K8: n_gen = step (the TPU's `chunk` tiles are the wrapper's to check).
+extern "C" int capdec_beam_decode_attention_chunked(
+    const void* q, const void* kn, const void* vn, long qs, const void* pk,
+    const void* pv, const void* gk, const void* gv, float* out, int N, int R,
+    int L, int K, int E, int D, int hd, int layer, int n_gen, int tile,
+    int nbuf, int threads, int smem, int dtype, cudaStream_t stream) {
+  return capdec::run(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E, D, hd,
+                     layer, n_gen, tile, nbuf, threads, smem, dtype, stream);
+}

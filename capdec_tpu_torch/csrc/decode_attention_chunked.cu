@@ -1,9 +1,11 @@
-// K8 and K9: one layer's slot-bounded ("v3") beam-decode attention.
+// K9: one layer's slot-bounded ("v3") beam-decode attention over an int8
+// generated cache.
 //
-// K8 replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention_chunked
-// (pl.pallas_call at :523, body _kernel_rm_chunked :326-454); K9 replaces
-// ::beam_decode_attention_chunked_q (pl.pallas_call at :620, the same body
-// with int8 scales), with or without an int8 prefix cache. Both compute
+// Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention_chunked_q
+// (pl.pallas_call at :620, body _kernel_rm_chunked :326-454 with int8
+// scales), with or without an int8 prefix cache. K8, the same body over a
+// bf16 or f32 cache (::beam_decode_attention_chunked, :484), runs on
+// decode_attention_async.cu. K9 computes
 // K2's function: for beam row b of image n = b / R and each head, a
 // softmax over the image's prefix slots pk/pv [L, N, K, D], the row's
 // generated slots gk/gv [B, L, E, D] below `step` and the current token,
@@ -18,11 +20,11 @@
 //
 // Bound on the H100: bytes, as for K2. Per call it reads one layer's
 // prefix once per image (2·N·K·D values; int8 levels plus 8·N·K scale
-// bytes under an int8 prefix, half of K8's bf16 prefix), each row's
-// generated slots below `step` (2·B·step·D values; K9 adds 8·B·step scale
+// bytes under an int8 prefix, half of a bf16 prefix), each row's
+// generated slots below `step` (2·B·step·D levels and 8·B·step scale
 // bytes) and q/k/v, and does about 4 operations per value read.
 //
-// Design: one block per (head, image), one warp per beam, as K2. The
+// Design: one block per (head, image), one warp per beam. The
 // block stages the image's prefix head slice in shared memory once for
 // its R beams (an int8 prefix leaves device memory as levels and sits in
 // shared memory as f32 levels beside its scales). The warp scores the
@@ -49,15 +51,6 @@
 
 namespace capdec {
 namespace {
-
-// K8's generated slots: values of type T, unit scales.
-template <typename T>
-struct ChunkGen {
-  const T* gk;
-  const T* gv;
-  __device__ float kscale(size_t) const { return 1.f; }
-  __device__ float vscale(size_t) const { return 1.f; }
-};
 
 // K9's generated slots: int8 levels with f32 scales [B, L, 1, E].
 struct ChunkGenInt8 {
@@ -238,28 +231,6 @@ cudaError_t launch_q(const void* q, const void* kn, const void* vn, long qs,
 
 }  // namespace
 }  // namespace capdec
-
-extern "C" int capdec_beam_decode_attention_chunked(
-    const void* q, const void* kn, const void* vn, long qs, const void* pk,
-    const void* pv, const void* gk, const void* gv, float* out, int N, int R,
-    int L, int K, int E, int D, int hd, int layer, int n_gen, int chunk,
-    int dtype, cudaStream_t stream) {
-  using capdec::ChunkGen;
-  using B16 = __nv_bfloat16;
-  cudaError_t err =
-      dtype == capdec::kBF16
-          ? capdec::launch<B16, B16>(
-                q, kn, vn, qs, pk, pv, nullptr, nullptr,
-                ChunkGen<B16>{static_cast<const B16*>(gk),
-                              static_cast<const B16*>(gv)},
-                out, N, R, L, K, E, D, hd, layer, n_gen, chunk, stream)
-          : capdec::launch<float, float>(
-                q, kn, vn, qs, pk, pv, nullptr, nullptr,
-                ChunkGen<float>{static_cast<const float*>(gk),
-                                static_cast<const float*>(gv)},
-                out, N, R, L, K, E, D, hd, layer, n_gen, chunk, stream);
-  return static_cast<int>(err);
-}
 
 extern "C" int capdec_beam_decode_attention_chunked_q(
     const void* q, const void* kn, const void* vn, long qs, const void* pk,

@@ -36,7 +36,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 SIGNATURES = {
     "capdec_lm_head_topk": [P, P, I, I, I, I, I, P, P, P, P, P, P, P, I, P],
     "capdec_beam_decode_attention_rowmajor":
-        [P, P, P, L, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+        [P, P, P, L, *[P] * 5, *[I] * 14, P],
     "capdec_write_gen_slot": [P, P, P, P, I, I, I, I, L, P],
     "capdec_copy_forked_rows_bounded": [P, P, P, I, I, I, I, L, P],
     "capdec_write_gen_slot_q": [P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -44,7 +44,7 @@ SIGNATURES = {
         [P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "capdec_copy_forked_rows": [P, P, P, I, L, P],
     "capdec_beam_decode_attention_chunked":
-        [P, P, P, L, *[P] * 5, *[I] * 11, P],
+        [P, P, P, L, *[P] * 5, *[I] * 14, P],
     "capdec_beam_decode_attention_chunked_q":
         [P, P, P, L, *[P] * 9, *[I] * 11, P],
     "capdec_write_gen_slot_seqmajor": [P, P, P, P, I, I, I, I, L, P],

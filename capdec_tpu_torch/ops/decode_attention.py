@@ -15,8 +15,10 @@ cache and, optionally, an int8 prefix cache with per-slot scales. K15
 layer's caches [B, E, D] and also writes the step's K/V into slot `step`,
 in place.
 
-On a CUDA tensor a wrapper launches csrc/decode_attention.cu (K2, K6, K15) or
-csrc/decode_attention_chunked.cu (K8, K9); each note says what bounds the
+On a CUDA tensor a wrapper launches csrc/decode_attention_async.cu (K2,
+K8: one kernel fed by asynchronous copies, launched with the plan of
+`attention_plan`), csrc/decode_attention.cu (K6, K15) or
+csrc/decode_attention_chunked.cu (K9); each note says what bounds the
 kernel on the H100 and how the design answers. On a CPU tensor it runs
 its plain version, the un-fused attention math of the JAX reference's
 decode_step (gpt2.py:612-664).
@@ -28,6 +30,7 @@ masks their scores and zeroes their value products through `where`
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -146,6 +149,91 @@ def _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
     return min(step, cap)
 
 
+# The launch plan of csrc/decode_attention_async.cu (K2, K8).
+ATTN_THREADS = 128  # a block: three consumer warps and a producer warp
+ATTN_STAGES = 2     # stages in a block's ring
+# shared memory a block: 37 KB keeps six blocks on an SM (228 KB, 1 KB of
+# it reserved a block), so the served call's 768 blocks are resident in one
+# wave on the H100's 132 SMs; then two, then one block an SM
+ATTN_SMEM_BUDGETS = (37 * 1024, 112 * 1024, 227 * 1024)
+SMEM_MAX = ATTN_SMEM_BUDGETS[-1]  # shared memory a block can have
+
+
+def _up16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _attention_smem(R, K, hd, itemsize, tile, nbuf, threads, n_gen) -> int:
+    """Bytes of shared memory a block uses: the `Layout` total of
+    csrc/decode_attention_async.cu, which refuses a launch whose plan
+    disagrees."""
+    rowb = hd * itemsize
+    consumers = threads // 32 - 1
+    ring = _up16(16 * nbuf)  # the full and empty mbarriers
+    cur = ring + nbuf * max(K, R * tile) * rowb
+    if itemsize == 2:  # bf16: the consumer warps' value sums, over the ring
+        cur = max(cur, ring + consumers * -(-R // 8) * 8 * hd * 4)
+        sums = 0
+    else:  # f32: J threads' sums per (row, 16-byte word)
+        sums = R * max(1, consumers * 32 // (R * (rowb // 16))) * hd * 4
+    scw = K + (n_gen + tile) // tile * tile
+    return (cur + 3 * R * rowb + _up16(R * scw * 4) + sums + _up16(R * 4))
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
+                   itemsize: int) -> dict:
+    """The launch of the K2/K8 kernel for one call: a block of `threads`
+    per (head, image) on a grid of (D // hd, N), each block serving the
+    image's R rows. The block streams 2 * (1 + nchunks) stages through a
+    ring of `nbuf` (ATTN_STAGES) buffers in `smem` bytes: the prefix K,
+    the K of `nchunks` chunks of `tile` generated slots (the current token
+    in the last) of all R rows, then the same for V. A chunk holds about
+    twice the prefix's slices (tile = 2 ceil(K / R); on the H100 this beat
+    chunks of one prefix and rings of three to eight stages, and tied
+    with three prefixes: scripts/torch_attn_sweep.py), shrunk until the
+    ring fits the first budget of ATTN_SMEM_BUDGETS that can hold it.
+    Raises if nothing fits a block."""
+    G = n_gen + 1
+    for budget in ATTN_SMEM_BUDGETS:
+        for tile in range(max(1, min(G, 2 * -(-K // R))), 0, -1):
+            smem = _attention_smem(R, K, hd, itemsize, tile, ATTN_STAGES,
+                                   ATTN_THREADS, n_gen)
+            if smem <= budget:
+                return dict(grid=(D // hd, N), threads=ATTN_THREADS,
+                            tile=tile, nbuf=ATTN_STAGES,
+                            nchunks=-(-G // tile), smem=smem)
+    raise ValueError(f"decode attention: R={R}, K={K}, head_dim={hd} in "
+                     f"{itemsize}-byte values does not fit one block's "
+                     f"{SMEM_MAX} bytes of shared memory")
+
+
+def _attend_async(entry: str, q, k_new, v_new, pk, pv, gk, gv, layer, R,
+                  hd, n_gen) -> torch.Tensor:
+    """One launch of csrc/decode_attention_async.cu through C entry
+    `entry`: every head slice, q/k_new/v_new's included, travels in
+    16-byte copies."""
+    if hd not in (32, 64, 128) or \
+            any(t.data_ptr() % 16 for t in (q, k_new, v_new, pk, pv, gk, gv)) \
+            or q.stride(0) * q.element_size() % 16:
+        raise ValueError("K2/K8 copy head slices in 16-byte words: head_dim "
+                         "in {32, 64, 128}, 16-byte-aligned q/k_new/v_new "
+                         "rows and caches")
+    if R > 16:
+        raise ValueError(f"K2/K8 take 1..16 beams per image, got {R}")
+    B, D = q.shape
+    L, N, K, _ = pk.shape
+    plan = attention_plan(N, R, K, D, hd, n_gen, q.element_size())
+    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
+    _build.check(getattr(_build.library(), entry)(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
+        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+        out.data_ptr(), N, R, L, K, gk.shape[2], D, hd, layer, n_gen,
+        plan["tile"], plan["nbuf"], plan["threads"], plan["smem"],
+        _build.dtype_code(q), _build.stream(q.device)), entry)
+    return out
+
+
 def beam_decode_attention_rowmajor(
         q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
@@ -155,7 +243,8 @@ def beam_decode_attention_rowmajor(
 
     q/k_new/v_new: [B, D] rows with unit column stride and one shared row
     stride (views of the fused QKV output are fine); pk/pv: [L, N, K, D];
-    gk/gv: [B, L, E, D] (read-only); step/layer: ints. Returns f32 [B, D].
+    gk/gv: [B, L, E, D] (read-only); every row 16-byte aligned; head_dim
+    32, 64 or 128; step/layer: ints. Returns f32 [B, D].
     `e_cap`: read at most the first e_cap generated slots."""
     if _build.on_cpu(q):
         return beam_decode_attention_rowmajor_plain(
@@ -164,16 +253,8 @@ def beam_decode_attention_rowmajor(
     R, hd = beams_per_image, head_dim
     n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
                         hd, e_cap, q.dtype)
-    B, D = q.shape
-    L, N, K, _ = pk.shape
-    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.capdec_beam_decode_attention_rowmajor(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
-        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-        out.data_ptr(), N, R, L, K, gk.shape[2], D, hd, layer, n_gen,
-        _build.dtype_code(q), _build.stream(q.device)),
-        "beam_decode_attention_rowmajor")
+    out = _attend_async("capdec_beam_decode_attention_rowmajor", q, k_new,
+                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen)
     beam_decode_attention_rowmajor.launches += 1
     return out
 
@@ -305,16 +386,8 @@ def beam_decode_attention_chunked(
     _check_chunks(q, gk, R, chunk)
     n_gen = _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
                            hd, chunk, q.dtype)
-    B, D = q.shape
-    L, N, K, _ = pk.shape
-    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.capdec_beam_decode_attention_chunked(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
-        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-        out.data_ptr(), N, R, L, K, gk.shape[2], D, hd, layer, n_gen, chunk,
-        _build.dtype_code(q), _build.stream(q.device)),
-        "beam_decode_attention_chunked")
+    out = _attend_async("capdec_beam_decode_attention_chunked", q, k_new,
+                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen)
     beam_decode_attention_chunked.launches += 1
     return out
 

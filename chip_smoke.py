@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (the least time the card could take). The slot writes K3, K5, K13
      and K14 are timed over inputs and slots rotated through more than
      twice the L2, so that they read device memory as their bound
-     assumes.
+     assumes; K2 and K8 (one kernel, decode_attention_async.cu, which
+     must build without spills) and their SDPA yardstick at steps 1, 33
+     and 66, on one layer and rotated over the layers (SDPA over key
+     sets).
   3. The served paths: a CaptionServer on full-width weights made from a
      seed (GPT-2 124M + the 8-layer TransformerMapper, prefix 640 -> 40,
      bf16, batch 64, entry_length 67) serves 128 requests on each path;
@@ -58,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -168,15 +172,77 @@ def slot_write_times(gen, kernel, plain, k, v, shape):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def sdpa_ms(q, keys, vals, H) -> float:
+def sdpa_ms(q, keys, vals, H, more=()) -> float:
     """Time of scaled_dot_product_attention of rows q [B, D] over keys and
     values [B, S, D] concatenated beforehand: the attention kernels'
-    library yardstick."""
+    library yardstick. With `more` (further (keys, vals) pairs of the same
+    shape) call i reads pair i mod the count."""
     B, S, D = keys.shape
     heads = lambda t, s: t.reshape(B, s, H, D // H).transpose(1, 2)
-    sq, sk, sv = heads(q.contiguous(), 1), heads(keys, S), heads(vals, S)
-    return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv))
+    sq = heads(q.contiguous(), 1)
+    sets = [(heads(k, S), heads(v, S)) for k, v in ((keys, vals), *more)]
+    return time_ms(rotating(
+        lambda i: torch.nn.functional.scaled_dot_product_attention(
+            sq, *sets[i % len(sets)]), len(sets)))
+
+
+# Steps at which the bf16 attention kernels K2 and K8 are timed: the
+# slope over them is the time per generated slot, the intercept the
+# prefix and the fixed cost.
+ATTN_STEPS = (1, 33, MAIN["entry_length"] - 1)
+
+
+def attention_step_times(call, q, kn, vn, pk, pv, gk, gv, R, H) -> dict:
+    """K2's or K8's bf16 times at each of ATTN_STEPS beside SDPA's and the
+    bound. `call(step, layer)` runs the kernel. `ms` repeats one layer
+    (part of its 50-75 MB stays in the L2); `rotated_ms` walks the layers
+    i mod L, and `library_rotated_ms` SDPA over at least two key sets of
+    other layers (each pass over more than twice the L2), so that both
+    read device memory as the bound assumes."""
+    L, N, K, D = pk.shape
+    B, layer = q.shape[0], L // 2
+    out = {}
+    for step in ATTN_STEPS:
+        S = K + step + 1
+
+        def joined(l):
+            return tuple(torch.cat([p[l].repeat_interleave(R, 0),
+                                    g[:, l, :step], n[:, None]], 1)
+                         for p, g, n in ((pk, gk, kn), (pv, gv, vn)))
+
+        n_sets = max(2, -(-L2_FLUSH_BYTES // (2 * B * S * D * 2)))
+        sets = [joined((layer + i) % L) for i in range(n_sets)]
+        nbytes = (3 * B * D + 2 * N * K * D + 2 * B * step * D) * 2 + B * D * 4
+        b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * S, torch.bfloat16)
+        out[step] = dict(
+            ms=time_ms(lambda: call(step, layer)),
+            rotated_ms=time_ms(rotating(lambda i: call(step, i), L)),
+            library_ms=sdpa_ms(q, *sets[0], H),
+            library_rotated_ms=sdpa_ms(q, *sets[0], H, more=sets[1:]),
+            bound_ms=b_ms, bound_by=b_by)
+        del sets
+    return out
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Registers and spill bytes of each kernel in `_build`'s -Xptxas -v
+    log: {mangled name: {"registers": n, "spill_stores": n,
+    "spill_loads": n}}."""
+    report, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            report[name].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +291,9 @@ def check_lm_head(gen):
 
 
 def check_decode_attention(gen):
+    """K2 against its plain version: bf16 and f32, steps 1, 17 and 66
+    under e_cap 16 and 72, NaN in the slots it must not read (at and above
+    the step, and the next layer's slot 0). Timed at ATTN_STEPS."""
     from capdec_tpu_torch.ops import decode_attention as da
     N, R, L, K, E, D, H = (MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
                                              "H"))
@@ -244,6 +313,8 @@ def check_decode_attention(gen):
             gk, gv = gk0.clone(), gv0.clone()
             gk[:, :, step:] = float("nan")  # stale slots must never be read
             gv[:, :, step:] = float("nan")
+            gk[:, layer + 1, 0] = float("nan")  # nor the next layer's
+            gv[:, layer + 1, 0] = float("nan")
             for e_cap in (16, E):
                 args = (q, kn, vn, pk, pv, gk, gv, step, layer)
                 kw = dict(beams_per_image=R, head_dim=hd, e_cap=e_cap)
@@ -259,30 +330,29 @@ def check_decode_attention(gen):
         errs[dtype] = err
         if dtype == torch.bfloat16:
             timed = (q, kn, vn, pk, pv, gk, gv)
-    # time the longest read: the last step under the last stage bound
+    # time the longest read: the last step under the last stage bound,
+    # and the steps ATTN_STEPS, each also rotated past the L2
     q, kn, vn, pk, pv, gk, gv = timed
     step = MAIN["entry_length"] - 1
     args = (q, kn, vn, pk, pv, gk, gv, step, layer)
     kw = dict(beams_per_image=R, head_dim=hd, e_cap=E)
-    # library yardstick: SDPA over the same keys, pre-concatenated per beam
-    keys = torch.cat([pk[layer].repeat_interleave(R, 0),
-                      gk[:, layer, :step], kn[:, None]], 1)
-    vals = torch.cat([pv[layer].repeat_interleave(R, 0),
-                      gv[:, layer, :step], vn[:, None]], 1)
-    S = K + step + 1
-    lib = sdpa_ms(q, keys, vals, H)
-    nbytes = (3 * B * D + 2 * N * K * D + 2 * B * step * D) * 2 + B * D * 4
-    b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * S, torch.bfloat16)
+    steps = attention_step_times(
+        lambda s, l: da.beam_decode_attention_rowmajor(
+            q, kn, vn, pk, pv, gk, gv, s, l, **kw), *timed, R, H)
     return dict(
         name="beam_decode_attention_rowmajor", route="cuda",
-        source="capdec_tpu_torch/csrc/decode_attention.cu",
+        source="capdec_tpu_torch/csrc/decode_attention_async.cu",
         replaces="capdec_tpu/ops/decode_attention.py:719",
         max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32=errs[torch.float32],
-        ms=time_ms(lambda: da.beam_decode_attention_rowmajor(*args, **kw)),
+        **{k: steps[step][k] for k in ("ms", "rotated_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "library_rotated_ms")},
         plain_ms=time_ms(
             lambda: da.beam_decode_attention_rowmajor_plain(*args, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        steps=steps,
+        library_note="scaled_dot_product_attention on keys concatenated "
+                     "beforehand",
         shape=f"N={N} R={R} K={K} step={step} e_cap={E} D={D} bf16")
 
 
@@ -531,8 +601,9 @@ def check_whole_row_fork(gen):
 
 def check_chunked_attention(gen):
     """K8 against its plain version: bf16 and f32, steps 1, 8, 17 and 66
-    with NaN in the slots it must not read, R = 5 (beam) and R = 1
-    (greedy's fused route)."""
+    with NaN in the slots it must not read (at and above the step, and the
+    next layer's slot 0), R = 5 (beam) and R = 1 (greedy's fused route).
+    Timed at ATTN_STEPS, R = 5."""
     from capdec_tpu_torch.ops import decode_attention as da
     N, R, L, K, E, D, H = (MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
                                              "H"))
@@ -553,6 +624,8 @@ def check_chunked_attention(gen):
                 gk, gv = gk0.clone(), gv0.clone()
                 gk[:, :, step:] = float("nan")  # never read
                 gv[:, :, step:] = float("nan")
+                gk[:, layer + 1, 0] = float("nan")  # nor the next layer's
+                gv[:, layer + 1, 0] = float("nan")
                 args = (q, kn, vn, pk, pv, gk, gv, step, layer)
                 kw = dict(beams_per_image=r, head_dim=hd, chunk=8)
                 out = da.beam_decode_attention_chunked(*args, **kw)
@@ -568,28 +641,26 @@ def check_chunked_attention(gen):
                 timed = (q, kn, vn, pk, pv, gk, gv)
         errs[dtype] = err
     # time the longest read of the beam path (step 66; the NaN tail
-    # lies above it)
+    # lies above it) and the steps ATTN_STEPS, each also rotated past the L2
     q, kn, vn, pk, pv, gk, gv = timed
-    B, step = N * R, MAIN["entry_length"] - 1
+    step = MAIN["entry_length"] - 1
     args = (q, kn, vn, pk, pv, gk, gv, step, layer)
     kw = dict(beams_per_image=R, head_dim=hd, chunk=8)
-    keys = torch.cat([pk[layer].repeat_interleave(R, 0),
-                      gk[:, layer, :step], kn[:, None]], 1)
-    vals = torch.cat([pv[layer].repeat_interleave(R, 0),
-                      gv[:, layer, :step], vn[:, None]], 1)
-    nbytes = (3 * B * D + 2 * N * K * D + 2 * B * step * D) * 2 + B * D * 4
-    b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * (K + step + 1),
-                          torch.bfloat16)
+    steps = attention_step_times(
+        lambda s, l: da.beam_decode_attention_chunked(
+            q, kn, vn, pk, pv, gk, gv, s, l, **kw), *timed, R, H)
     return dict(
         name="beam_decode_attention_chunked", route="cuda",
-        source="capdec_tpu_torch/csrc/decode_attention_chunked.cu",
+        source="capdec_tpu_torch/csrc/decode_attention_async.cu",
         replaces="capdec_tpu/ops/decode_attention.py:484",
         max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32=errs[torch.float32],
-        ms=time_ms(lambda: da.beam_decode_attention_chunked(*args, **kw)),
+        **{k: steps[step][k] for k in ("ms", "rotated_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "library_rotated_ms")},
         plain_ms=time_ms(
             lambda: da.beam_decode_attention_chunked_plain(*args, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms(q, keys, vals, H),
+        steps=steps,
         library_note="scaled_dot_product_attention on keys concatenated "
                      "beforehand",
         shape=f"N={N} R={R} K={K} step={step} E={E} chunk=8 D={D} bf16")
@@ -1395,10 +1466,23 @@ def main() -> int:
                     "build_s": _build.build_seconds,
                     "load_s": time.perf_counter() - t0}))
     log_path = so.with_suffix(".log")
+    ptxas = {}
     if log_path.exists():
         for line in log_path.read_text().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  ptxas:", line.strip())
+        ptxas = ptxas_report(log_path.read_text())
+    # the K2/K8 kernel's registers and spills, by value type and head_dim
+    async_attn = {
+        ("bf16" if "bfloat16" in name else "f32") + " hd"
+        + re.search(r"Li(\d+)E", name).group(1): rep
+        for name, rep in ptxas.items() if "async_attn" in name}
+    require(not log_path.exists() or len(async_attn) == 6,
+            f"ptxas: async_attn reported {sorted(async_attn)} in "
+            f"{log_path.name}")
+    for t, rep in async_attn.items():
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"async_attn<{t}> spills: {rep}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     kernels = [check_lm_head(gen), check_decode_attention(gen),
@@ -1409,6 +1493,8 @@ def main() -> int:
                *check_gathers(gen), check_single_slot_write(gen),
                check_v1_attention(gen)]
     for k in kernels:
+        if k["source"].endswith("decode_attention_async.cu"):
+            k["ptxas"] = async_attn
         log(json.dumps({"phase": "kernel_check", **k}))
 
     # the weights have a generator of their own, so the checks above do
@@ -1485,7 +1571,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err_f32", "launches_by_path", "bf16_prefix", "shape")
+            "max_abs_err_f32", "launches_by_path", "bf16_prefix",
+            "rotated_ms", "library_rotated_ms", "steps", "ptxas", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""The K2/K8 kernel's time under other launch plans, on one NVIDIA GPU.
+
+    python3 scripts/torch_attn_sweep.py
+
+The kernel (csrc/decode_attention_async.cu) takes its chunk size, ring
+depth and block size from ops/decode_attention.py's `attention_plan`;
+its shared-memory layout follows from them. This script swaps in other
+plans, one at a time, and times `beam_decode_attention_rowmajor` (bf16,
+N = 64 images x R = 5, K = 40, E = 72, D = 768, 12 heads x 64) at steps
+1, 33 and 66 over the layers in turn (so that the reads come from device
+memory), and greedy's `beam_decode_attention_chunked` at R = 1, step 66.
+The plans: chunks of 1 to 3 prefixes' slices (tile = m ceil(K / R)), 2 to
+8 ring stages, 96 or 128 threads, each under a shared-memory budget of
+30 to 75 KB a block. It prints the card's name and power limit, the
+shipped plan's times, then one JSON line per plan, fastest at step 66
+first.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_attn_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from capdec_tpu_torch.ops import decode_attention as da
+    from capdec_tpu_torch.utils.torch_setup import setup_torch
+
+    setup_torch()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip())
+    N, R, L, K, E, D, H = (cs.MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
+                                                "H"))
+    hd = D // H
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, kn, vn = rand(N * R, 3 * D).split(D, dim=-1)
+    pk, pv, gk, gv = rand(L, N, K, D), rand(L, N, K, D), \
+        rand(N * R, L, E, D), rand(N * R, L, E, D)
+    q1, kn1, vn1 = rand(N, 3 * D).split(D, dim=-1)
+    gk1, gv1 = rand(N, L, E, D), rand(N, L, E, D)
+
+    def beam(step):
+        return lambda i: da.beam_decode_attention_rowmajor(
+            q, kn, vn, pk, pv, gk, gv, step, i % L, beams_per_image=R,
+            head_dim=hd)
+
+    def greedy(i):
+        return da.beam_decode_attention_chunked(
+            q1, kn1, vn1, pk, pv, gk1, gv1, 66, i % L, beams_per_image=1,
+            head_dim=hd)
+
+    calls = {"1": beam(1), "33": beam(33), "66": beam(66), "greedy_66": greedy}
+
+    def times():
+        return {k: cs.time_ms(cs.rotating(fn, L), iters=40)
+                for k, fn in calls.items()}
+
+    shipped = da.attention_plan
+    print(json.dumps({"plan": "shipped",
+                      "served": shipped(N, R, K, D, hd, 66, 2),
+                      "ms": times()}), flush=True)
+    rows = []
+    for budget_kb, stages, mult, threads in itertools.product(
+            (30, 37, 45, 75), (2, 3, 4, 8), (1, 2, 3), (96, 128)):
+        def plan(N_, R_, K_, D_, hd_, n_gen, itemsize, budget_kb=budget_kb,
+                 stages=stages, mult=mult, threads=threads):
+            G = n_gen + 1
+            tile = max(1, min(G, mult * -(-K_ // R_)))
+            nchunks = -(-G // tile)
+            for nbuf in range(min(2 * (1 + nchunks), stages), 1, -1):
+                smem = da._attention_smem(R_, K_, hd_, itemsize, tile, nbuf,
+                                          threads, n_gen)
+                if smem <= budget_kb * 1024:
+                    return dict(grid=(D_ // hd_, N_), threads=threads,
+                                tile=tile, nbuf=nbuf, nchunks=nchunks,
+                                smem=smem)
+            return None
+        if plan(N, R, K, D, hd, 66, 2) is None or \
+                plan(N, 1, K, D, hd, 66, 2) is None:
+            continue
+        da.attention_plan = plan
+        try:
+            ms = times()
+        finally:
+            da.attention_plan = shipped
+        rows.append(dict(budget_kb=budget_kb, stages=stages,
+                         tile_prefixes=mult, threads=threads,
+                         served=plan(N, R, K, D, hd, 66, 2), ms=ms))
+    for row in sorted(rows, key=lambda r: r["ms"]["66"]):
+        print(json.dumps(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

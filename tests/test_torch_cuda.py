@@ -7,7 +7,10 @@ one; run them there with
 Tolerances: K1 indices identical and values/lse within 2e-3 (bf16) or
 1e-4 (f32) on operands whose sums are exact in f32; the attention kernels
 K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
-(K2, K8) or scales (K6, K9) they must not read, R = 1 and 5 for K8/K9;
+(K2, K8) or scales (K6, K9) they must not read, R = 1 and 5 for K9; K2
+and K8 (one kernel) at R = 1, 2, 5 and 8, steps at the ends and at its
+chunk tile's edges, e_cap below the step, head_dim 32, 64 and 128, NaN
+also in the next layer's slot 0, one launch per call;
 K3/K4/K5/K7/K13 bit-exact; the gathers K10-K12 and the slot write K14
 bit-exact in f32, bf16 and int8, and the gathers refuse an output that
 overlaps their input and assert on a source outside the batch; K15 (v1
@@ -64,23 +67,68 @@ def test_lm_head_kernel(dev, gen, dtype, tol, _, B, V, D, r):
     assert torch.equal(ties.cpu(), torch.arange(r).expand(B, r))
 
 
-@pytest.mark.parametrize("dtype,_,tol", DTYPES)
-@pytest.mark.parametrize("step,e_cap", [(0, 16), (1, 16), (17, 16),
-                                        (17, 72), (66, 72)])
-def test_decode_attention_kernel(dev, gen, dtype, _, tol, step, e_cap):
-    N, R, L, K, E, D = 8, 5, 3, 40, 72, 768
+# K2/K8 (8 images, K = 40 prefix slots, E = 72): for each R, the steps at
+# the ends, at the edges of the plan's chunk (tile = 2 ceil(40 / R)) and
+# the served paths' last step (66)
+def _async_steps(R):
+    tile = decode_attention.attention_plan(8, R, 40, 768, 64, 71, 2)["tile"]
+    return sorted({s for s in (0, 1, tile - 1, tile, tile + 1, 66, 71)
+                   if s < 72})
+
+
+ASYNC_CASES = [(R, s) for R in (1, 2, 5, 8) for s in _async_steps(R)]
+
+
+def _async_inputs(gen, dev, dtype, N, R, hd, step, L=3, K=40, E=72):
+    """Inputs of K2/K8 at layer 1 of L with NaN in every slot at or above
+    `step` and in slot 0 of the next layer (the bytes after layer 1's
+    slot E - 1): no copy may reach them."""
+    D = 12 * hd
     B = N * R
     r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
     q, kn, vn = r(B, 3 * D).split(D, dim=-1)
     pk, pv, gk, gv = r(L, N, K, D), r(L, N, K, D), r(B, L, E, D), r(B, L, E, D)
-    gk[:, :, step:] = float("nan")
-    gv[:, :, step:] = float("nan")
-    args = (q, kn, vn, pk, pv, gk, gv, step, 2)
+    for g in (gk, gv):
+        g[:, :, step:] = float("nan")
+        g[:, 2, 0] = float("nan")
+    return q, kn, vn, pk, pv, gk, gv, step, 1
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("R,step,e_cap", [(R, s, 72) for R, s in ASYNC_CASES]
+                         + [(R, s, c) for R in (1, 5)
+                            for s, c in ((0, 16), (17, 16), (33, 32),
+                                         (66, 16))])
+def test_decode_attention_kernel(dev, gen, dtype, _, tol, R, step, e_cap):
+    args = _async_inputs(gen, dev, dtype, 8, R, 64, step)
     kw = dict(beams_per_image=R, head_dim=64, e_cap=e_cap)
+    n0 = decode_attention.beam_decode_attention_rowmajor.launches
     out = decode_attention.beam_decode_attention_rowmajor(*args, **kw)
+    assert decode_attention.beam_decode_attention_rowmajor.launches == n0 + 1
     ref = decode_attention.beam_decode_attention_rowmajor_plain(*args, **kw)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("R", [1, 8, 16])
+@pytest.mark.parametrize("step", [33, 71])
+def test_async_attention_kernel_head_dims(dev, gen, dtype, _, tol, hd, R,
+                                          step):
+    """K2 and K8 at every head_dim they take (a head slice of 4 to 32
+    16-byte words), with two tensor-core row tiles (R = 16)."""
+    args = _async_inputs(gen, dev, dtype, 4, R, hd, step)
+    for fn, plain, kw in (
+            (decode_attention.beam_decode_attention_rowmajor,
+             decode_attention.beam_decode_attention_rowmajor_plain, {}),
+            (decode_attention.beam_decode_attention_chunked,
+             decode_attention.beam_decode_attention_chunked_plain,
+             dict(chunk=8))):
+        kw.update(beams_per_image=R, head_dim=hd)
+        out, ref = fn(*args, **kw), plain(*args, **kw)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -194,17 +242,9 @@ def test_beam_search_kernels_match_plain_path(dev, gen, int8):
 
 
 @pytest.mark.parametrize("dtype,_,tol", DTYPES)
-@pytest.mark.parametrize("R", [1, 5])
-@pytest.mark.parametrize("step", [0, 1, 8, 17, 66])
+@pytest.mark.parametrize("R,step", ASYNC_CASES + [(5, 17), (1, 17)])
 def test_chunked_decode_attention_kernel(dev, gen, dtype, _, tol, R, step):
-    N, L, K, E, D = 8, 3, 40, 72, 768
-    B = N * R
-    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
-    q, kn, vn = r(B, 3 * D).split(D, dim=-1)
-    pk, pv, gk, gv = r(L, N, K, D), r(L, N, K, D), r(B, L, E, D), r(B, L, E, D)
-    gk[:, :, step:] = float("nan")
-    gv[:, :, step:] = float("nan")
-    args = (q, kn, vn, pk, pv, gk, gv, step, 2)
+    args = _async_inputs(gen, dev, dtype, 8, R, 64, step)
     kw = dict(beams_per_image=R, head_dim=64, chunk=8)
     n0 = decode_attention.beam_decode_attention_chunked.launches
     out = decode_attention.beam_decode_attention_chunked(*args, **kw)
