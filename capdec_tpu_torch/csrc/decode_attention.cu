@@ -1,132 +1,55 @@
-// K6 and K15: one layer's beam-decode attention over split, row-major KV
-// caches, on the warp-per-beam template beam_attn.
+// K6: one layer's beam-decode attention over an int8 generated cache, on
+// the warp-per-beam template beam_attn.
 //
-// The function is K2's (capdec_tpu/ops/decode_attention.py::
-// beam_decode_attention_rowmajor, pl.pallas_call at :765, body _kernel_rm
-// :186-241), which runs on decode_attention_async.cu; the template keeps
-// its first design as the base of K6 and K15. For each beam row b
-// of image n = b / R and each head, a softmax over three slot sets:
+// Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor_q
+// (pl.pallas_call at :684, body _kernel_rm_q :244-323). The function is
+// K2's (::beam_decode_attention_rowmajor, which runs with K8, K9 and K15
+// on decode_attention_async.cu): for each beam row b of image n = b / R
+// and each head, a softmax over three slot sets:
 //   * the image's shared prefix  pk/pv [L, N, K, D]  (all K slots),
 //   * the row's generated slots  gk/gv [B, L, E, D]  below n_gen,
 //   * the current token          k_new/v_new [B, D],
 // then the probability-weighted sum of V, written as f32 out [B, D].
 // n_gen = min(step, e_cap): slots at or above `step` are never read, so
 // stale or NaN bits there (after a bounded fork copy) cannot reach the sum.
-//
-// Bound on the H100: bytes. Per call it reads one layer's prefix cache once
-// (2·N·K·D), each row's live generated slots (2·B·n_gen·D) and q/k/v, and
-// does about 4 FLOPs per byte read.
-//
-// Design: one block per (head, image), one warp per beam of that image.
-// The block stages the image's prefix K/V head slice in shared memory
-// once and serves its R beams from there, so the prefix leaves device
-// memory once per image instead of once per beam. Each lane owns head
-// dims lane + 32·j; a slot's score is a warp-sum of the lanes' partial
-// dot products (real per-head reductions over head_dim, f32, scale
-// 1/sqrt(hd)). The TPU kernel's 0/1 head-grouping matmul and its 8-slot
-// prefix padding were Mosaic workarounds and are not carried over.
-//
-// K6: the same attention over an int8 generated cache. Replaces
-// capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor_q
-// (pl.pallas_call at :684, body _kernel_rm_q :244-323). gk/gv hold int8
-// levels [B, L, E, D] and gks/gvs their f32 absmax scales [B, L, 1, E]
+// gk/gv hold int8 levels and gks/gvs their f32 absmax scales [B, L, 1, E]
 // (value = level · scale, written by K5). A generated slot's score is
 // dot(q, level_k) · (ks[slot] · scale): the head sum first, then the
 // scale, as in the TPU kernel (:284-285); the V scale folds into the
 // slot's probability (:300-307). The scales keep the full slot width E
 // even when e_cap bounds the read, and slots at or above n_gen are never
 // read, neither their levels nor their scales.
-// Bound on the H100: bytes; the generated cache is half of K2's. The
-// prefix and the current token go as in K2. The generated slots change
-// layout so that every level arrives in a 16-byte load: a slot's head
-// slice (head_dim bytes) is split over head_dim/16 lanes, each owning 16
-// consecutive dims, so a warp scores 512/head_dim slots at a time (lane
-// groups reduce with shuffles). The value pass accumulates in the same
-// layout; the groups then reduce across the warp and hand the per-dim
-// partial to the K2 layout through shared memory.
 //
-// K15: the v1 fused decode attention with the slot write fused in.
-// Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention
-// (pl.pallas_call at :825, body _kernel :67-136). Its read side is K2's
-// function for one layer (gk/gv [B, E, D] are the row-major [B, 1, E, D])
-// with n_gen = step: the row's slots below `step` are read, the slots at
-// or above it never. Its write side stores k_new/v_new into slot `step`
-// of gk/gv in place (the TPU kernel's aliased outputs). The block for
-// (head h, image n) stores head h's hd columns of its R rows: no block
-// reads slot `step`, and no two blocks write the same bytes, so the write
-// needs no ordering against any read. Bound on the H100: bytes, K2's plus
-// the one slot written (2·B·D). The TPU kernel's head-grouping matmul G,
-// its [TB, E, 1, D] block reshape and its bf16 products are Mosaic
-// workarounds and are not carried over: the products here are f32.
+// Bound on the H100: bytes. Per call it reads one layer's prefix cache once
+// (2·N·K·D), each row's live generated levels (2·B·n_gen·D) and scales,
+// and q/k/v, and does about 4 FLOPs per byte read.
 //
-// Both are one kernel template, beam_attn<T, Gen>: the prefix, the
-// current token, the softmax and the output are shared, and the policy
-// Gen (GenSlotsInt8 for K6, GenSlotsWrite for K15, on K2's reads in
-// GenSlots) scores the generated slots, adds their values and, for K15,
-// writes the step's slot.
+// Design: one block per (head, image), one warp per beam of that image.
+// The block stages the image's prefix K/V head slice in shared memory
+// once and serves its R beams from there, so the prefix leaves device
+// memory once per image instead of once per beam. Each lane owns head
+// dims lane + 32·j; a prefix slot's score is a warp-sum of the lanes'
+// partial dot products (real per-head reductions over head_dim, f32, scale
+// 1/sqrt(hd)). The generated slots change layout so that every level
+// arrives in a 16-byte load: a slot's head slice (head_dim bytes) is split
+// over head_dim/16 lanes, each owning 16 consecutive dims, so a warp
+// scores 512/head_dim slots at a time (lane groups reduce with shuffles).
+// The value pass accumulates in the same layout; the groups then reduce
+// across the warp and hand the per-dim partial to the head layout through
+// shared memory. The TPU kernel's 0/1 head-grouping matmul and its 8-slot
+// prefix padding were Mosaic workarounds and are not carried over. The
+// template keeps its generated-slot policy (Gen = GenSlotsInt8) apart from
+// the prefix, the current token, the softmax and the output.
 #include "common.cuh"
 
 namespace capdec {
 namespace {
-
-// K2's function's generated slots: values of type T, in the head layout
-// (the reads of K15's GenSlotsWrite).
-template <typename T>
-struct GenSlots {
-  static constexpr bool kPartial = false;  // needs no shared partial
-  const T* gk;
-  const T* gv;
-
-  __device__ void score(const T*, const float (&qv)[MAX_J], float* sc,
-                        size_t bl, int h, int n, int E, int D, int hd,
-                        int lane, int nj, float scale) const {
-    const T* base = gk + bl * E * D + (size_t)h * hd;
-    for (int s = 0; s < n; ++s) {
-      const float p = head_dot(qv, base + (size_t)s * D, lane, nj);
-      if (lane == 0) sc[s] = p * scale;
-    }
-  }
-
-  __device__ void value(float (&acc)[MAX_J], const float* sc, float*,
-                        size_t bl, int h, int n, int E, int D, int hd,
-                        int lane, int nj) const {
-    const T* base = gv + bl * E * D + (size_t)h * hd;
-    for (int s = 0; s < n; ++s)
-      head_axpy(acc, sc[s], base + (size_t)s * D, lane, nj);
-  }
-
-  // K2 reads only: the slot write is K3's (or K14's) launch.
-  __device__ void write(const T*, const T*, size_t, size_t, int, int, int,
-                        int, int, int, int) const {}
-};
-
-// K15's generated slots: K2's reads, and the step's K/V stored into slot
-// n_gen (= step) of wk/wv, the same caches as gk/gv. Each lane stores the
-// head dims it owns, lane + 32·j.
-template <typename T>
-struct GenSlotsWrite : GenSlots<T> {
-  T* wk;
-  T* wv;
-
-  __device__ void write(const T* kn, const T* vn, size_t qoff, size_t bl,
-                        int h, int slot, int E, int D, int hd, int lane,
-                        int nj) const {
-    const size_t dst = (bl * E + slot) * D + (size_t)h * hd;
-#pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) {
-        wk[dst + lane + 32 * j] = kn[qoff + lane + 32 * j];
-        wv[dst + lane + 32 * j] = vn[qoff + lane + 32 * j];
-      }
-  }
-};
 
 // K6's generated slots: int8 levels with f32 scales [B, L, 1, E]. A slot's
 // head slice is split over hd/16 lanes of 16 consecutive dims each, so
 // every level arrives in a 16-byte load and a warp takes 512/hd slots at a
 // time.
 struct GenSlotsInt8 {
-  static constexpr bool kPartial = true;  // part: the warp's [hd] sums
   const int8_t* gk;
   const int8_t* gv;
   const float* gks;
@@ -190,11 +113,6 @@ struct GenSlotsInt8 {
     for (int j = 0; j < MAX_J; ++j)
       if (j < nj) acc[j] += part[lane + 32 * j];
   }
-
-  // K6 reads only: the slot write is K5's launch.
-  template <typename T>
-  __device__ void write(const T*, const T*, size_t, size_t, int, int, int,
-                        int, int, int, int) const {}
 };
 
 template <typename T, typename Gen>
@@ -210,8 +128,8 @@ __global__ void beam_attn(const T* __restrict__ q, const T* __restrict__ kn,
   const int S = K + n_gen + 1;
   float* pks = smem;                 // [K][hd]
   float* pvs = pks + K * hd;         // [K][hd]
-  float* part = pvs + K * hd + warp * hd;  // [hd] per warp, if kPartial
-  float* sc = pvs + K * hd + (Gen::kPartial ? R * hd : 0) + warp * S;
+  float* part = pvs + K * hd + warp * hd;  // [hd] per warp
+  float* sc = pvs + K * hd + R * hd + warp * S;
 
   const size_t pbase = (((size_t)layer * N + n) * K) * D + (size_t)h * hd;
   for (int e = threadIdx.x; e < K * hd; e += blockDim.x) {
@@ -264,7 +182,6 @@ __global__ void beam_attn(const T* __restrict__ q, const T* __restrict__ kn,
 #pragma unroll
   for (int j = 0; j < MAX_J; ++j)
     if (j < nj) orow[lane + 32 * j] = acc[j] * inv;
-  gen.write(kn, vn, qoff, bl, h, n_gen, E, D, hd, lane, nj);
 }
 
 template <typename T, typename Gen>
@@ -272,7 +189,7 @@ cudaError_t launch(const void* q, const void* kn, const void* vn, long qs,
                    const void* pk, const void* pv, Gen gen, float* out,
                    int N, int R, int L, int K, int E, int D, int hd,
                    int layer, int n_gen, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * K * hd + (Gen::kPartial ? R * hd : 0) +
+  const size_t smem = (size_t)(2 * K * hd + R * hd +
                                R * (K + n_gen + 1)) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -305,32 +222,5 @@ extern "C" int capdec_beam_decode_attention_rowmajor_q(
                                           stream)
           : capdec::launch<float>(q, kn, vn, qs, pk, pv, gen, out, N, R, L,
                                   K, E, D, hd, layer, n_gen, stream);
-  return static_cast<int>(err);
-}
-
-extern "C" int capdec_beam_decode_attention(
-    const void* q, const void* kn, const void* vn, long qs, const void* pk,
-    const void* pv, void* gk, void* gv, float* out, int N, int R, int K,
-    int E, int D, int hd, int step, int dtype, cudaStream_t stream) {
-  // one layer: the caches [B, E, D] are the row-major [B, 1, E, D], and
-  // the slots below `step` are read (n_gen = step)
-  using capdec::GenSlotsWrite;
-  using B16 = __nv_bfloat16;
-  cudaError_t err =
-      dtype == capdec::kBF16
-          ? capdec::launch<B16>(
-                q, kn, vn, qs, pk, pv,
-                GenSlotsWrite<B16>{{static_cast<const B16*>(gk),
-                                    static_cast<const B16*>(gv)},
-                                   static_cast<B16*>(gk),
-                                   static_cast<B16*>(gv)},
-                out, N, R, 1, K, E, D, hd, 0, step, stream)
-          : capdec::launch<float>(
-                q, kn, vn, qs, pk, pv,
-                GenSlotsWrite<float>{{static_cast<const float*>(gk),
-                                      static_cast<const float*>(gv)},
-                                     static_cast<float*>(gk),
-                                     static_cast<float*>(gv)},
-                out, N, R, 1, K, E, D, hd, 0, step, stream);
   return static_cast<int>(err);
 }

@@ -1,17 +1,35 @@
-// K2 and K8: one layer's beam-decode attention, its head slices staged in
-// shared memory by asynchronous copies that complete on mbarriers.
+// K2, K8, K9 and K15: one layer's beam-decode attention, its head slices
+// staged in shared memory by asynchronous copies that complete on
+// mbarriers.
 //
 // Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor
-// (the function at :719, pl.pallas_call at :765, body _kernel_rm :186-241)
-// and ::beam_decode_attention_chunked (the function at :484, pl.pallas_call
-// at :523, body _kernel_rm_chunked :326-454). Both compute one function:
-// for beam row b of image n = b / R and each head, a softmax over
+// (the function at :719, pl.pallas_call at :765, body _kernel_rm :186-241),
+// ::beam_decode_attention_chunked (the function at :484, pl.pallas_call
+// at :523, body _kernel_rm_chunked :326-454), ::beam_decode_attention_chunked_q
+// (the function at :569, pl.pallas_call at :620, the same body with int8
+// scales) and ::beam_decode_attention (the function at :794, pl.pallas_call
+// at :825, body _kernel :67-136). All compute one function: for beam row b
+// of image n = b / R and each head, a softmax over
 //   * the image's prefix slots      pk/pv [L, N, K, D]  (all K),
 //   * the row's generated slots     gk/gv [B, L, E, D]  below n_gen,
 //   * the current token             k_new/v_new [B, D]  (row stride qs),
 // then the probability-weighted sum of V, written as f32 out [B, D]. K2
 // reads n_gen = min(step, e_cap) slots, K8 n_gen = step: the caller passes
-// n_gen, and the K8 entry is the K2 entry under its own name.
+// n_gen, and the K8 entry is the K2 entry under its own name. The slot
+// policies of the other two:
+//   * K9: the generated cache holds int8 levels with f32 absmax scales
+//     gks/gvs [B, L, 1, E] (value = level · scale), and with pks/pvs
+//     [L, N, 1, K] the prefix too. A slot's K scale multiplies its score
+//     after the head sum, before 1/sqrt(hd); its V scale folds into its
+//     probability before P is rounded to bf16 (the plain version's order).
+//     The current token stays unquantised (scale 1). Levels are exact in
+//     bf16, so a landed int8 stage is widened in shared memory and takes
+//     the same tensor-core path; q is never quantised.
+//   * K15: the v1 kernel, one layer's caches [B, E, D] read as L = 1,
+//     n_gen = step; the block for (head h, rows) also stores head h's
+//     columns of its rows' k_new/v_new into slot `step` of gk/gv, in place.
+//     No copy reads slot `step` (copies stop below n_gen), so the write
+//     needs no ordering; every other slot's bits stay as they were.
 //
 // Bound on the H100: bytes. A call reads one layer's prefix once per image
 // (2·N·K·D values), each row's live generated slots (2·B·n_gen·D) and
@@ -21,8 +39,13 @@
 // one replaced kept about one 128-byte row per warp in flight behind a
 // serial chain of warp sums, and ran at 2.8-3.2x the bound.
 //
-// Design: one block per (head, image) serves the image's R rows (the prefix
-// leaves device memory once per image): 128 threads, about 25 KB of shared
+// K9's bytes are half of K2's in the generated cache (and, with an int8
+// prefix, in the prefix) plus 8 bytes of scales a slot; K15's add the slot
+// it writes (2·B·D).
+//
+// Design: one block per (head, image, group of at most 16 rows) serves the
+// group's rows (the prefix leaves device memory once per image and group;
+// the served R = 5 and R = 1 have one group): 128 threads, about 25 KB of shared
 // memory at the served shape, so six blocks share an SM and the served
 // call's 768 blocks run in one wave. The last warp produces: it streams the
 // block's head slices through a ring of two stages in shared memory as
@@ -30,8 +53,9 @@
 // on neighbouring addresses; values kept in their stored type), each lane
 // arriving on the stage's "full" mbarrier once its copies have landed
 // (`cp.async.mbarrier.arrive.noinc`). The stages are the prefix K (with q,
-// k_new, v_new), the K of chunks of `tile` = 2 ceil(K / R) generated slots
-// of all R rows, then the prefix V and the V chunks. The other three warps
+// k_new, v_new), the K of chunks of `tile` = 2 ceil(K / rows) generated
+// slots (twice that for int8 levels) of the block's rows, then the prefix V
+// and the V chunks. The other three warps
 // consume each stage as it lands and release it on its "empty" mbarrier:
 // they score the K stages, take one exact softmax over all of a row's
 // scores (while the producer refills the freed ring with V), then sum the
@@ -54,58 +78,90 @@
 // Slots at or above n_gen may hold stale or NaN bits (a bounded fork copy,
 // and at slot E - 1 the next slot in memory is the next layer's slot 0): no
 // copy reaches them, so they never enter shared memory; the current token's
-// slot is read from the copied k_new/v_new rows.
+// slot is read from the copied k_new/v_new rows. K9's scales are copied
+// for the slots below n_gen only (NaN above them would give 0 · NaN).
 //
 // Not carried over from the TPU kernels: the 0/1 head-grouping matmul (the
 // head sums are lane shuffles), the 8-slot prefix padding (a copy takes any
-// slot count) and the sequential `chunk` grid axis (blocks run in no order;
-// the chunks are parts of one block's work, and their tile is the plan's,
-// not the caller's `chunk`).
+// slot count), K9's one-hot scale matmul (the scales are indexed) and the
+// sequential `chunk` grid axis (blocks run in no order; the chunks are
+// parts of one block's work, and their tile is the plan's, not the
+// caller's `chunk`).
 #include "common.cuh"
 
 namespace capdec {
 namespace {
+
+constexpr int kRowGroup = 16;  // rows a block serves: two mma row tiles
 
 __host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
 // Shared-memory layout of one block, as byte offsets from the dynamic base
-// (each 16-byte aligned). The wrapper's plan (ops/decode_attention.py
-// attention_plan) computes the same total; the launch refuses a mismatch.
+// (each 16-byte aligned), for R = min(rows, kRowGroup) rows, values of
+// tsize bytes (q, k_new, v_new), a generated cache of csize and a prefix of
+// psize (tsize, or 1 for int8 levels). The wrapper's plan
+// (ops/decode_attention.py attention_plan) computes the same total; the
+// launch refuses a mismatch.
 struct Layout {
-  int rowb;   // bytes of one head slice
-  int lp;     // 16-byte words a head slice
+  int rowb;   // bytes of one head slice of T
   int NC;     // consumer warps; the last warp of the block produces
   int J;      // f32 value pass: consumer threads per (row, 16-byte word)
-  int srows;  // head slices a stage: max(K, R * tile)
   int scw;    // score row width: K + nchunks * tile
+  int stage;  // bytes a stage: max(K prefix slices, R * tile cache slices)
   // where each region starts; the mbarriers (nbuf full, nbuf empty) first
-  int ring;   // nbuf stages of srows slices of T
+  int ring;   // nbuf stages, each as copied (int8 slices unswizzled)
+  int wide;   // an int8 stage widened to T: max(K or R * tile) slices
   int red;    // bf16: the consumer warps' value sums f32 [NC][R/8][8][hd],
               // over the spent ring
   int cur;    // q, k_new, v_new: [3][R][hd] of T
   int sc;     // scores, then exp(score - max): f32 [R][scw]
+  int scl;    // int8 scales f32: prefix K, V [K] each; cache K, V [R][n_gen]
   int part;   // f32: the value sums f32 [R][J][hd]
   int stats;  // the softmax sums: f32 [R]
   int total;
-  __host__ __device__ Layout(int R, int K, int hd, int tsize, int tile,
-                             int nbuf, int threads, int n_gen) {
+  __host__ __device__ Layout(int R, int K, int hd, int tsize, int csize,
+                             int psize, int tile, int nbuf, int threads,
+                             int n_gen) {
     rowb = hd * tsize;
-    lp = rowb / 16;
     NC = threads / 32 - 1;
-    J = imax(1, NC * 32 / (R * lp));
-    srows = imax(K, R * tile);
+    J = imax(1, NC * 32 / (R * (rowb / 16)));
     scw = K + (n_gen + tile) / tile * tile;
+    stage = up16(imax(K * hd * psize, R * tile * hd * csize));
     ring = up16(16 * nbuf);
+    wide = ring + nbuf * stage;
     red = ring;
-    cur = ring + nbuf * srows * rowb;
+    cur = wide + imax(psize < tsize ? K : 0, csize < tsize ? R * tile : 0) *
+                     rowb;
     if (tsize == 2) cur = imax(cur, red + NC * ((R + 7) / 8) * 8 * hd * 4);
     sc = cur + 3 * R * rowb;
-    part = sc + up16(R * scw * 4);
+    scl = sc + up16(R * scw * 4);
+    part = scl + up16(((psize == 1 ? 2 * K : 0) +
+                       (csize == 1 ? 2 * R * n_gen : 0)) * 4);
     stats = part + (tsize == 2 ? 0 : R * J * hd * 4);
     total = stats + up16(R * 4);
   }
+};
+
+// A launch's arguments (pointers as the wrapper passes them).
+struct Args {
+  const void* q;
+  const void* kn;
+  const void* vn;
+  long qs;  // row stride of q, k_new, v_new, in values
+  const void* pk;
+  const void* pv;
+  const float* pks;  // K9's int8 prefix scales [L, N, 1, K], or null
+  const float* pvs;
+  const void* gk;
+  const void* gv;
+  const float* gks;  // K9's cache scales [B, L, 1, E], or null
+  const float* gvs;
+  void* wk;  // K15: k_new/v_new go into slot n_gen of these; null: no write
+  void* wv;
+  float* out;
+  int N, R, L, K, E, D, layer, n_gen, tile, nbuf;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -143,6 +199,13 @@ __device__ __forceinline__ void consumers_sync(int nthreads) {
 // the L2 only.
 __device__ __forceinline__ void copy16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// 4 bytes from device to shared memory (K9's scales: a row of them need
+// not start on 16 bytes).
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
                ::"r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
@@ -199,7 +262,8 @@ struct Slice {
 // The head slices of one stage (the prefix, or one chunk of generated
 // slots; K or V) in shared memory: row r's slot s. Prefix slots are shared
 // by the R rows (stride 0); slot `cur_s` of a chunk is the current token,
-// slice cidx + r of the region `cb` (q, k_new, v_new).
+// slice cidx + r of the region `cb` (q, k_new, v_new). An int8 part has K
+// scales ks [r * kst + s] (the current token's is 1).
 template <typename T>
 struct Part {
   const T* base;
@@ -208,9 +272,14 @@ struct Part {
   int stride;  // slices per beam row: 0 (prefix) or tile
   int cur_s;   // the current token's slot in the part, or -1
   int cnt;     // slots in the part
+  const float* ks;  // K scales, or null (all 1)
+  int kst;          // scales per beam row: 0 (prefix) or n_gen
   __device__ Slice<T> row(int r, int s) const {
     return s == cur_s ? Slice<T>{cb, cidx + r}
                       : Slice<T>{base, r * stride + s};
+  }
+  __device__ float kscale(int r, int s) const {
+    return ks && s != cur_s ? ks[r * kst + s] : 1.f;
   }
 };
 
@@ -242,22 +311,101 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Copies of slices i < cnt of one head (values of S, rows D values apart
+// from src) into a stage from slice idx0 on, lane by lane: slices of T
+// swizzled for ldmatrix, int8 slices as stored.
+template <typename S, typename T, int HD>
+__device__ __forceinline__ void copy_slices(unsigned char* buf, int idx0,
+                                            const S* src, int D, int cnt,
+                                            int lane) {
+  constexpr int W = HD * (int)sizeof(S) / 16;  // 16-byte words a slice
+  for (int i = lane; i < cnt * W; i += 32) {
+    const int sl = i / W, w = i % W;
+    void* dst;
+    if constexpr (sizeof(S) == sizeof(T))
+      dst = const_cast<T*>(
+          word_at<T, HD>(reinterpret_cast<T*>(buf), idx0 + sl, w));
+    else
+      dst = buf + (size_t)(idx0 + sl) * HD * sizeof(S) + w * 16;
+    copy16(dst, src + (size_t)sl * D + w * (16 / (int)sizeof(S)));
+  }
+}
+
+// Four int8 levels (the bytes of u, lowest first) as exact f32 without a
+// conversion instruction (those run at a quarter of the ALU rate): byte
+// x + 128 becomes the low mantissa bits of 2^23, and 2^23 + 128 is
+// subtracted.
+__device__ __forceinline__ void levels4(uint32_t u, float (&f)[4]) {
+  const uint32_t b = u ^ 0x80808080u;  // x + 128, unsigned
+  f[0] = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// Two f32 integers of at most 8 significant bits as a bf16 pair (lo in
+// the low half): their low 16 bits are zero, so the top halves are exact.
+__device__ __forceinline__ uint32_t top_halves(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// The 16 levels at src (word w of an int8 slice), widened exactly into
+// word w of slice idx of the T region `wide` (a level is exact in bf16).
+template <typename T, int HD>
+__device__ __forceinline__ void widen_word(const int8_t* src, T* wide,
+                                           int idx, int w) {
+  const uint4 x = *reinterpret_cast<const uint4*>(src);
+  const uint32_t u[4] = {x.x, x.y, x.z, x.w};
+  constexpr int V = 16 / sizeof(T);  // values a word of T
+#pragma unroll
+  for (int j = 0; j < 16 / V; ++j) {
+    void* dst = const_cast<T*>(word_at<T, HD>(wide, idx, w * (16 / V) + j));
+    if constexpr (sizeof(T) == 2) {
+      float a[4], b[4];
+      levels4(u[2 * j], a);
+      levels4(u[2 * j + 1], b);
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(top_halves(a[0], a[1]), top_halves(a[2], a[3]),
+                     top_halves(b[0], b[1]), top_halves(b[2], b[3]));
+    } else {
+      float a[4];
+      levels4(u[j], a);
+      *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
 // 128-thread blocks (three consumer warps and a producer) of head_dim <= 64
 // fit six to an SM by registers.
-template <typename T, int HD>
+// T: q, k_new, v_new (and the f32 sums' inputs); C: the generated cache;
+// P: the prefix (C and P are T, or int8 levels with scales).
+template <typename T, typename C, typename P, int HD>
 __global__ void __launch_bounds__(128, HD <= 64 ? 6 : 3)
-async_attn(const T* __restrict__ q, const T* __restrict__ kn,
-           const T* __restrict__ vn, long qs, const T* __restrict__ pk,
-           const T* __restrict__ pv, const T* __restrict__ gk,
-           const T* __restrict__ gv, float* __restrict__ out, int N, int R,
-           int L, int K, int E, int D, int layer, int n_gen, int tile,
-           int nbuf, float scale) {
+async_attn(const Args args, float scale) {
   constexpr bool kMma = sizeof(T) == 2;  // bf16: tensor cores
   constexpr int V = 16 / sizeof(T);      // values per 16-byte word
   constexpr int LP = HD / V;             // 16-byte words a head slice
+  constexpr bool kNarrowP = sizeof(P) < sizeof(T);  // an int8 prefix
+  constexpr bool kNarrowC = sizeof(C) < sizeof(T);  // an int8 cache
+  const T* q = static_cast<const T*>(args.q);
+  const T* kn = static_cast<const T*>(args.kn);
+  const T* vn = static_cast<const T*>(args.vn);
+  const P* pk = static_cast<const P*>(args.pk);
+  const P* pv = static_cast<const P*>(args.pv);
+  const C* gk = static_cast<const C*>(args.gk);
+  const C* gv = static_cast<const C*>(args.gv);
+  float* out = args.out;
+  const int N = args.N, R = args.R, L = args.L, K = args.K, E = args.E;
+  const int D = args.D, layer = args.layer, n_gen = args.n_gen;
+  const int tile = args.tile, nbuf = args.nbuf;
+  const int RG = imin(R, kRowGroup);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(R, K, HD, sizeof(T), tile, nbuf, blockDim.x, n_gen);
+  const Layout lay(RG, K, HD, sizeof(T), sizeof(C), sizeof(P), tile, nbuf,
+                   blockDim.x, n_gen);
   const int h = blockIdx.x, n = blockIdx.y;
+  // this block's rows: Rb rows of image n from its row rg0 on
+  const int rg0 = blockIdx.z * kRowGroup, Rb = imin(kRowGroup, R - rg0);
+  const size_t row0 = (size_t)n * R + rg0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int NC = lay.NC, NCT = NC * 32, J = lay.J, scw = lay.scw;
   const int G = n_gen + 1;  // the generated slots and the current token
@@ -265,10 +413,16 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
   const int nst = 2 * (1 + nchunks);  // K: prefix, chunks; V: the same
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + nbuf;
-  T* ring = reinterpret_cast<T*>(smem + lay.ring);
+  unsigned char* ring = smem + lay.ring;
+  T* wide = reinterpret_cast<T*>(smem + lay.wide);
   float* red = reinterpret_cast<float*>(smem + lay.red);
   T* cur = reinterpret_cast<T*>(smem + lay.cur);
   float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  // K9's scales: the prefix's K and V [K], then the cache's K and V
+  // [RG][n_gen]
+  float* scl = reinterpret_cast<float*>(smem + lay.scl);
+  float* sgk = scl + (kNarrowP ? 2 * K : 0);
+  float* sgv = sgk + RG * n_gen;
   float* part = reinterpret_cast<float*>(smem + lay.part);
   float* den = reinterpret_cast<float*>(smem + lay.stats);
 
@@ -280,76 +434,126 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if constexpr (!kMma)
-    for (int i = tid; i < R * J * HD; i += blockDim.x) part[i] = 0.f;
+    for (int i = tid; i < Rb * J * HD; i += blockDim.x) part[i] = 0.f;
   __syncthreads();
 
-  // Stage s: 0 the prefix K (and q, k_new, v_new), 1 .. nchunks the K
-  // chunks of `tile` slots of all R rows; then the prefix V and the V
-  // chunks. Stage s fills buffer s % nbuf.
+  // Stage s: 0 the prefix K (and q, k_new, v_new and K9's scales),
+  // 1 .. nchunks the K chunks of `tile` slots of the block's rows; then
+  // the prefix V and the V chunks. Stage s fills buffer s % nbuf.
   auto chunk_of = [&](int s) { return s > nchunks ? s - nchunks - 2 : s - 1; };
+  // an int8 stage, widened before use
+  auto narrow = [&](int s) { return chunk_of(s) < 0 ? kNarrowP : kNarrowC; };
   if (warp == NC) {
-    // The producer: every stage's slices as 16-byte copies, lane group grp
-    // taking slices grp, grp + ngrp, ..., lane sub its word sub; each lane
-    // arrives on the stage's full barrier once its copies have landed.
-    const int sub = lane % LP, grp = lane / LP, ngrp = 32 / LP;
-    const size_t hoff = (size_t)h * HD + sub * V;
-    auto dst = [&](T* base, int idx) {
-      return const_cast<T*>(word_at<T, HD>(base, idx, sub));
-    };
-    for (int i = grp; i < 3 * R; i += ngrp) {
-      const T* src = i < R ? q : i < 2 * R ? kn : vn;
-      copy16(dst(cur, i), src + (size_t)(n * R + i % R) * qs + hoff);
+    // The producer: every stage's slices as 16-byte copies spread over the
+    // lanes; each lane arrives on the stage's full barrier once its copies
+    // have landed.
+    const size_t hoff = (size_t)h * HD;
+    for (int i = lane; i < 3 * Rb * LP; i += 32) {
+      const int sl = i / LP, w = i % LP;
+      const T* src = sl < Rb ? q : sl < 2 * Rb ? kn : vn;
+      copy16(const_cast<T*>(word_at<T, HD>(cur, sl, w)),
+             src + (row0 + sl % Rb) * args.qs + hoff + w * V);
+    }
+    // the scales of the slots below n_gen (they land with stage 0)
+    if constexpr (kNarrowP) {
+      const size_t base = ((size_t)layer * N + n) * K;
+      for (int s = lane; s < K; s += 32) {
+        copy4(scl + s, args.pks + base + s);
+        copy4(scl + K + s, args.pvs + base + s);
+      }
+    }
+    if constexpr (kNarrowC) {
+      for (int i = lane; i < Rb * n_gen; i += 32) {
+        const size_t src = ((row0 + i / n_gen) * L + layer) * E + i % n_gen;
+        copy4(sgk + i, args.gks + src);
+        copy4(sgv + i, args.gvs + src);
+      }
     }
     for (int s = 0; s < nst; ++s) {
       const int b = s % nbuf, u = s / nbuf, c = chunk_of(s);
       const bool vside = s > nchunks;
       if (u > 0) bar_wait(empty + b, (u - 1) & 1);
-      T* buf = ring + (size_t)b * lay.srows * HD;
+      unsigned char* buf = ring + (size_t)b * lay.stage;
       if (c < 0) {
-        const size_t base = ((size_t)layer * N + n) * K * D + hoff;
-        for (int i = grp; i < K; i += ngrp)
-          copy16(dst(buf, i), (vside ? pv : pk) + base + (size_t)i * D);
+        copy_slices<P, T, HD>(
+            buf, 0, (vside ? pv : pk) + ((size_t)layer * N + n) * K * D + hoff,
+            D, K, lane);
       } else {
         const int g0 = c * tile;
         const int live = imin(g0 + tile, n_gen) - g0;  // cached slots
-        for (int r = 0; r < R; ++r) {
-          const T* src = (vside ? gv : gk) +
-                         (((size_t)(n * R + r) * L + layer) * E + g0) * D +
-                         hoff;
-          for (int i = grp; i < live; i += ngrp)
-            copy16(dst(buf, r * tile + i), src + (size_t)i * D);
-        }
+        for (int r = 0; r < Rb; ++r)
+          copy_slices<C, T, HD>(
+              buf, r * tile,
+              (vside ? gv : gk) +
+                  (((row0 + r) * L + layer) * E + g0) * D + hoff,
+              D, live, lane);
       }
       arrive_on_copies(full + b);
+    }
+    if (args.wk) {
+      // K15: head h's columns of the rows' k_new/v_new into slot n_gen,
+      // which no copy reads
+      for (int i = lane; i < 2 * Rb * LP; i += 32) {
+        const int sl = i / LP, w = i % LP;
+        const size_t r = row0 + sl % Rb, col = hoff + w * V;
+        T* dst = static_cast<T*>(sl < Rb ? args.wk : args.wv) +
+                 ((r * L + layer) * E + n_gen) * D + col;
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(
+            (sl < Rb ? kn : vn) + r * args.qs + col);
+      }
     }
     return;
   }
 
-  // The consumers: stage s as a part, its first score column col0.
-  auto part_of = [&](int s) {
-    const int c = chunk_of(s), cidx = s > nchunks ? 2 * R : R;
-    const T* buf = ring + (size_t)(s % nbuf) * lay.srows * HD;
-    if (c < 0) return Part<T>{buf, cur, cidx, 0, -1, K};
+  // The consumers: stage s as a part over the slices at `base`, its first
+  // score column col0.
+  auto part_of = [&](int s, const T* base) {
+    const int c = chunk_of(s), cidx = s > nchunks ? 2 * Rb : Rb;
+    if (c < 0)
+      return Part<T>{base, cur, cidx, 0, -1, K, kNarrowP ? scl : nullptr, 0};
     const int g0 = c * tile, cnt = imin(tile, G - g0);
-    return Part<T>{buf, cur, cidx, tile, n_gen - g0 < cnt ? n_gen - g0 : -1,
-                   cnt};
+    return Part<T>{base, cur, cidx, tile,
+                   n_gen - g0 < cnt ? n_gen - g0 : -1, cnt,
+                   kNarrowC ? sgk + g0 : nullptr, n_gen};
   };
   auto col_of = [&](int s) {
     const int c = chunk_of(s);
     return c < 0 ? 0 : K + c * tile;
   };
-  // wait for stage s; afterwards, release it to the producer
-  auto take = [&](int s) { bar_wait(full + s % nbuf, (s / nbuf) & 1); };
+  // release stage s to the producer
   auto give = [&](int s) {
     __syncwarp();
     if (lane == 0) bar_arrive(empty + s % nbuf);
+  };
+  // wait for stage s. An int8 stage is widened into `wide` by all the
+  // consumers and released at once; a stage of T is read where it landed
+  // and released (give) once consumed.
+  auto land = [&](int s) {
+    bar_wait(full + s % nbuf, (s / nbuf) & 1);
+    const unsigned char* buf = ring + (size_t)(s % nbuf) * lay.stage;
+    if (!narrow(s)) return part_of(s, reinterpret_cast<const T*>(buf));
+    const int c = chunk_of(s), g0 = imax(c, 0) * tile;
+    const int live = c < 0 ? K : imin(g0 + tile, n_gen) - g0;
+    const int rows = c < 0 ? 1 : Rb;
+    constexpr int W = HD / 16;  // 16-byte words of an int8 slice
+    consumers_sync(NCT);  // every warp is done with the last widened stage
+    for (int i = tid; i < rows * live * W; i += NCT) {
+      const int sl = i / W, r = sl / live;
+      const int idx = r * tile + sl % live;
+      widen_word<T, HD>(reinterpret_cast<const int8_t*>(buf) +
+                            (size_t)idx * HD + i % W * 16,
+                        wide, idx, i % W);
+    }
+    consumers_sync(NCT);
+    give(s);
+    return part_of(s, wide);
   };
 
   // bf16: units of 16 slots of one row (of all rows for the prefix) for
   // the rows 8 qt .. 8 qt + 7; the consumer warps take them in turn, the
   // turn carried from stage to stage in ub
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int nqt = (R + 7) / 8;            // query tiles (R <= 16)
+  const int nqt = (Rb + 7) / 8;           // query tiles (Rb <= 16)
   auto first_unit = [&](int units, int& ub) {
     const int first = ((warp - ub) % NC + NC) % NC;
     ub += units;
@@ -357,12 +561,12 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
   };
   // scores S^T = K Q^T of a part's units
   auto score_mma = [&](const Part<T>& p, int qt, int col0, int& ub) {
-    const int r0 = 8 * qt, nr = imin(8, R - r0), nm = (p.cnt + 15) / 16;
+    const int r0 = 8 * qt, nr = imin(8, Rb - r0), nm = (p.cnt + 15) / 16;
     const int units = p.stride == 0 ? nm : nr * nm;
     const int first = first_unit(units, ub);
     if (first >= units) return;
-    uint32_t qb[HD / 16][2];  // Q^T fragments; rows past R repeat row R-1
-    const int qrow = imin(r0 + g, R - 1);
+    uint32_t qb[HD / 16][2];  // Q^T fragments; rows past Rb repeat Rb-1
+    const int qrow = imin(r0 + g, Rb - 1);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
@@ -385,20 +589,20 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {  // (slot m0 + g (+8), row r0 + 2t (+1))
         const int s = m0 + g + (e >> 1) * 8, row = r0 + 2 * t + (e & 1);
-        if (s < p.cnt && row < R && (r < 0 || row == r))
-          sc[row * scw + col0 + s] = c[e] * scale;
+        if (s < p.cnt && row < Rb && (r < 0 || row == r))
+          sc[row * scw + col0 + s] = c[e] * p.kscale(row, s) * scale;
       }
     }
   };
   // values O^T += V^T P^T of a part's units (dims by rows)
   auto values_mma = [&](const Part<T>& p, int qt, int col0,
                         float (&o)[HD / 16][4], int& ub) {
-    const int r0 = 8 * qt, nr = imin(8, R - r0), nk = (p.cnt + 15) / 16;
+    const int r0 = 8 * qt, nr = imin(8, Rb - r0), nk = (p.cnt + 15) / 16;
     const int units = p.stride == 0 ? nk : nr * nk;
     for (int u = first_unit(units, ub); u < units; u += NC) {
       const int r = p.stride == 0 ? -1 : r0 + u / nk, k0 = (u % nk) * 16;
       const int row = r0 + g;  // this lane's column of P^T
-      const bool use = row < R && (r < 0 || row == r);
+      const bool use = row < Rb && (r < 0 || row == r);
       float pr[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // slots k0 + 2t, +1, +8, +9
@@ -426,9 +630,9 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
   const int sub = tid % LP, grp = tid / LP, ngrp = NCT / LP;
   auto score_fma = [&](const Part<T>& p, int col0) {
     const int nu = (p.cnt + LP - 1) / LP;  // units a row
-    for (int u0 = 0; u0 < R * nu; u0 += ngrp) {
+    for (int u0 = 0; u0 < Rb * nu; u0 += ngrp) {
       const int u = u0 + grp;
-      const bool live = u < R * nu;
+      const bool live = u < Rb * nu;
       const int r = live ? u / nu : 0, s0 = live ? (u % nu) * LP : 0;
       float qv[V];
       load_word(word_at<T, HD>(cur, r, sub), qv);
@@ -456,13 +660,13 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
         }
       }
       if (live && s0 + sub < p.cnt)
-        sc[r * scw + col0 + s0 + sub] = acc[0] * scale;
+        sc[r * scw + col0 + s0 + sub] = acc[0] * p.kscale(r, s0 + sub) * scale;
     }
   };
   // f32 values of a part into the sums of thread (row r, j, word col):
   // slots j, j + J, ..., two loads in flight.
   auto values_fma = [&](const Part<T>& p, int col0) {
-    for (int ow = tid; ow < R * J * LP; ow += NCT) {
+    for (int ow = tid; ow < Rb * J * LP; ow += NCT) {
       const int col = ow % LP, rj = ow / LP, j = rj % J, r = rj / J;
       float* acc = part + (size_t)rj * HD + col * V;
       const float* w = sc + r * scw + col0;
@@ -494,8 +698,7 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
   // Scores of every K stage as it lands.
   int ub = 0;
   for (int s = 0; s <= nchunks; ++s) {
-    take(s);
-    const Part<T> p = part_of(s);
+    const Part<T> p = land(s);
     if constexpr (kMma) {
 #pragma unroll
       for (int qt = 0; qt < 2; ++qt)
@@ -503,13 +706,14 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
     } else {
       score_fma(p, col_of(s));
     }
-    give(s);
+    if (!narrow(s)) give(s);
   }
   consumers_sync(NCT);
   // One softmax over all K + G scores of a row, a warp per row (the
-  // producer meanwhile fills the freed buffers with V stages).
+  // producer meanwhile fills the freed buffers with V stages). K9's V
+  // scales fold into the weights, not into the sum l.
   const int width = K + G;
-  for (int r = warp; r < R; r += NC) {
+  for (int r = warp; r < Rb; r += NC) {
     float* row = sc + r * scw;
     float m = -INFINITY;
     for (int s = lane; s < width; s += 32) m = fmaxf(m, row[s]);
@@ -517,7 +721,12 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
     float l = 0.f;
     for (int s = lane; s < width; s += 32) {
       const float e = expf(row[s] - m);
-      row[s] = e;
+      float w = e;
+      if constexpr (kNarrowP)
+        if (s < K) w *= scl[K + s];
+      if constexpr (kNarrowC)
+        if (s >= K && s - K < n_gen) w *= sgv[r * n_gen + s - K];
+      row[s] = w;
       l += e;
     }
     l = warp_sum(l);
@@ -528,8 +737,7 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
   float o[2][HD / 16][4] = {};  // bf16: O^T of the (at most two) query tiles
   ub = 0;
   for (int s = nchunks + 1; s < nst; ++s) {
-    take(s);
-    const Part<T> p = part_of(s);
+    const Part<T> p = land(s);
     if constexpr (kMma) {
 #pragma unroll
       for (int qt = 0; qt < 2; ++qt)
@@ -537,7 +745,7 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
     } else {
       values_fma(p, col_of(s));
     }
-    give(s);
+    if (!narrow(s)) give(s);
   }
   consumers_sync(NCT);
 
@@ -556,7 +764,7 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
       }
     consumers_sync(NCT);
   }
-  for (int i = tid; i < R * HD; i += NCT) {
+  for (int i = tid; i < Rb * HD; i += NCT) {
     const int r = i / HD, d = i % HD;
     float s = 0.f;
     if constexpr (kMma) {
@@ -565,71 +773,62 @@ async_attn(const T* __restrict__ q, const T* __restrict__ kn,
     } else {
       for (int j = 0; j < J; ++j) s += part[(r * J + j) * HD + d];
     }
-    out[(size_t)(n * R + r) * D + (size_t)h * HD + d] = s / den[r];
+    out[(row0 + r) * D + (size_t)h * HD + d] = s / den[r];
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kn, const void* vn, long qs,
-                   const void* pk, const void* pv, const void* gk,
-                   const void* gv, float* out, int N, int R, int L, int K,
-                   int E, int D, int layer, int n_gen, int tile, int nbuf,
-                   int threads, int smem, cudaStream_t stream) {
-  const Layout lay(R, K, HD, sizeof(T), tile, nbuf, threads, n_gen);
+
+template <typename T, typename C, typename P, int HD>
+cudaError_t launch(const Args& a, int threads, int smem, cudaStream_t stream) {
+  const Layout lay(imin(a.R, kRowGroup), a.K, HD, sizeof(T), sizeof(C),
+                   sizeof(P), a.tile, a.nbuf, threads, a.n_gen);
   if (lay.total != smem || threads % 32 || threads < 64 || threads > 128 ||
-      tile < 1 || nbuf < 2 || R > 16)
+      a.tile < 1 || a.nbuf < 2 || a.R < 1 || a.R > 2 * kRowGroup)
     return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        async_attn<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        async_attn<T, C, P, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(D / HD, N);
-  async_attn<T, HD><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kn),
-      static_cast<const T*>(vn), qs, static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const T*>(gk),
-      static_cast<const T*>(gv), out, N, R, L, K, E, D, layer, n_gen, tile,
-      nbuf, 1.f / sqrtf((float)HD));
+  dim3 grid(a.D / HD, a.N, (a.R + kRowGroup - 1) / kRowGroup);
+  async_attn<T, C, P, HD><<<grid, threads, smem, stream>>>(
+      a, 1.f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(const void* q, const void* kn, const void* vn, long qs,
-                      const void* pk, const void* pv, const void* gk,
-                      const void* gv, float* out, int N, int R, int L, int K,
-                      int E, int D, int hd, int layer, int n_gen, int tile,
-                      int nbuf, int threads, int smem, cudaStream_t stream) {
+template <typename T, typename C, typename P>
+cudaError_t launch_hd(const Args& a, int hd, int threads, int smem,
+                      cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E,
-                           D, layer, n_gen, tile, nbuf, threads, smem, stream);
+      return launch<T, C, P, 32>(a, threads, smem, stream);
     case 64:
-      return launch<T, 64>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E,
-                           D, layer, n_gen, tile, nbuf, threads, smem, stream);
+      return launch<T, C, P, 64>(a, threads, smem, stream);
     case 128:
-      return launch<T, 128>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K,
-                            E, D, layer, n_gen, tile, nbuf, threads, smem,
-                            stream);
+      return launch<T, C, P, 128>(a, threads, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-int run(const void* q, const void* kn, const void* vn, long qs,
-        const void* pk, const void* pv, const void* gk, const void* gv,
-        float* out, int N, int R, int L, int K, int E, int D, int hd,
-        int layer, int n_gen, int tile, int nbuf, int threads, int smem,
+// The instances a caller reaches: (T, T, T) for K2, K8 and K15; (T, int8,
+// T) and (T, int8, int8) for K9 (an int8 prefix comes with its scales).
+template <typename T>
+cudaError_t launch_kind(const Args& a, bool int8_cache, int hd, int threads,
+                        int smem, cudaStream_t stream) {
+  if (!int8_cache) return launch_hd<T, T, T>(a, hd, threads, smem, stream);
+  return a.pks ? launch_hd<T, int8_t, int8_t>(a, hd, threads, smem, stream)
+               : launch_hd<T, int8_t, T>(a, hd, threads, smem, stream);
+}
+
+int run(const Args& a, bool int8_cache, int hd, int threads, int smem,
         int dtype, cudaStream_t stream) {
-  cudaError_t err =
+  return static_cast<int>(
       dtype == kBF16
-          ? launch_hd<__nv_bfloat16>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R,
-                                     L, K, E, D, hd, layer, n_gen, tile, nbuf,
-                                     threads, smem, stream)
-          : launch_hd<float>(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K,
-                             E, D, hd, layer, n_gen, tile, nbuf, threads,
-                             smem, stream);
-  return static_cast<int>(err);
+          ? launch_kind<__nv_bfloat16>(a, int8_cache, hd, threads, smem,
+                                       stream)
+          : launch_kind<float>(a, int8_cache, hd, threads, smem, stream));
 }
 
 }  // namespace
@@ -641,8 +840,12 @@ extern "C" int capdec_beam_decode_attention_rowmajor(
     const void* pv, const void* gk, const void* gv, float* out, int N, int R,
     int L, int K, int E, int D, int hd, int layer, int n_gen, int tile,
     int nbuf, int threads, int smem, int dtype, cudaStream_t stream) {
-  return capdec::run(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E, D, hd,
-                     layer, n_gen, tile, nbuf, threads, smem, dtype, stream);
+  const capdec::Args a{q,  kn,      vn,      qs,      pk,      pv,
+                       nullptr, nullptr, gk, gv,     nullptr, nullptr,
+                       nullptr, nullptr, out, N,    R,       L,
+                       K,  E,       D,       layer,   n_gen,   tile,
+                       nbuf};
+  return capdec::run(a, false, hd, threads, smem, dtype, stream);
 }
 
 // K8: n_gen = step (the TPU's `chunk` tiles are the wrapper's to check).
@@ -651,6 +854,40 @@ extern "C" int capdec_beam_decode_attention_chunked(
     const void* pv, const void* gk, const void* gv, float* out, int N, int R,
     int L, int K, int E, int D, int hd, int layer, int n_gen, int tile,
     int nbuf, int threads, int smem, int dtype, cudaStream_t stream) {
-  return capdec::run(q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E, D, hd,
-                     layer, n_gen, tile, nbuf, threads, smem, dtype, stream);
+  return capdec_beam_decode_attention_rowmajor(
+      q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E, D, hd, layer, n_gen,
+      tile, nbuf, threads, smem, dtype, stream);
+}
+
+// K9: n_gen = step over int8 levels gk/gv with scales gks/gvs; with
+// pks/pvs (non-null) the prefix pk/pv is int8 levels too.
+extern "C" int capdec_beam_decode_attention_chunked_q(
+    const void* q, const void* kn, const void* vn, long qs, const void* pk,
+    const void* pv, const float* pks, const float* pvs, const void* gk,
+    const void* gv, const float* gks, const float* gvs, float* out, int N,
+    int R, int L, int K, int E, int D, int hd, int layer, int n_gen,
+    int tile, int nbuf, int threads, int smem, int dtype,
+    cudaStream_t stream) {
+  if ((pks == nullptr) != (pvs == nullptr) || !gks || !gvs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const capdec::Args a{q,  kn,  vn,  qs,      pk,      pv,    pks,
+                       pvs, gk, gv,  gks,     gvs,     nullptr, nullptr,
+                       out, N,  R,   L,       K,       E,     D,
+                       layer, n_gen, tile,    nbuf};
+  return capdec::run(a, true, hd, threads, smem, dtype, stream);
+}
+
+// K15: one layer's caches gk/gv [B, E, D] (the wrapper passes L = 1,
+// layer 0 and n_gen = step); slot `step` of them receives k_new/v_new.
+extern "C" int capdec_beam_decode_attention(
+    const void* q, const void* kn, const void* vn, long qs, const void* pk,
+    const void* pv, void* gk, void* gv, float* out, int N, int R, int L,
+    int K, int E, int D, int hd, int layer, int n_gen, int tile, int nbuf,
+    int threads, int smem, int dtype, cudaStream_t stream) {
+  const capdec::Args a{q,  kn,      vn,      qs,   pk,      pv,
+                       nullptr, nullptr, gk, gv,  nullptr, nullptr,
+                       gk, gv,      out,     N,    R,       L,
+                       K,  E,       D,       layer, n_gen,  tile,
+                       nbuf};
+  return capdec::run(a, false, hd, threads, smem, dtype, stream);
 }

@@ -46,10 +46,10 @@ SIGNATURES = {
     "capdec_beam_decode_attention_chunked":
         [P, P, P, L, *[P] * 5, *[I] * 14, P],
     "capdec_beam_decode_attention_chunked_q":
-        [P, P, P, L, *[P] * 9, *[I] * 11, P],
+        [P, P, P, L, *[P] * 9, *[I] * 14, P],
     "capdec_write_gen_slot_seqmajor": [P, P, P, P, I, I, I, I, L, P],
     "capdec_gather_rows": [P, P, P, P, P, I, I, I, L, L, P],
-    "capdec_beam_decode_attention": [P, P, P, L, *[P] * 5, *[I] * 8, P],
+    "capdec_beam_decode_attention": [P, P, P, L, *[P] * 5, *[I] * 14, P],
 }
 
 build_seconds = 0.0  # wall time of the build this process ran (0: cached)

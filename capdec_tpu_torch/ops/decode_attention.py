@@ -8,20 +8,20 @@ n = b // R) and each head, a softmax over the image's shared prefix
 slots, the row's generated slots below `step` (read only up to `e_cap`)
 and the current token, then the weighted sum of V: f32 [B, D]. K6 reads
 an int8 generated cache with per-(row, layer, slot) f32 scales. K8 and K9
-(the slot-bounded "v3" kernels) read the generated cache in `chunk`-slot
-tiles below `step`, with an online softmax; K9 reads an int8 generated
-cache and, optionally, an int8 prefix cache with per-slot scales. K15
-(the v1 kernel, which no path of the JAX package calls) attends over one
-layer's caches [B, E, D] and also writes the step's K/V into slot `step`,
-in place.
+(the slot-bounded "v3" kernels) read the generated cache below `step`
+only (the TPU kernels' `chunk` tiles are checked, not used); K9 reads an
+int8 generated cache and, optionally, an int8 prefix cache with per-slot
+scales. K15 (the v1 kernel, which no path of the JAX package calls)
+attends over one layer's caches [B, E, D] and also writes the step's K/V
+into slot `step`, in place.
 
 On a CUDA tensor a wrapper launches csrc/decode_attention_async.cu (K2,
-K8: one kernel fed by asynchronous copies, launched with the plan of
-`attention_plan`), csrc/decode_attention.cu (K6, K15) or
-csrc/decode_attention_chunked.cu (K9); each note says what bounds the
-kernel on the H100 and how the design answers. On a CPU tensor it runs
-its plain version, the un-fused attention math of the JAX reference's
-decode_step (gpt2.py:612-664).
+K8, K9, K15: one kernel fed by asynchronous copies, launched with the plan
+of `attention_plan`; K9 and K15 are its int8 and slot-write policies) or
+csrc/decode_attention.cu (K6); each note says what bounds the kernel on
+the H100 and how the design answers. On a CPU tensor it runs its plain
+version, the un-fused attention math of the JAX reference's decode_step
+(gpt2.py:612-664).
 
 Generated slots at or above `step` may hold stale or NaN bits after a
 bounded fork copy: the kernel never reads them, and the plain version
@@ -149,9 +149,10 @@ def _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
     return min(step, cap)
 
 
-# The launch plan of csrc/decode_attention_async.cu (K2, K8).
+# The launch plan of csrc/decode_attention_async.cu (K2, K8, K9, K15).
 ATTN_THREADS = 128  # a block: three consumer warps and a producer warp
 ATTN_STAGES = 2     # stages in a block's ring
+ATTN_ROW_GROUP = 16  # rows a block serves (two tensor-core row tiles)
 # shared memory a block: 37 KB keeps six blocks on an SM (228 KB, 1 KB of
 # it reserved a block), so the served call's 768 blocks are resident in one
 # wave on the H100's 132 SMs; then two, then one block an SM
@@ -163,74 +164,98 @@ def _up16(x: int) -> int:
     return (x + 15) & ~15
 
 
-def _attention_smem(R, K, hd, itemsize, tile, nbuf, threads, n_gen) -> int:
+def _attention_smem(R, K, hd, itemsize, tile, nbuf, threads, n_gen,
+                    cache_size=None, prefix_size=None) -> int:
     """Bytes of shared memory a block uses: the `Layout` total of
     csrc/decode_attention_async.cu, which refuses a launch whose plan
-    disagrees."""
+    disagrees. `itemsize` is q's; `cache_size` and `prefix_size` the
+    generated cache's and the prefix's (q's, or 1 for int8 levels)."""
+    csize, psize = cache_size or itemsize, prefix_size or itemsize
+    R = min(R, ATTN_ROW_GROUP)  # the rows of one block
     rowb = hd * itemsize
     consumers = threads // 32 - 1
     ring = _up16(16 * nbuf)  # the full and empty mbarriers
-    cur = ring + nbuf * max(K, R * tile) * rowb
+    stage = _up16(max(K * hd * psize, R * tile * hd * csize))
+    # an int8 stage widened to q's type
+    wide = max(K if psize < itemsize else 0,
+               R * tile if csize < itemsize else 0) * rowb
+    cur = ring + nbuf * stage + wide
     if itemsize == 2:  # bf16: the consumer warps' value sums, over the ring
         cur = max(cur, ring + consumers * -(-R // 8) * 8 * hd * 4)
         sums = 0
     else:  # f32: J threads' sums per (row, 16-byte word)
         sums = R * max(1, consumers * 32 // (R * (rowb // 16))) * hd * 4
     scw = K + (n_gen + tile) // tile * tile
-    return (cur + 3 * R * rowb + _up16(R * scw * 4) + sums + _up16(R * 4))
+    scales = (2 * K if psize == 1 else 0) + (2 * R * n_gen if csize == 1
+                                             else 0)
+    return (cur + 3 * R * rowb + _up16(R * scw * 4) + _up16(scales * 4)
+            + sums + _up16(R * 4))
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=512)
 def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
-                   itemsize: int) -> dict:
-    """The launch of the K2/K8 kernel for one call: a block of `threads`
-    per (head, image) on a grid of (D // hd, N), each block serving the
-    image's R rows. The block streams 2 * (1 + nchunks) stages through a
+                   itemsize: int, cache_size: Optional[int] = None,
+                   prefix_size: Optional[int] = None) -> dict:
+    """The launch of the K2/K8/K9/K15 kernel for one call: a block of
+    `threads` per (head, image, group of at most ATTN_ROW_GROUP rows) on a
+    grid of (D // hd, N, ceil(R / ATTN_ROW_GROUP)), each block serving its
+    group's rows. The block streams 2 * (1 + nchunks) stages through a
     ring of `nbuf` (ATTN_STAGES) buffers in `smem` bytes: the prefix K,
     the K of `nchunks` chunks of `tile` generated slots (the current token
-    in the last) of all R rows, then the same for V. A chunk holds about
-    twice the prefix's slices (tile = 2 ceil(K / R); on the H100 this beat
-    chunks of one prefix and rings of three to eight stages, and tied
-    with three prefixes: scripts/torch_attn_sweep.py), shrunk until the
-    ring fits the first budget of ATTN_SMEM_BUDGETS that can hold it.
-    Raises if nothing fits a block."""
+    in the last) of the group's rows, then the same for V. A chunk holds
+    about twice the prefix's slices (tile = 2 ceil(K / rows);
+    on the H100 this beat chunks of one prefix and rings of three to eight
+    stages, and tied with three prefixes: scripts/torch_attn_sweep.py), so
+    a chunk of int8 levels (`cache_size` 1: K9) starts at twice the slots;
+    the tile shrinks until the block fits the first budget of
+    ATTN_SMEM_BUDGETS that can hold it. Raises if nothing fits a block."""
     G = n_gen + 1
+    csize = cache_size or itemsize
+    rows = min(R, ATTN_ROW_GROUP)
+    start = 2 * -(-K // rows) * (2 if csize == 1 else 1)
     for budget in ATTN_SMEM_BUDGETS:
-        for tile in range(max(1, min(G, 2 * -(-K // R))), 0, -1):
+        for tile in range(max(1, min(G, start)), 0, -1):
             smem = _attention_smem(R, K, hd, itemsize, tile, ATTN_STAGES,
-                                   ATTN_THREADS, n_gen)
+                                   ATTN_THREADS, n_gen, cache_size,
+                                   prefix_size)
             if smem <= budget:
-                return dict(grid=(D // hd, N), threads=ATTN_THREADS,
-                            tile=tile, nbuf=ATTN_STAGES,
-                            nchunks=-(-G // tile), smem=smem)
+                return dict(grid=(D // hd, N, -(-R // ATTN_ROW_GROUP)),
+                            threads=ATTN_THREADS, tile=tile,
+                            nbuf=ATTN_STAGES, nchunks=-(-G // tile),
+                            smem=smem)
     raise ValueError(f"decode attention: R={R}, K={K}, head_dim={hd} in "
                      f"{itemsize}-byte values does not fit one block's "
                      f"{SMEM_MAX} bytes of shared memory")
 
 
 def _attend_async(entry: str, q, k_new, v_new, pk, pv, gk, gv, layer, R,
-                  hd, n_gen) -> torch.Tensor:
+                  hd, n_gen, scales=None) -> torch.Tensor:
     """One launch of csrc/decode_attention_async.cu through C entry
     `entry`: every head slice, q/k_new/v_new's included, travels in
-    16-byte copies."""
+    16-byte copies. `scales`: K9's (pks, pvs, gks, gvs), pks/pvs None for
+    a prefix of q's type; the C entry then takes them after pk/pv and
+    gk/gv."""
     if hd not in (32, 64, 128) or \
             any(t.data_ptr() % 16 for t in (q, k_new, v_new, pk, pv, gk, gv)) \
             or q.stride(0) * q.element_size() % 16:
-        raise ValueError("K2/K8 copy head slices in 16-byte words: head_dim "
-                         "in {32, 64, 128}, 16-byte-aligned q/k_new/v_new "
-                         "rows and caches")
-    if R > 16:
-        raise ValueError(f"K2/K8 take 1..16 beams per image, got {R}")
+        raise ValueError("decode attention copies head slices in 16-byte "
+                         "words: head_dim in {32, 64, 128}, 16-byte-aligned "
+                         "q/k_new/v_new rows and caches")
     B, D = q.shape
     L, N, K, _ = pk.shape
-    plan = attention_plan(N, R, K, D, hd, n_gen, q.element_size())
+    plan = attention_plan(N, R, K, D, hd, n_gen, q.element_size(),
+                          gk.element_size(), pk.element_size())
     out = torch.empty(B, D, device=q.device, dtype=torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    pks, pvs, gks, gvs = [ptr(t) for t in scales] if scales else [None] * 4
+    prefix = (pk.data_ptr(), pv.data_ptr(),
+              *((pks, pvs) if scales else ()))
+    cache = (gk.data_ptr(), gv.data_ptr(), *((gks, gvs) if scales else ()))
     _build.check(getattr(_build.library(), entry)(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
-        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-        out.data_ptr(), N, R, L, K, gk.shape[2], D, hd, layer, n_gen,
-        plan["tile"], plan["nbuf"], plan["threads"], plan["smem"],
-        _build.dtype_code(q), _build.stream(q.device)), entry)
+        *prefix, *cache, out.data_ptr(), N, R, L, K, gk.shape[2], D, hd,
+        layer, n_gen, plan["tile"], plan["nbuf"], plan["threads"],
+        plan["smem"], _build.dtype_code(q), _build.stream(q.device)), entry)
     return out
 
 
@@ -446,17 +471,9 @@ def beam_decode_attention_chunked_q(
         if s.shape != (L, N, 1, K) or s.dtype != torch.float32 or \
                 s.device != q.device or not s.is_contiguous():
             raise ValueError("pks/pvs must be contiguous f32 [L, N, 1, K]")
-    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.capdec_beam_decode_attention_chunked_q(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
-        pk.data_ptr(), pv.data_ptr(),
-        pks.data_ptr() if int8_prefix else None,
-        pvs.data_ptr() if int8_prefix else None,
-        gk.data_ptr(), gv.data_ptr(), gks.data_ptr(), gvs.data_ptr(),
-        out.data_ptr(), N, R, L, K, E, D, hd, layer, n_gen, chunk,
-        _build.dtype_code(q), _build.stream(q.device)),
-        "beam_decode_attention_chunked_q")
+    out = _attend_async("capdec_beam_decode_attention_chunked_q", q, k_new,
+                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen,
+                        scales=(pks, pvs, gks, gvs))
     beam_decode_attention_chunked_q.launches += 1
     return out
 
@@ -514,16 +531,10 @@ def beam_decode_attention(
             if a0 < b1 and b0 < a1:
                 raise ValueError("K15 writes gk/gv in place: they must not "
                                  "overlap each other or the other inputs")
-    B, D = q.shape
-    N, K, _ = pk.shape
-    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.capdec_beam_decode_attention(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
-        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-        out.data_ptr(), N, R, K, gk.shape[1], D, hd, n_gen,
-        _build.dtype_code(q), _build.stream(q.device)),
-        "beam_decode_attention")
+    # one layer: the caches [B, E, D] are the row-major [B, 1, E, D]
+    out = _attend_async("capdec_beam_decode_attention", q, k_new, v_new,
+                        pk[None], pv[None], gk[:, None], gv[:, None], 0, R,
+                        hd, n_gen)
     beam_decode_attention.launches += 1
     return out, gk, gv
 

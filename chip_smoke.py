@@ -15,10 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (the least time the card could take). The slot writes K3, K5, K13
      and K14 are timed over inputs and slots rotated through more than
      twice the L2, so that they read device memory as their bound
-     assumes; K2 and K8 (one kernel, decode_attention_async.cu, which
-     must build without spills) and their SDPA yardstick at steps 1, 33
-     and 66, on one layer and rotated over the layers (SDPA over key
-     sets).
+     assumes; K2, K8, K9 and K15 (one kernel, decode_attention_async.cu,
+     whose 18 instances must build without spills) and their SDPA
+     yardstick at steps 1, 33 and 66, on one layer and rotated over the
+     layers or cache sets (SDPA over key sets); K9 at R = 5 with both
+     prefix kinds and at R = 1 with the int8 prefix.
   3. The served paths: a CaptionServer on full-width weights made from a
      seed (GPT-2 124M + the 8-layer TransformerMapper, prefix 640 -> 40,
      bf16, batch 64, entry_length 67) serves 128 requests on each path;
@@ -172,53 +173,83 @@ def slot_write_times(gen, kernel, plain, k, v, shape):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def sdpa_ms(q, keys, vals, H, more=()) -> float:
+def sdpa_ms(q, keys, vals, H, more=(), after=None) -> float:
     """Time of scaled_dot_product_attention of rows q [B, D] over keys and
     values [B, S, D] concatenated beforehand: the attention kernels'
     library yardstick. With `more` (further (keys, vals) pairs of the same
-    shape) call i reads pair i mod the count."""
+    shape) call i reads pair i mod the count; `after(i)` (K15's slot
+    write) runs after call i."""
     B, S, D = keys.shape
     heads = lambda t, s: t.reshape(B, s, H, D // H).transpose(1, 2)
     sq = heads(q.contiguous(), 1)
     sets = [(heads(k, S), heads(v, S)) for k, v in ((keys, vals), *more)]
-    return time_ms(rotating(
-        lambda i: torch.nn.functional.scaled_dot_product_attention(
-            sq, *sets[i % len(sets)]), len(sets)))
+
+    def call(i):
+        torch.nn.functional.scaled_dot_product_attention(
+            sq, *sets[i % len(sets)])
+        if after is not None:
+            after(i % len(sets))
+    return time_ms(rotating(call, len(sets)))
 
 
-# Steps at which the bf16 attention kernels K2 and K8 are timed: the
-# slope over them is the time per generated slot, the intercept the
+# Steps at which the bf16 attention kernels K2, K8, K9 and K15 are timed:
+# the slope over them is the time per generated slot, the intercept the
 # prefix and the fixed cost.
 ATTN_STEPS = (1, 33, MAIN["entry_length"] - 1)
 
 
-def attention_step_times(call, q, kn, vn, pk, pv, gk, gv, R, H) -> dict:
-    """K2's or K8's bf16 times at each of ATTN_STEPS beside SDPA's and the
-    bound. `call(step, layer)` runs the kernel. `ms` repeats one layer
-    (part of its 50-75 MB stays in the L2); `rotated_ms` walks the layers
-    i mod L, and `library_rotated_ms` SDPA over at least two key sets of
-    other layers (each pass over more than twice the L2), so that both
-    read device memory as the bound assumes."""
+def attention_step_times(call, q, kn, vn, pk, pv, gk, gv, R, H,
+                         scales=None, write=None) -> dict:
+    """An attention kernel's bf16 times at each of ATTN_STEPS beside
+    SDPA's and the bound. `call(step, layer)` runs the kernel. `ms`
+    repeats one layer (part of its 50-75 MB stays in the L2); `rotated_ms`
+    walks the layers i mod L, and `library_rotated_ms` SDPA over at least
+    two key sets of other layers (each pass over more than twice the L2),
+    so that both read device memory as the bound assumes. `scales`
+    (pks, pvs, gks, gvs; pks/pvs None for a prefix of q's type): K9's int8
+    levels, which the bound counts at a byte each with their f32 scales
+    and SDPA reads dequantised beforehand. `write(step, layer)`: K15's
+    slot write, which the bound counts (k_new/v_new read and written) and
+    which follows each SDPA call as `index_copy_`."""
     L, N, K, D = pk.shape
     B, layer = q.shape[0], L // 2
+    pks, pvs, gks, gvs = scales or (None,) * 4
     out = {}
     for step in ATTN_STEPS:
         S = K + step + 1
 
         def joined(l):
-            return tuple(torch.cat([p[l].repeat_interleave(R, 0),
-                                    g[:, l, :step], n[:, None]], 1)
-                         for p, g, n in ((pk, gk, kn), (pv, gv, vn)))
+            def deq(x, sc):  # levels times their scales, in q's type
+                return x if sc is None else (x.float() * sc[..., None]).to(
+                    q.dtype)
+            return tuple(torch.cat([
+                deq(p[l], None if ps is None else ps[l, :, 0]
+                    ).repeat_interleave(R, 0),
+                deq(g[:, l, :step], None if gs is None else
+                    gs[:, l, 0, :step]), n[:, None]], 1)
+                for p, ps, g, gs, n in ((pk, pks, gk, gks, kn),
+                                        (pv, pvs, gv, gvs, vn)))
 
         n_sets = max(2, -(-L2_FLUSH_BYTES // (2 * B * S * D * 2)))
         sets = [joined((layer + i) % L) for i in range(n_sets)]
-        nbytes = (3 * B * D + 2 * N * K * D + 2 * B * step * D) * 2 + B * D * 4
+        nbytes = (3 * B * D * q.element_size()
+                  + 2 * N * K * D * pk.element_size()
+                  + 2 * B * step * D * gk.element_size() + B * D * 4)
+        if pks is not None:
+            nbytes += 2 * N * K * 4
+        if gks is not None:
+            nbytes += 2 * B * step * 4
+        if write is not None:
+            nbytes += 2 * B * D * q.element_size()
         b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * S, torch.bfloat16)
+        after = None if write is None else (
+            lambda i: write(step, (layer + i) % L))
         out[step] = dict(
             ms=time_ms(lambda: call(step, layer)),
             rotated_ms=time_ms(rotating(lambda i: call(step, i), L)),
-            library_ms=sdpa_ms(q, *sets[0], H),
-            library_rotated_ms=sdpa_ms(q, *sets[0], H, more=sets[1:]),
+            library_ms=sdpa_ms(q, *sets[0], H, after=after),
+            library_rotated_ms=sdpa_ms(q, *sets[0], H, more=sets[1:],
+                                       after=after),
             bound_ms=b_ms, bound_by=b_by)
         del sets
     return out
@@ -243,6 +274,17 @@ def ptxas_report(log_text: str) -> dict:
         if m and name:
             report[name]["registers"] = int(m.group(1))
     return report
+
+
+def async_attn_instance(mangled: str) -> str:
+    """'bf16 cache int8 prefix int8 hd64' for the mangled name of
+    async_attn<T, C, P, HD> (int8_t mangles as 'a'; a repeated T as a
+    substitution)."""
+    m = re.search(r"async_attnI(13__nv_bfloat16|f)(.*?)Li(\d+)E", mangled)
+    t = "bf16" if m.group(1) != "f" else "f32"
+    cache = "int8" if m.group(2).startswith("a") else t
+    prefix = "int8" if m.group(2) == "aa" else t
+    return f"{t} cache {cache} prefix {prefix} hd{m.group(3)}"
 
 
 # ---------------------------------------------------------------------------
@@ -668,11 +710,12 @@ def check_chunked_attention(gen):
 
 def check_chunked_int8_attention(gen):
     """K9 against its plain version over random int8 levels with NaN
-    scales at the slots it must not read: bf16 and f32, with and without
-    the int8 prefix, R = 5 and R = 1, steps 1, 17 and 66. Timed at step
-    66, R = 5, for both prefix kinds; the kernel entry reports the int8
-    prefix (the served paths' kind) and the bf16 prefix's numbers beside
-    it."""
+    scales at the slots it must not read (at and above the step, and the
+    next layer's slot 0): bf16 and f32, with and without the int8 prefix,
+    R = 5 and R = 1, steps 1, 17 and 66. Timed at ATTN_STEPS for R = 5
+    with both prefix kinds and for R = 1 with the int8 prefix (path (e));
+    the kernel entry reports R = 5 with the int8 prefix (path (b)), the
+    others beside it."""
     from capdec_tpu_torch.ops import decode_attention as da
     N, R, L, K, E, D, H = (MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
                                              "H"))
@@ -701,8 +744,9 @@ def check_chunked_int8_attention(gen):
                     pre = {}
                 for step in (1, 17, MAIN["entry_length"] - 1):
                     gks, gvs = gks0.clone(), gvs0.clone()
-                    gks[..., step:] = float("nan")  # never read
-                    gvs[..., step:] = float("nan")
+                    for sc in (gks, gvs):
+                        sc[..., step:] = float("nan")  # never read
+                        sc[:, layer + 1, 0, 0] = float("nan")
                     args = (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, layer)
                     kw = dict(beams_per_image=r, head_dim=hd, chunk=8, **pre)
                     out = da.beam_decode_attention_chunked_q(*args, **kw)
@@ -716,51 +760,41 @@ def check_chunked_int8_attention(gen):
                     require(torch.allclose(out, ref, atol=tol, rtol=tol),
                             f"{what}: max abs err {max_err(out, ref)}")
                     err = max(err, max_err(out, ref))
-                if dtype == torch.bfloat16 and r == R:
-                    timed[int8_prefix] = (args, kw)
+                if dtype == torch.bfloat16 and (r == R or int8_prefix):
+                    # timed over every layer: the next layer's slot 0
+                    # gets its scale back
+                    gks[:, layer + 1, 0, 0] = gks0[:, layer + 1, 0, 0]
+                    gvs[:, layer + 1, 0, 0] = gvs0[:, layer + 1, 0, 0]
+                    timed[r, int8_prefix] = (args, kw)
         errs[dtype] = err
-    B, step = N * R, MAIN["entry_length"] - 1
+    step = MAIN["entry_length"] - 1
     res = {}
-    for int8_prefix, (args, kw) in timed.items():
+    for (r, int8_prefix), (args, kw) in timed.items():
         q, kn, vn, pk, pv, gk, gv, gks, gvs = args[:9]
-        deq = lambda g, sc: (g[:, layer, :step].float()
-                             * sc[:, layer, 0, :step, None]).to(q.dtype)
-        if int8_prefix:
-            pdeq = lambda p, sc: (p[layer].float()
-                                  * sc[layer, :, 0, :, None]).to(q.dtype)
-            pkd, pvd = pdeq(pk, kw["pks"]), pdeq(pv, kw["pvs"])
-        else:
-            pkd, pvd = pk[layer], pv[layer]
-        keys = torch.cat([pkd.repeat_interleave(R, 0), deq(gk, gks),
-                          kn[:, None]], 1)
-        vals = torch.cat([pvd.repeat_interleave(R, 0), deq(gv, gvs),
-                          vn[:, None]], 1)
-        prefix_bytes = (2 * N * K * D + 2 * N * K * 4 if int8_prefix
-                        else 2 * N * K * D * 2)
-        nbytes = (3 * B * D * 2 + prefix_bytes + 2 * B * step * D
-                  + 2 * B * step * 4 + B * D * 4)
-        b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * (K + step + 1),
-                              torch.bfloat16)
-        res[int8_prefix] = dict(
-            ms=time_ms(lambda: da.beam_decode_attention_chunked_q(*args,
-                                                                  **kw)),
-            plain_ms=time_ms(
-                lambda: da.beam_decode_attention_chunked_q_plain(*args,
-                                                                 **kw)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=sdpa_ms(q, keys, vals, H))
+        steps = attention_step_times(
+            lambda s, l: da.beam_decode_attention_chunked_q(
+                q, kn, vn, pk, pv, gk, gv, gks, gvs, s, l, **kw),
+            q, kn, vn, pk, pv, gk, gv, r, H,
+            scales=(kw.get("pks"), kw.get("pvs"), gks, gvs))
+        res[r, int8_prefix] = dict(
+            **{k: steps[step][k] for k in ("ms", "rotated_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "library_rotated_ms")},
+            plain_ms=time_ms(lambda: da.beam_decode_attention_chunked_q_plain(
+                q, kn, vn, pk, pv, gk, gv, gks, gvs, step, layer, **kw)),
+            steps=steps)
     return dict(
         name="beam_decode_attention_chunked_q", route="cuda",
-        source="capdec_tpu_torch/csrc/decode_attention_chunked.cu",
+        source="capdec_tpu_torch/csrc/decode_attention_async.cu",
         replaces="capdec_tpu/ops/decode_attention.py:569",
         max_abs_err=errs[torch.bfloat16],
-        max_abs_err_f32=errs[torch.float32], **res[True],
-        bf16_prefix={k: res[False][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "library_ms")},
+        max_abs_err_f32=errs[torch.float32], **res[R, True],
+        bf16_prefix=res[R, False], greedy_r1=res[1, True],
         library_note="scaled_dot_product_attention on keys and values "
                      "dequantised and concatenated beforehand",
         shape=f"N={N} R={R} K={K} step={step} E={E} chunk=8 D={D} bf16 q, "
-              "int8 cache and int8 prefix (bf16_prefix: a bf16 prefix)")
+              "int8 cache and int8 prefix (bf16_prefix: a bf16 prefix; "
+              "greedy_r1: R=1, int8 prefix)")
 
 
 def check_seqmajor_write(gen):
@@ -958,11 +992,10 @@ def check_single_slot_write(gen):
 def check_v1_attention(gen):
     """K15 against its plain version at the main path's per-layer shapes
     (N=64 images x R=5, K=40, E=72, D=768, 12 heads x 64), bf16 and f32,
-    steps 0, 66 and 71: the output within K2's tolerances, slot `step`
-    of the caches equal to k_new/v_new bit for bit, every other slot's
-    bits untouched, NaN in the slots above `step` never read. Timed at
-    step 66 in bf16; the library yardstick is SDPA on keys concatenated
-    beforehand plus `index_copy_` of the slot."""
+    steps 0, 1, 17, 66 and 71: the output within K2's tolerances, slot
+    `step` of the caches equal to k_new/v_new bit for bit, every other
+    slot's bits untouched, NaN in the slots above `step` never read. Timed
+    in bf16 at ATTN_STEPS, on one cache set and rotated over L sets."""
     from capdec_tpu_torch.ops import decode_attention as da
     N, R, K, E, D, H = (MAIN[k] for k in ("N", "R", "K", "E", "D", "H"))
     B, hd = N * R, D // H
@@ -976,7 +1009,7 @@ def check_v1_attention(gen):
         pk, pv, gk0, gv0 = rand(N, K, D), rand(N, K, D), rand(B, E, D), \
             rand(B, E, D)
         err = 0.0
-        for step in (0, MAIN["entry_length"] - 1, E - 1):
+        for step in (0, 1, 17, MAIN["entry_length"] - 1, E - 1):
             k0, v0 = gk0.clone(), gv0.clone()
             k0[:, step + 1:] = float("nan")  # never read, never written
             v0[:, step + 1:] = float("nan")
@@ -1002,44 +1035,46 @@ def check_v1_attention(gen):
             err = max(err, max_err(out, ref))
         errs[dtype] = err
         if dtype == torch.bfloat16:
-            timed = (q, kn, vn, pk, pv, gk0, gv0)
-    q, kn, vn, pk, pv, gk, gv = timed
+            timed = (q, kn, vn)
+    # timed at ATTN_STEPS over L cache sets [L][B, E, D] (rotated: one set
+    # a call, as K2 walks the layers); the library yardstick is SDPA on
+    # keys concatenated beforehand plus `index_copy_` of the slot
+    q, kn, vn = timed[:3]
+    L = MAIN["L"]
+    rand = lambda *s: torch.randn(*s, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    pk, pv, gk, gv = rand(L, N, K, D), rand(L, N, K, D), rand(L, B, E, D), \
+        rand(L, B, E, D)
+    slot = [torch.tensor([s], device=DEVICE) for s in range(E)]
+
+    def write(step, l):
+        gk[l].index_copy_(1, slot[step], kn[:, None])
+        gv[l].index_copy_(1, slot[step], vn[:, None])
+
+    steps = attention_step_times(
+        lambda s, l: da.beam_decode_attention(q, kn, vn, pk[l], pv[l], gk[l],
+                                              gv[l], s, **kw),
+        q, kn, vn, pk, pv, gk.transpose(0, 1), gv.transpose(0, 1), R, H,
+        write=write)
     step = MAIN["entry_length"] - 1
-    args = (q, kn, vn, pk, pv, gk, gv, step)
-    keys = torch.cat([pk.repeat_interleave(R, 0), gk[:, :step],
-                      kn[:, None]], 1)
-    vals = torch.cat([pv.repeat_interleave(R, 0), gv[:, :step],
-                      vn[:, None]], 1)
-    heads = lambda t, s: t.reshape(B, s, H, hd).transpose(1, 2)
-    sq, sk, sv = heads(q.contiguous(), 1), heads(keys, K + step + 1), \
-        heads(vals, K + step + 1)
-    slot = torch.tensor([step], device=DEVICE)
-
-    def library():
-        torch.nn.functional.scaled_dot_product_attention(sq, sk, sv)
-        gk.index_copy_(1, slot, kn[:, None])
-        gv.index_copy_(1, slot, vn[:, None])
-
-    # q/k/v read, the prefix once per image, the live slots, the slot
-    # written, f32 out
-    nbytes = ((3 * B * D + 2 * N * K * D + 2 * B * step * D + 2 * B * D) * 2
-              + B * D * 4)
-    b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * (K + step + 1),
-                          torch.bfloat16)
+    l = L // 2
     return dict(
         name="beam_decode_attention", route="cuda",
-        source="capdec_tpu_torch/csrc/decode_attention.cu",
+        source="capdec_tpu_torch/csrc/decode_attention_async.cu",
         replaces="capdec_tpu/ops/decode_attention.py:794",
         max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32=errs[torch.float32],
-        ms=time_ms(lambda: da.beam_decode_attention(*args, **kw)),
-        plain_ms=time_ms(lambda: da.beam_decode_attention_plain(*args, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+        **{k: steps[step][k] for k in ("ms", "rotated_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "library_rotated_ms")},
+        plain_ms=time_ms(lambda: da.beam_decode_attention_plain(
+            q, kn, vn, pk[l], pv[l], gk[l], gv[l], step, **kw)),
+        steps=steps,
         library_note="scaled_dot_product_attention on keys concatenated "
                      "beforehand, plus index_copy_ of slot `step` of k "
                      "and v",
         shape=f"N={N} R={R} K={K} E={E} step={step} D={D} bf16, caches "
-              "[B, E, D] written in place")
+              f"[B, E, D] written in place (rotated over {L} cache sets)")
 
 
 # ---------------------------------------------------------------------------
@@ -1472,12 +1507,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  ptxas:", line.strip())
         ptxas = ptxas_report(log_path.read_text())
-    # the K2/K8 kernel's registers and spills, by value type and head_dim
-    async_attn = {
-        ("bf16" if "bfloat16" in name else "f32") + " hd"
-        + re.search(r"Li(\d+)E", name).group(1): rep
-        for name, rep in ptxas.items() if "async_attn" in name}
-    require(not log_path.exists() or len(async_attn) == 6,
+    # the K2/K8/K9/K15 kernel's registers and spills, by value type, cache
+    # and prefix kind and head_dim: 2 value types x 3 kinds x 3 head_dims
+    async_attn = {async_attn_instance(name): rep
+                  for name, rep in ptxas.items() if "async_attn" in name}
+    require(not log_path.exists() or len(async_attn) == 18,
             f"ptxas: async_attn reported {sorted(async_attn)} in "
             f"{log_path.name}")
     for t, rep in async_attn.items():
@@ -1572,7 +1606,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err_f32", "launches_by_path", "bf16_prefix",
-            "rotated_ms", "library_rotated_ms", "steps", "ptxas", "shape")
+            "greedy_r1", "rotated_ms", "library_rotated_ms", "steps", "ptxas",
+            "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

@@ -1,9 +1,9 @@
-"""The launch plan of the K2/K8 decode-attention kernel
+"""The launch plan of the K2/K8/K9/K15 decode-attention kernel
 (csrc/decode_attention_async.cu), checked on the CPU: shared memory within
-a Hopper block's 227 KB (and two blocks to an SM at the served shape), the
-chunks covering every generated slot and the current token once, the grid
-covering every (head, row) once, and one launch per wrapper call with the
-plan's arguments. The launch itself is recorded by a stand-in for the
+a Hopper block's 227 KB (and one wave of six blocks an SM at the served
+shapes), the chunks covering every generated slot and the current token
+once, the grid covering every (head, row) once in row groups of at most
+16, and one launch per wrapper call with the plan's arguments. The launch itself is recorded by a stand-in for the
 kernel library: the kernel runs only on the card (tests/test_torch_cuda.py).
 """
 import ctypes
@@ -43,10 +43,10 @@ def test_plan_fits_a_block_and_covers_the_slots(itemsize, R, step):
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_plan_fits_every_head_dim_and_beam_count(hd, itemsize):
-    for R in (1, 8, 16):
+    for R in (1, 8, 16, 17, 24, 32):
         plan = da.attention_plan(N, R, K, 12 * hd, hd, E - 1, itemsize)
         assert plan["smem"] <= BLOCK_SMEM
-        assert plan["grid"] == (12, N)
+        assert plan["grid"] == (12, N, 1 if R <= 16 else 2)
 
 
 @pytest.mark.parametrize("R", [1, 5])
@@ -61,15 +61,18 @@ def test_served_plan_is_one_wave(R):
         assert per_sm * SMS >= N * D // HD, step
 
 
-@pytest.mark.parametrize("R", [1, 5])
+@pytest.mark.parametrize("R", [1, 5, 16, 17, 24, 32])
 def test_grid_covers_every_head_and_row_once(R):
-    """Block (h, n) of the plan's grid serves head h of rows n*R .. n*R+R-1
-    (the kernel's blockIdx mapping)."""
-    gx, gy = da.attention_plan(N, R, K, D, HD, 66, 2)["grid"]
+    """Block (h, n, z) of the plan's grid serves head h of rows
+    n*R + 16z .. n*R + min(R, 16z + 16) - 1 (the kernel's blockIdx
+    mapping)."""
+    gx, gy, gz = da.attention_plan(N, R, K, D, HD, 66, 2)["grid"]
+    G = da.ATTN_ROW_GROUP
     served = [(h, n * R + r) for h in range(gx) for n in range(gy)
-              for r in range(R)]
+              for z in range(gz) for r in range(G * z, min(R, G * z + G))]
     assert sorted(served) == [(h, b) for h in range(D // HD)
                               for b in range(N * R)]
+    assert gz == -(-R // G)
 
 
 class _Library:
@@ -150,8 +153,8 @@ def test_one_launch_per_call_with_the_plan(library, entry, wrapper, kw, R,
 def test_refuses_a_head_dim_or_cache_it_cannot_copy(library, wrapper, kw):
     """head_dim 96 (a head slice that is no power-of-two count of 16-byte
     words), caches or q/k_new/v_new rows that do not start on 16 bytes,
-    and more than 16 beams per image (two tensor-core row tiles) are
-    refused before any launch."""
+    and more than 32 beams per image (two row groups) are refused before
+    any launch; 24 beams launch once, in two row groups."""
     hd96 = _inputs(5, torch.bfloat16, hd=96)
     with pytest.raises(ValueError, match="head_dim"):
         wrapper(*hd96, 3, 1, beams_per_image=5, head_dim=96, **kw)
@@ -164,12 +167,196 @@ def test_refuses_a_head_dim_or_cache_it_cannot_copy(library, wrapper, kw):
     with pytest.raises(ValueError, match="aligned"):
         wrapper(*qkv.split(D, dim=-1), *caches, 3, 1, beams_per_image=5,
                 head_dim=HD, **kw)
-    with pytest.raises(ValueError, match="1..16 beams"):
-        wrapper(*_inputs(17, torch.bfloat16), 3, 1, beams_per_image=17,
+    with pytest.raises(ValueError, match="1..32 beams"):
+        wrapper(*_inputs(33, torch.bfloat16), 3, 1, beams_per_image=33,
                 head_dim=HD, **kw)
     assert library.calls == []
+    wrapper(*_inputs(24, torch.bfloat16), 3, 1, beams_per_image=24,
+            head_dim=HD, **kw)
+    assert len(library.calls) == 1 and library.calls[0][1][10] == 24
 
 
 def test_plan_refuses_what_no_block_holds():
     with pytest.raises(ValueError, match="does not fit"):
         da.attention_plan(N, 32, 2048, 128 * 12, 128, 71, 4)
+
+
+KINDS = [(2, 1, 2), (2, 1, 1), (4, 1, 4), (4, 1, 1), (2, 2, 2), (4, 4, 4)]
+
+
+@pytest.mark.parametrize("itemsize,cache_size,prefix_size", KINDS)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("R", [1, 2, 5, 8, 16, 17, 24, 32])
+def test_int8_plan_fits_a_block_and_covers_the_slots(itemsize, cache_size,
+                                                     prefix_size, hd, R):
+    """K9's plans (an int8 cache under a prefix of q's type or of int8
+    levels) and K2's: within a block, every slot in one chunk, a chunk of
+    int8 levels starting at twice the slots of one of q's type."""
+    rows = min(R, da.ATTN_ROW_GROUP)
+    for step in (0, 1, 33, 66, E - 1):
+        plan = da.attention_plan(N, R, K, 12 * hd, hd, step, itemsize,
+                                 cache_size, prefix_size)
+        assert plan["smem"] <= BLOCK_SMEM
+        assert plan["smem"] == da._attention_smem(
+            R, K, hd, itemsize, plan["tile"], plan["nbuf"],
+            plan["threads"], step, cache_size, prefix_size)
+        tile, slots = plan["tile"], step + 1
+        assert (plan["nchunks"] - 1) * tile < slots <= plan["nchunks"] * tile
+        most = 2 * -(-K // rows) * (2 if cache_size < itemsize else 1)
+        assert 1 <= tile <= min(slots, most)
+        assert plan["grid"] == (12, N, -(-R // da.ATTN_ROW_GROUP))
+
+
+def test_int8_layout_adds_the_widened_stage_and_the_scales():
+    """The int8 layout against the bf16 one at the same tile: the ring
+    holds levels (half the bytes), a widened stage of bf16 slices beside
+    it, and the scales of the prefix (2 K) and of the rows' slots below
+    n_gen (2 R n_gen) in f32."""
+    R, tile, n_gen = 5, 16, 66
+    bf16 = da._attention_smem(R, K, HD, 2, tile, 2, 128, n_gen)
+    q8 = da._attention_smem(R, K, HD, 2, tile, 2, 128, n_gen, 1, 1)
+    ring = 2 * max(K, R * tile) * HD * 2
+    assert q8 - bf16 == (-ring // 2 + max(K, R * tile) * HD * 2
+                         + (2 * K + 2 * R * n_gen) * 4)
+
+
+@pytest.mark.parametrize("R", [1, 5])
+@pytest.mark.parametrize("prefix_size", [2, 1])
+def test_served_int8_plans_are_one_wave(R, prefix_size):
+    """K9 in bf16 at every step of the served shapes ((b) R = 5 and (e)
+    R = 1 with the int8 prefix; the bf16 prefix as well): six blocks an
+    SM, so all N x 12 blocks are resident at once; a chunk of one row
+    gives the three consumer warps ceil(cnt / 16) units."""
+    for step in range(E):
+        plan = da.attention_plan(N, R, K, D, HD, step, 2, 1, prefix_size)
+        per_sm = min(SM_SMEM // (plan["smem"] + BLOCK_RESERVED),
+                     2048 // plan["threads"])
+        assert per_sm >= 6 and per_sm * SMS >= N * D // HD, step
+    plan = da.attention_plan(N, R, K, D, HD, 66, 2, 1, prefix_size)
+    consumers = plan["threads"] // 32 - 1
+    assert R * -(-min(plan["tile"], 67) // 16) >= consumers
+
+
+def _int8_inputs(R, dtype, int8_prefix, n=2, L=3, hd=HD):
+    q, kn, vn, pk, pv, _, _ = _inputs(R, dtype, n, L, hd)
+    d = 12 * hd
+    gk, gv = (torch.zeros(n * R, L, E, d, dtype=torch.int8)
+              for _ in range(2))
+    gks, gvs = (torch.zeros(n * R, L, 1, E) for _ in range(2))
+    pre = {}
+    if int8_prefix:
+        pk, pv = (torch.zeros(L, n, K, d, dtype=torch.int8)
+                  for _ in range(2))
+        pre = dict(pks=torch.zeros(L, n, 1, K), pvs=torch.zeros(L, n, 1, K))
+    return (q, kn, vn, pk, pv, gk, gv, gks, gvs), pre
+
+
+@pytest.mark.parametrize("int8_prefix", [False, True])
+@pytest.mark.parametrize("R", [1, 5, 24])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("step", [0, 33, 66])
+def test_int8_chunked_one_launch_per_call_with_the_plan(library, int8_prefix,
+                                                       R, dtype, step):
+    """K9: one launch of its C entry with the pointers in the order of its
+    SIGNATURES row (the prefix scales null for a prefix of q's type) and
+    the plan of an int8 cache."""
+    n, L, layer = 2, 3, 1
+    args, pre = _int8_inputs(R, dtype, int8_prefix, n, L)
+    wrapper = da.beam_decode_attention_chunked_q
+    n0 = wrapper.launches
+    out = wrapper(*args, step, layer, beams_per_image=R, head_dim=HD,
+                  chunk=8, **pre)
+    assert wrapper.launches == n0 + 1
+    entry = "capdec_beam_decode_attention_chunked_q"
+    assert len(library.calls) == 1 and library.calls[0][0] == entry
+    assert out.shape == (n * R, D) and out.dtype == torch.float32
+    got = library.calls[0][1]
+    q, kn, vn, pk, pv, gk, gv, gks, gvs = args
+    ptrs = [q, kn, vn, pk, pv, pre.get("pks"), pre.get("pvs"), gk, gv, gks,
+            gvs]
+    assert got[:3] + got[4:13] == tuple(
+        None if t is None else t.data_ptr() for t in ptrs) + (got[12],)
+    plan = da.attention_plan(n, R, K, D, HD, step, dtype.itemsize, 1,
+                             1 if int8_prefix else dtype.itemsize)
+    assert got[13:] == (n, R, L, K, E, D, HD, layer, step, plan["tile"],
+                        plan["nbuf"], plan["threads"], plan["smem"],
+                        _build.DTYPE_CODES[dtype], 0)
+    sig = _build.SIGNATURES[entry]
+    assert len(sig) == len(got)
+    assert all(t is ctypes.c_void_p for t in sig[4:13])
+    assert all(t is ctypes.c_int for t in sig[13:-1])
+
+
+@pytest.mark.parametrize("R", [1, 5, 24])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("step", [0, 33, 71])
+def test_v1_one_launch_per_call_with_the_plan(library, R, dtype, step):
+    """K15: one launch of its C entry with K2's arguments for one layer
+    (L = 1, layer 0, n_gen = step) and the caches it writes in place."""
+    n = 2
+    q, kn, vn, pk, pv, gk, gv = _inputs(R, dtype, n, 1)
+    pk, pv, gk, gv = pk[0], pv[0], gk[:, 0], gv[:, 0]
+    wrapper = da.beam_decode_attention
+    n0 = wrapper.launches
+    out, rk, rv = wrapper(q, kn, vn, pk, pv, gk, gv, step,
+                          beams_per_image=R, head_dim=HD)
+    assert wrapper.launches == n0 + 1 and rk is gk and rv is gv
+    entry = "capdec_beam_decode_attention"
+    assert len(library.calls) == 1 and library.calls[0][0] == entry
+    got = library.calls[0][1]
+    assert got[6:8] == (gk.data_ptr(), gv.data_ptr())
+    plan = da.attention_plan(n, R, K, D, HD, step, dtype.itemsize)
+    assert got[9:] == (n, R, 1, K, E, D, HD, 0, step, plan["tile"],
+                       plan["nbuf"], plan["threads"], plan["smem"],
+                       _build.DTYPE_CODES[dtype], 0)
+    assert _build.SIGNATURES[entry] == \
+        _build.SIGNATURES["capdec_beam_decode_attention_rowmajor"]
+    assert len(_build.SIGNATURES[entry]) == len(got)
+
+
+@pytest.mark.parametrize("int8_prefix", [False, True])
+def test_int8_chunked_refuses_what_it_cannot_copy(library, int8_prefix):
+    """K9: head_dim 96, misaligned caches or rows and 33 beams are refused
+    before any launch."""
+    kw = dict(chunk=8)
+    args, pre = _int8_inputs(5, torch.bfloat16, int8_prefix, hd=96)
+    wrapper = da.beam_decode_attention_chunked_q
+    with pytest.raises(ValueError, match="head_dim"):
+        wrapper(*args, 3, 1, beams_per_image=5, head_dim=96, **kw, **pre)
+    args, pre = _int8_inputs(5, torch.bfloat16, int8_prefix)
+    gk = torch.zeros(args[5].numel() + 1, dtype=torch.int8)[1:].view(
+        args[5].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        wrapper(*args[:5], gk, *args[6:], 3, 1, beams_per_image=5,
+                head_dim=HD, **kw, **pre)
+    qkv = torch.zeros(10, 3 * D + 1, dtype=torch.bfloat16)[:, 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        wrapper(*qkv.split(D, dim=-1), *args[3:], 3, 1, beams_per_image=5,
+                head_dim=HD, **kw, **pre)
+    args, pre = _int8_inputs(33, torch.bfloat16, int8_prefix, n=1)
+    with pytest.raises(ValueError, match="1..32 beams"):
+        wrapper(*args, 3, 1, beams_per_image=33, head_dim=HD, **kw, **pre)
+    assert library.calls == []
+
+
+def test_v1_refuses_what_it_cannot_copy(library):
+    """K15: head_dim 96, misaligned caches or rows and 33 beams are
+    refused before any launch."""
+    def v1(R=5, hd=HD, offset=0, qkv=None):
+        q, kn, vn, pk, pv, gk, gv = _inputs(R, torch.bfloat16, 2, 1, hd,
+                                            offset)
+        if qkv is not None:
+            q, kn, vn = qkv
+        return da.beam_decode_attention(
+            q, kn, vn, pk[0], pv[0], gk[:, 0], gv[:, 0], 3,
+            beams_per_image=R, head_dim=hd)
+    with pytest.raises(ValueError, match="head_dim"):
+        v1(hd=96)
+    with pytest.raises(ValueError, match="aligned"):
+        v1(offset=1)
+    qkv = torch.zeros(10, 3 * D + 1, dtype=torch.bfloat16)[:, 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        v1(qkv=qkv.split(D, dim=-1))
+    with pytest.raises(ValueError, match="1..32 beams"):
+        v1(R=33)
+    assert library.calls == []

@@ -7,10 +7,11 @@ one; run them there with
 Tolerances: K1 indices identical and values/lse within 2e-3 (bf16) or
 1e-4 (f32) on operands whose sums are exact in f32; the attention kernels
 K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
-(K2, K8) or scales (K6, K9) they must not read, R = 1 and 5 for K9; K2
-and K8 (one kernel) at R = 1, 2, 5 and 8, steps at the ends and at its
-chunk tile's edges, e_cap below the step, head_dim 32, 64 and 128, NaN
-also in the next layer's slot 0, one launch per call;
+(K2, K8) or scales (K6, K9) they must not read; K2, K8, K9 and K15 (one
+kernel) at R = 1, 2, 5 and 8 and in two row groups (R = 17, 24, 32; K9
+up to 24), steps at the ends and at its chunk tile's edges, e_cap below
+the step, head_dim 32, 64 and 128, NaN also in the next layer's slot 0
+(K9: scale), both K9 prefix kinds, one launch per call;
 K3/K4/K5/K7/K13 bit-exact; the gathers K10-K12 and the slot write K14
 bit-exact in f32, bf16 and int8, and the gathers refuse an output that
 overlaps their input and assert on a source outside the batch; K15 (v1
@@ -67,16 +68,20 @@ def test_lm_head_kernel(dev, gen, dtype, tol, _, B, V, D, r):
     assert torch.equal(ties.cpu(), torch.arange(r).expand(B, r))
 
 
-# K2/K8 (8 images, K = 40 prefix slots, E = 72): for each R, the steps at
-# the ends, at the edges of the plan's chunk (tile = 2 ceil(40 / R)) and
-# the served paths' last step (66)
-def _async_steps(R):
-    tile = decode_attention.attention_plan(8, R, 40, 768, 64, 71, 2)["tile"]
+# K2/K8/K9/K15 (8 images, K = 40 prefix slots, E = 72): for each R, the
+# steps at the ends, at the edges of the plan's chunk (tile = 2 ceil(40 /
+# rows), twice that for K9's int8 cache: cache_size 1) and the served
+# paths' last step (66)
+def _async_steps(R, cache_size=None):
+    tile = decode_attention.attention_plan(8, R, 40, 768, 64, 71, 2,
+                                           cache_size)["tile"]
     return sorted({s for s in (0, 1, tile - 1, tile, tile + 1, 66, 71)
-                   if s < 72})
+                   if 0 <= s < 72})
 
 
-ASYNC_CASES = [(R, s) for R in (1, 2, 5, 8) for s in _async_steps(R)]
+# R 17-32: two row groups of at most 16 rows
+ASYNC_CASES = [(R, s) for R in (1, 2, 5, 8, 17, 24, 32)
+               for s in _async_steps(R)]
 
 
 def _async_inputs(gen, dev, dtype, N, R, hd, step, L=3, K=40, E=72):
@@ -112,12 +117,13 @@ def test_decode_attention_kernel(dev, gen, dtype, _, tol, R, step, e_cap):
 
 @pytest.mark.parametrize("dtype,_,tol", DTYPES)
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("R", [1, 8, 16])
+@pytest.mark.parametrize("R", [1, 8, 16, 24, 32])
 @pytest.mark.parametrize("step", [33, 71])
 def test_async_attention_kernel_head_dims(dev, gen, dtype, _, tol, hd, R,
                                           step):
     """K2 and K8 at every head_dim they take (a head slice of 4 to 32
-    16-byte words), with two tensor-core row tiles (R = 16)."""
+    16-byte words), with two tensor-core row tiles (R = 16) and two row
+    groups (R = 24, 32)."""
     args = _async_inputs(gen, dev, dtype, 4, R, hd, step)
     for fn, plain, kw in (
             (decode_attention.beam_decode_attention_rowmajor,
@@ -254,14 +260,12 @@ def test_chunked_decode_attention_kernel(dev, gen, dtype, _, tol, R, step):
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype,_,tol", DTYPES)
-@pytest.mark.parametrize("int8_prefix", [False, True])
-@pytest.mark.parametrize("R", [1, 5])
-@pytest.mark.parametrize("step", [1, 17, 66])
-def test_chunked_int8_decode_attention_kernel(dev, gen, dtype, _, tol,
-                                              int8_prefix, R, step):
-    N, L, K, E, D = 8, 3, 40, 72, 768
-    B = N * R
+def _int8_inputs(gen, dev, dtype, N, R, hd, step, int8_prefix, L=3, K=40,
+                 E=72):
+    """K9's inputs at layer 1 of L: int8 levels, NaN scales at and above
+    `step` and in slot 0 of the next layer (the scales after layer 1's
+    slot E - 1): no copy may reach them."""
+    D, B = 12 * hd, N * R
     r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
     lev = lambda *s: torch.randint(-127, 128, s, generator=gen, device=dev,
                                    dtype=torch.int8)
@@ -274,10 +278,43 @@ def test_chunked_int8_decode_attention_kernel(dev, gen, dtype, _, tol,
         pre = dict(pks=sc(L, N, 1, K), pvs=sc(L, N, 1, K))
     gk, gv = lev(B, L, E, D), lev(B, L, E, D)
     gks, gvs = sc(B, L, 1, E), sc(B, L, 1, E)
-    gks[..., step:] = float("nan")
-    gvs[..., step:] = float("nan")
-    args = (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, 2)
+    for s in (gks, gvs):
+        s[..., step:] = float("nan")
+        s[:, 2, 0, 0] = float("nan")
+    return (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, 1), pre
+
+
+INT8_CASES = sorted({(R, s) for R in (1, 2, 5, 8, 16, 24)
+                     for s in _async_steps(R, 1)}
+                    | {(R, s) for R in (1, 5) for s in (1, 17, 66)})
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("int8_prefix", [False, True])
+@pytest.mark.parametrize("R,step", INT8_CASES)
+def test_chunked_int8_decode_attention_kernel(dev, gen, dtype, _, tol,
+                                              int8_prefix, R, step):
+    args, pre = _int8_inputs(gen, dev, dtype, 8, R, 64, step, int8_prefix)
     kw = dict(beams_per_image=R, head_dim=64, chunk=8, **pre)
+    n0 = decode_attention.beam_decode_attention_chunked_q.launches
+    out = decode_attention.beam_decode_attention_chunked_q(*args, **kw)
+    assert decode_attention.beam_decode_attention_chunked_q.launches == n0 + 1
+    ref = decode_attention.beam_decode_attention_chunked_q_plain(*args, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("int8_prefix", [False, True])
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("R", [1, 5, 16, 24])
+@pytest.mark.parametrize("step", [33, 71])
+def test_chunked_int8_kernel_head_dims(dev, gen, dtype, _, tol, int8_prefix,
+                                       hd, R, step):
+    """K9 at the other head_dims (an int8 head slice of 2 or 8 16-byte
+    words)."""
+    args, pre = _int8_inputs(gen, dev, dtype, 4, R, hd, step, int8_prefix)
+    kw = dict(beams_per_image=R, head_dim=hd, chunk=8, **pre)
     out = decode_attention.beam_decode_attention_chunked_q(*args, **kw)
     ref = decode_attention.beam_decode_attention_chunked_q_plain(*args, **kw)
     assert torch.isfinite(out).all()
@@ -474,21 +511,26 @@ def test_gather_kernels_assert_on_a_source_outside_the_batch(dev, gather,
     assert "device-side assert" in run.stderr, run.stderr[-2000:]
 
 
+V1_CASES = sorted({(5, 0), (5, 17), (5, 66), (5, 71), (1, 30), (24, 5)}
+                  | {(R, s) for R in (1, 5, 24) for s in _async_steps(R)})
+
+
 @pytest.mark.parametrize("dtype,_,tol", DTYPES)
-@pytest.mark.parametrize("R,step", [(5, 0), (5, 17), (5, 66), (5, 71),
-                                    (1, 30), (24, 5)])
-def test_v1_attention_kernel(dev, gen, dtype, _, tol, R, step):
+@pytest.mark.parametrize("R,step,hd", [(R, s, 64) for R, s in V1_CASES]
+                         + [(R, s, hd) for hd in (32, 128) for R in (1, 5, 24)
+                            for s in (33, 71)])
+def test_v1_attention_kernel(dev, gen, dtype, _, tol, R, step, hd):
     """K15 against its plain version: the same output, slot `step` of the
     caches equal to k_new/v_new bit for bit, every other slot untouched,
     NaN in the slots above `step` never read."""
-    N, K, E, D = 8, 40, 72, 768
+    N, K, E, D = 8, 40, 72, 12 * hd
     B = N * R
     r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
     q, kn, vn = r(B, 3 * D).split(D, dim=-1)
     pk, pv, gk0, gv0 = r(N, K, D), r(N, K, D), r(B, E, D), r(B, E, D)
     gk0[:, step + 1:] = float("nan")
     gv0[:, step + 1:] = float("nan")
-    kw = dict(beams_per_image=R, head_dim=64)
+    kw = dict(beams_per_image=R, head_dim=hd)
     n0 = decode_attention.beam_decode_attention.launches
     gk, gv = gk0.clone(), gv0.clone()
     out, gk2, gv2 = decode_attention.beam_decode_attention(
