@@ -164,32 +164,6 @@ struct Args {
   int N, R, L, K, E, D, layer, n_gen, tile, nbuf;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// An mbarrier whose phase completes after `count` arrivals.
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // The consumer warps' own barrier (the producer warp never joins it).
 __device__ __forceinline__ void consumers_sync(int nthreads) {
   asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");

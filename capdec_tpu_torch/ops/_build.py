@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "capdec_lm_head_topk": [P, P, I, I, I, I, I, P, P, P, P, P, P, P, I, P],
+    "capdec_lm_head_topk":
+        [P, P, I, I, I, I, I, *[P] * 7, I, I, I, I, I, I, P],
     "capdec_beam_decode_attention_rowmajor":
         [P, P, P, L, *[P] * 5, *[I] * 14, P],
     "capdec_write_gen_slot": [P, P, P, P, I, I, I, I, L, P],
@@ -144,6 +145,12 @@ def check(code: int, name: str) -> None:
 
 def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the card `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # dtype codes of the C entries (csrc/common.cuh DType)

@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. The card's name and power limit (nvidia-smi) and the build of the
      hand-written kernels from capdec_tpu_torch/csrc.
   2. Each kernel (K1-K15) against its plain PyTorch version on the
-     card, at the served paths' shapes, in bf16 and f32 (int8 caches for
+     card, at the served paths' shapes (K1 at both: B 320 rows, R 5 for
+     the beam paths and B 64, R 1 for greedy, each with its own bound and
+     beside the cuBLAS product alone; its instances must build without
+     spills), in bf16 and f32 (int8 caches for
      K5-K7 and K9, with and without K9's int8 prefix, and for the gathers
      K10-K12; NaN in the slots or scales the attention kernels must not
      read); the kernel's time beside the plain version's, one PyTorch
@@ -292,44 +295,75 @@ def async_attn_instance(mangled: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_lm_head(gen):
-    from capdec_tpu_torch.ops import lm_head
-    B, V, D, R = MAIN["N"] * MAIN["R"], MAIN["V"], MAIN["D"], MAIN["R"]
+def lm_head_instance(mangled: str) -> str:
+    """'lm_head_wgmma<128>', 'lm_head_merge', 'lm_head_pass1<bf16>', ...
+    for a mangled kernel name of csrc/lm_head.cu."""
+    m = re.search(r"\d(lm_head_[a-z0-9]+)(ILi(\d+)E|I13__nv_bfloat16E|IfE)?",
+                  mangled)
+    arg = {None: "", "I13__nv_bfloat16E": "<bf16>", "IfE": "<f32>"}.get(
+        m.group(2), f"<{m.group(3)}>")
+    return m.group(1) + arg
+
+
+def check_lm_head(gen, ptxas):
+    """K1 at both served shapes: the beam paths' B = 320 rows, R = 5 and
+    greedy's B = 64, R = 1 (under "greedy_r1"), each with its own bound;
+    beside the kernel, the cuBLAS product alone (`torch.matmul` of h and
+    w^T in bf16, the logits written) as a yardstick of the product's rate
+    (no one PyTorch call computes K1: `library_ms` is null)."""
+    from capdec_tpu_torch.ops import _build, lm_head
+    V, D = MAIN["V"], MAIN["D"]
     # Operands on a coarse grid (h in quarters, w in eighths, |.| <= 1):
     # every partial sum is exact in f32, so any summation order gives the
     # same logits and the top-R indices (with their many exact ties) must
     # match the plain version's exactly.
-    h = torch.randint(-4, 5, (B, D), generator=gen, device=DEVICE) / 4
     w = torch.randint(-4, 5, (V, D), generator=gen, device=DEVICE) / 8
-    res = {}
-    for dtype, tol in ((torch.bfloat16, 2e-3), (torch.float32, 1e-4)):
-        hd, wd = h.to(dtype), w.to(dtype)
-        kv, ki, kl = lm_head.lm_head_topk(hd, wd, R)
-        pv, pi, pl = lm_head.lm_head_topk_plain(hd, wd, R)
-        torch.cuda.synchronize()
-        require(torch.equal(ki, pi), f"K1 {dtype}: top-R indices differ")
-        err = max(max_err(kv, pv), max_err(kl, pl))
-        require(err <= tol, f"K1 {dtype}: max abs err {err} > {tol}")
-        res[dtype] = (err, hd, wd)
-    # all ties: the lowest indices win, in order
-    ties = lm_head.lm_head_topk(torch.zeros(B, D, device=DEVICE,
-                                            dtype=torch.bfloat16),
-                                torch.ones(V, D, device=DEVICE,
-                                           dtype=torch.bfloat16), R)[1]
-    require(torch.equal(ties.cpu(), torch.arange(R).expand(B, R)),
-            "K1: all-ties case must return indices 0..R-1")
-    err, hd, wd = res[torch.bfloat16]
-    b_ms, b_by = bound_ms((V * D + B * D) * 2 + B * R * 12 + B * 4,
-                          2.0 * B * D * V, torch.bfloat16)
-    return dict(
-        name="lm_head_topk", route="cuda",
-        source="capdec_tpu_torch/csrc/lm_head.cu",
-        replaces="capdec_tpu/ops/lm_head.py:259",
-        max_abs_err=err, max_abs_err_f32=res[torch.float32][0],
-        ms=time_ms(lambda: lm_head.lm_head_topk(hd, wd, R)),
-        plain_ms=time_ms(lambda: lm_head.lm_head_topk_plain(hd, wd, R)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"B={B} V={V} D={D} R={R} bf16")
+    shapes = {"beam": (MAIN["N"] * MAIN["R"], MAIN["R"]),
+              "greedy_r1": (MAIN["N"], 1)}
+    out = {}
+    for key, (B, R) in shapes.items():
+        h = torch.randint(-4, 5, (B, D), generator=gen, device=DEVICE) / 4
+        res = {}
+        for dtype, tol in ((torch.bfloat16, 2e-3), (torch.float32, 1e-4)):
+            hd, wd = h.to(dtype), w.to(dtype)
+            kv, ki, kl = lm_head.lm_head_topk(hd, wd, R)
+            pv, pi, pl = lm_head.lm_head_topk_plain(hd, wd, R)
+            torch.cuda.synchronize()
+            require(torch.equal(ki, pi),
+                    f"K1 {dtype} B={B}: top-R indices differ")
+            err = max(max_err(kv, pv), max_err(kl, pl))
+            require(err <= tol, f"K1 {dtype} B={B}: max abs err {err} > "
+                    f"{tol}")
+            res[dtype] = (err, hd, wd)
+        # all ties: the lowest indices win, in order
+        ties = lm_head.lm_head_topk(
+            torch.zeros(B, D, device=DEVICE, dtype=torch.bfloat16),
+            torch.ones(V, D, device=DEVICE, dtype=torch.bfloat16), R)[1]
+        require(torch.equal(ties.cpu(), torch.arange(R).expand(B, R)),
+                f"K1 B={B}: all-ties case must return indices 0..R-1")
+        err, hd, wd = res[torch.bfloat16]
+        b_ms, b_by = bound_ms((V * D + B * D) * 2 + B * R * 12 + B * 4,
+                              2.0 * B * D * V, torch.bfloat16)
+        out[key] = dict(
+            max_abs_err=err, max_abs_err_f32=res[torch.float32][0],
+            ms=time_ms(lambda: lm_head.lm_head_topk(hd, wd, R)),
+            plain_ms=time_ms(lambda: lm_head.lm_head_topk_plain(hd, wd, R)),
+            bound_ms=b_ms, bound_by=b_by,
+            cublas_ms=time_ms(lambda: torch.matmul(hd, wd.t())),
+            plan=lm_head.lm_head_plan(B, V, D, R, 2,
+                                      _build.sm_count(hd.device)),
+            shape=f"B={B} V={V} D={D} R={R} bf16")
+    k1 = {lm_head_instance(name): rep for name, rep in ptxas.items()
+          if "lm_head_" in name}
+    require(not ptxas or "lm_head_wgmma<128>" in k1,
+            f"ptxas: K1 instances {sorted(k1)}")
+    for name, rep in k1.items():
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"{name} spills: {rep}")
+    return dict(name="lm_head_topk", route="cuda",
+                source="capdec_tpu_torch/csrc/lm_head.cu",
+                replaces="capdec_tpu/ops/lm_head.py:259", **out["beam"],
+                library_ms=None, greedy_r1=out["greedy_r1"], ptxas=k1)
 
 
 def check_decode_attention(gen):
@@ -1519,7 +1553,7 @@ def main() -> int:
                 f"async_attn<{t}> spills: {rep}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    kernels = [check_lm_head(gen), check_decode_attention(gen),
+    kernels = [check_lm_head(gen, ptxas), check_decode_attention(gen),
                *check_cache_kernels(gen), check_quantising_write(gen),
                check_int8_attention(gen), check_whole_row_fork(gen),
                check_chunked_attention(gen),
@@ -1605,7 +1639,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err_f32", "launches_by_path", "bf16_prefix",
+            "cublas_ms", "max_abs_err_f32", "launches_by_path", "bf16_prefix",
             "greedy_r1", "rotated_ms", "library_rotated_ms", "steps", "ptxas",
             "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,

@@ -5,7 +5,9 @@ one; run them there with
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: K1 indices identical and values/lse within 2e-3 (bf16) or
-1e-4 (f32) on operands whose sums are exact in f32; the attention kernels
+1e-4 (f32) on operands whose sums are exact in f32, at B 1-333, V 257,
+300 and 50257, R 1, 5 and 8, with exact ties placed across the edges of
+its vocab tiles and of its persistent blocks' ranges; the attention kernels
 K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
 (K2, K8) or scales (K6, K9) they must not read; K2, K8, K9 and K15 (one
 kernel) at R = 1, 2, 5 and 8 and in two row groups (R = 17, 24, 32; K9
@@ -52,8 +54,18 @@ def gen(dev):
     return torch.Generator(device=dev).manual_seed(0)
 
 
+# K1 at the served shapes (B 320, R 5 and B 64, R 1), one row, ragged row
+# tiles (7, 333) and vocabularies whose last tile holds 1, 44 and 81
+# entries (257, 300, 50257)
+LM_BS, LM_VS = [1, 7, 64, 320, 333], [257, 300, 50257]
+LM_CASES = [(B, V, 768, r) for B in LM_BS for V in LM_VS for r in (1, 5)]
+
+
 @pytest.mark.parametrize("dtype,tol,_", DTYPES)
-@pytest.mark.parametrize("B,V,D,r", [(320, 50257, 768, 5), (7, 300, 128, 4)])
+@pytest.mark.parametrize("B,V,D,r", LM_CASES + [
+    (7, 300, 128, 4),
+    # GPT-2 medium's and XL's widths: the plan's 64-entry weight tile
+    (64, 50257, 1024, 5), (333, 300, 1600, 8)])
 def test_lm_head_kernel(dev, gen, dtype, tol, _, B, V, D, r):
     h = (torch.randint(-4, 5, (B, D), generator=gen, device=dev) / 4).to(dtype)
     w = (torch.randint(-4, 5, (V, D), generator=gen, device=dev) / 8).to(dtype)
@@ -66,6 +78,43 @@ def test_lm_head_kernel(dev, gen, dtype, tol, _, B, V, D, r):
     torch.testing.assert_close(kl, pl, atol=tol, rtol=0)
     ties = lm_head.lm_head_topk(torch.zeros_like(h), torch.ones_like(w), r)[1]
     assert torch.equal(ties.cpu(), torch.arange(r).expand(B, r))
+
+
+def _planted(V):
+    """Entries that straddle the edges of the plan's 128-entry vocab tiles
+    and of the persistent blocks' ranges (on 132 SMs block b takes tiles
+    b, b + 132, b + 264: tile 131 is block 131's, tile 132 block 0's
+    second, tile 263 block 131's second and 264 block 0's third), and the
+    last entry of the ragged last tile."""
+    edges = (127, 128, 255, 256, 131 * 128 - 1, 131 * 128, 132 * 128 - 1,
+             132 * 128, 264 * 128 - 1, 264 * 128, V - 1)
+    return sorted({e for e in edges if e < V})
+
+
+@pytest.mark.parametrize("dtype,tol,_", DTYPES)
+@pytest.mark.parametrize("V", LM_VS)
+@pytest.mark.parametrize("B,r", [(320, 5), (64, 1), (333, 8)])
+@pytest.mark.parametrize("first", [0, 3])
+def test_lm_head_ties_across_tile_and_block_edges(dev, gen, dtype, tol, _,
+                                                  V, B, r, first):
+    """Duplicated rows of w give exactly equal logits (h >= 0 on a coarse
+    grid, so h . w is largest, and tied, on every copy of the row of 0.5s)
+    at the vocab tile and persistent block edges; the lowest indices win,
+    in order, as in the plain version. `first` drops the first planted
+    copies, so the later edges decide."""
+    D = 768
+    h = (torch.randint(0, 5, (B, D), generator=gen, device=dev) / 4).to(dtype)
+    w = (torch.randint(-4, 5, (V, D), generator=gen, device=dev) / 8).to(dtype)
+    planted = _planted(V)[first:]
+    w[planted] = 0.5
+    kv, ki, kl = lm_head.lm_head_topk(h, w, r)
+    pv, pi, pl = lm_head.lm_head_topk_plain(h, w, r)
+    assert torch.equal(ki, pi)
+    n = min(r, len(planted))
+    assert torch.equal(ki[:, :n].cpu(),
+                       torch.tensor(planted[:n]).expand(B, n))
+    torch.testing.assert_close(kv, pv, atol=tol, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=tol, rtol=0)
 
 
 # K2/K8/K9/K15 (8 images, K = 40 prefix slots, E = 72): for each R, the
@@ -337,13 +386,18 @@ def test_seqmajor_slot_write_kernel_bit_exact(dev, gen, dtype):
     assert torch.equal(a["k"][:, :, other], k[:, :, other])
 
 
-def test_lm_head_kernel_top1(dev, gen):
-    h = (torch.randint(-4, 5, (64, 768), generator=gen, device=dev) / 4)
+@pytest.mark.parametrize("B", LM_BS)
+def test_lm_head_kernel_top1(dev, gen, B):
+    """Greedy's R = 1 over GPT-2's vocabulary, both dtypes: the argmax
+    (the lowest index among equal maxima) and its value and lse."""
+    h = (torch.randint(-4, 5, (B, 768), generator=gen, device=dev) / 4)
     w = (torch.randint(-4, 5, (50257, 768), generator=gen, device=dev) / 8)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, tol, _ in DTYPES:
         kv, ki, kl = lm_head.lm_head_topk(h.to(dtype), w.to(dtype), 1)
         pv, pi, pl = lm_head.lm_head_topk_plain(h.to(dtype), w.to(dtype), 1)
         assert torch.equal(ki, pi)
+        torch.testing.assert_close(kv, pv, atol=tol, rtol=0)
+        torch.testing.assert_close(kl, pl, atol=tol, rtol=0)
 
 
 def _tiny(dev, gen):
