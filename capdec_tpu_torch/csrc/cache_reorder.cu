@@ -43,15 +43,25 @@
 // _chunk_write_q_kernel :393): absmax-int8 quantisation of the step's
 // new_k/new_v [B, L, D] over D per (row, layer), levels into slot `step`
 // of the int8 caches, the f32 scale into ks/vs [B, L, 1, E] at `step`.
-// Bound: bytes (new K/V in, levels and scales out; a few operations per
-// byte). One block of two warps per (row, layer), warp 0 for K and warp 1
-// for V: each lane holds 16-value groups in registers, the warp takes the
-// absmax with shuffles, and each group leaves as one 16-byte store. It is
-// bit-identical to absmax_int8_quant: the scale is amax · fl32(1/127)
-// (1 where amax == 0; jitted JAX code multiplies by that reciprocal, as
-// XLA rewrites a division by a constant) and each level rintf(x / s)
-// (round half to even, IEEE division: the build uses no fast-math)
-// clamped to ±127.
+// Bound: bytes (new K/V in, levels and scales out), but the arithmetic is
+// of the same order on the H100: with the IEEE division a level this
+// kernel takes 12.2 µs against 9.8 without (scripts/torch_int8_ablate.py),
+// and a grid that loads, then divides, then stores in step across the card
+// pays for both. So a level takes no division (level_fma: one FMUL and two
+// FFMA give the division's quotient, and an addition rounds it), and one
+// warp takes one (row, layer, K|V) item 2·(b·L + l) + (0 K | 1 V) in
+// blocks of four warps, about eight blocks an SM by registers, so that the
+// block scheduler overlaps one warp's arithmetic with others' loads (the
+// loop over items only serves a grid smaller than the items; such a grid
+// was no faster). A lane holds 8-value units u = lane + 32·c (D = 768 is
+// 96 units, three a lane) and each unit leaves as one 8-byte store; lane 0
+// stores the scale. It is bit-identical to absmax_int8_quant: the scale is amax · fl32(1/127) (1 where amax == 0;
+// jitted JAX code multiplies by that reciprocal, as XLA rewrites a division
+// by a constant) and each level rint(x / s) (round half to even, the IEEE
+// quotient: the build uses no fast-math) clamped to ±127. An amax outside
+// [2^-60, 2^100] (or not finite) takes the IEEE division itself (a warp-
+// uniform branch: a branch per value cost as much as the division, for
+// the compiler ran its divisions under a predicate).
 //
 // K7 copy_forked_rows replaces capdec_tpu/ops/cache_reorder.py::
 // copy_forked_rows (:136, pallas_call :160): K4 over whole rows, for the
@@ -65,8 +75,29 @@
 namespace capdec {
 namespace {
 
-constexpr int MAX_CH = 4;  // 16-value groups per lane: D <= 2048
 constexpr float kInv127 = 1.0f / 127.0f;  // rounded once, in f32
+// 1.5 · 2^23: t + kMagic rounds t (|t| <= 2^22) to an integer, half to
+// even, which lands in the low mantissa bits
+constexpr float kMagic = 12582912.0f;
+
+// K5's level of x under scale s: the low byte of clamp(rint(x / s), ±127)
+// by the IEEE division.
+__device__ __forceinline__ unsigned level_div(float x, float s) {
+  const float r = fminf(fmaxf(rintf(x / s), -127.f), 127.f);
+  return static_cast<unsigned>(static_cast<int>(r)) & 0xffu;
+}
+
+// The same from inv = fl(1/s), with no division and no branch: q = x · inv
+// is within an ulp of x / s, the residual x - s · q is exact in an FMA, and
+// fl(q + residual · inv) is then the IEEE quotient x / s (Markstein's
+// theorem, the correction step of the IEEE division itself) as long as x
+// and s are normal and nothing underflows; the caller keeps amax, so s, in
+// a range where that holds. kMagic rounds the clamped quotient.
+__device__ __forceinline__ unsigned level_fma(float x, float s, float inv) {
+  const float q = x * inv;
+  const float y = fmaf(fmaf(-q, s, x), inv, q);
+  return __float_as_uint(fminf(fmaxf(y, -127.f), 127.f) + kMagic) & 0xffu;
+}
 
 __global__ void write_gen_slot(uint4* __restrict__ k, uint4* __restrict__ v,
                                const uint4* __restrict__ nk,
@@ -115,48 +146,112 @@ __global__ void copy_forked_rows_bounded(uint4* k, uint4* v,
   }
 }
 
+// K5: the threads of a block, and the 8-value units a lane holds: U = 4
+// for D <= 1024, U = 8 for D <= 2048 (its limit), as the wrapper's plan
+// (ops/cache_reorder.py quant_write_plan) reports.
+constexpr int kQuantThreads = 128;
+constexpr int kQuantMaxD = 8 * 32 * 8;
+
+// 8 values of T as the words they are stored in: one (bf16) or two (f32)
+// 16-byte words.
 template <typename T>
-__global__ void write_gen_slot_q(int8_t* __restrict__ k,
-                                 int8_t* __restrict__ v,
-                                 float* __restrict__ ks,
-                                 float* __restrict__ vs,
-                                 const T* __restrict__ nk,
-                                 const T* __restrict__ nv, int E, int D,
-                                 int step) {
-  const size_t bl = blockIdx.x;  // (row, layer) pair
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* src = (warp ? nv : nk) + bl * D;
-  int8_t* dst = (warp ? v : k) + (bl * E + step) * D;
-  const int groups = D / 16;
-  float x[MAX_CH][16];
-  float amax = 0.f;
+struct Unit8 {
+  uint4 w[sizeof(T) / 2];
+};
+
+__device__ __forceinline__ void unpack8(const Unit8<__nv_bfloat16>& x,
+                                        float (&f)[8]) {
+  const unsigned u[4] = {x.w[0].x, x.w[0].y, x.w[0].z, x.w[0].w};
 #pragma unroll
-  for (int c = 0; c < MAX_CH; ++c) {
-    const int g = lane + 32 * c;
-    if (g < groups) {
-      load16(src + 16 * g, x[c]);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(x[c][i]));
-    }
+  for (int j = 0; j < 4; ++j) {  // bf16 -> f32 is exact: the top 16 bits
+    f[2 * j] = __uint_as_float(u[j] << 16);
+    f[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
   }
-  amax = warp_max(amax);
-  const float s = amax > 0.f ? amax * kInv127 : 1.0f;
+}
+__device__ __forceinline__ void unpack8(const Unit8<float>& x, float (&f)[8]) {
 #pragma unroll
-  for (int c = 0; c < MAX_CH; ++c) {
-    const int g = lane + 32 * c;
-    if (g < groups) {
-      unsigned w[4] = {0u, 0u, 0u, 0u};
+  for (int i = 0; i < 2; ++i) {
+    f[4 * i] = __uint_as_float(x.w[i].x);
+    f[4 * i + 1] = __uint_as_float(x.w[i].y);
+    f[4 * i + 2] = __uint_as_float(x.w[i].z);
+    f[4 * i + 3] = __uint_as_float(x.w[i].w);
+  }
+}
+
+// Blocks an SM of each instance, by its registers: a lane holds an item's
+// U units (2 · sizeof(T) registers a unit) and up to 32 registers besides.
+template <typename T, int U>
+constexpr int kQuantBlocks = 65536 / kQuantThreads /
+                             (2 * U * (int)sizeof(T) + 32);
+
+template <typename T, int U>
+__global__ void __launch_bounds__(kQuantThreads, (kQuantBlocks<T, U>))
+write_gen_slot_q(int8_t* __restrict__ k, int8_t* __restrict__ v,
+                 float* __restrict__ ks, float* __restrict__ vs,
+                 const T* __restrict__ nk, const T* __restrict__ nv,
+                 int items, int E, int D, int step) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  const int units = D / 8;
+  for (int it = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       it < items; it += warps) {
+    // item it: row it / 2 of new_k or new_v, its units as stored
+    const uint4* src = reinterpret_cast<const uint4*>(
+        ((it & 1) ? nv : nk) + (size_t)(it >> 1) * D);
+    Unit8<T> cur[U];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float r = fminf(fmaxf(rintf(x[c][i] / s), -127.f), 127.f);
-        w[i / 4] |= (static_cast<unsigned>(static_cast<int>(r)) & 0xffu)
-                    << (8 * (i % 4));
+    for (int c = 0; c < U; ++c) {
+      const int u = lane + 32 * c;
+      if (u < units) {
+#pragma unroll
+        for (int i = 0; i < (int)sizeof(T) / 2; ++i)
+          cur[c].w[i] = src[u * (sizeof(T) / 2) + i];
       }
-      *reinterpret_cast<uint4*>(dst + 16 * g) = make_uint4(w[0], w[1], w[2],
-                                                           w[3]);
     }
+    float amax = 0.f;
+#pragma unroll
+    for (int c = 0; c < U; ++c)
+      if (lane + 32 * c < units) {
+        float x[8];
+        unpack8(cur[c], x);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(x[i]));
+      }
+    amax = warp_max(amax);
+    const float s = amax > 0.f ? amax * kInv127 : 1.0f;
+    const float inv = 1.0f / s;
+    const size_t slot = (size_t)(it >> 1) * E + step;
+    int8_t* dst = ((it & 1) ? v : k) + slot * D;
+    // the division-free levels for every amax a model gives (warp-uniform)
+    if (amax == 0.f || (amax >= 0x1p-60f && amax <= 0x1p100f)) {
+#pragma unroll
+      for (int c = 0; c < U; ++c)
+        if (lane + 32 * c < units) {
+          float x[8];
+          unpack8(cur[c], x);
+          unsigned w[2] = {0u, 0u};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            w[i / 4] |= level_fma(x[i], s, inv) << (8 * (i % 4));
+          *reinterpret_cast<uint2*>(dst + 8 * (lane + 32 * c)) =
+              make_uint2(w[0], w[1]);
+        }
+    } else {  // tiny, huge or infinite amax: the IEEE division
+#pragma unroll
+      for (int c = 0; c < U; ++c)
+        if (lane + 32 * c < units) {
+          float x[8];
+          unpack8(cur[c], x);
+          unsigned w[2] = {0u, 0u};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            w[i / 4] |= level_div(x[i], s) << (8 * (i % 4));
+          *reinterpret_cast<uint2*>(dst + 8 * (lane + 32 * c)) =
+              make_uint2(w[0], w[1]);
+        }
+    }
+    if (lane == 0) ((it & 1) ? vs : ks)[slot] = s;
   }
-  if (lane == 0) (warp ? vs : ks)[bl * E + step] = s;
 }
 
 __global__ void copy_forked_rows(uint4* k, uint4* v,
@@ -214,21 +309,53 @@ extern "C" int capdec_copy_forked_rows_bounded(void* k, void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace capdec {
+namespace {
+
+template <typename T, int U>
+void launch_quant(int8_t* k, int8_t* v, float* ks, float* vs, const void* nk,
+                  const void* nv, int items, int E, int D, int step,
+                  int blocks, int threads, cudaStream_t stream) {
+  write_gen_slot_q<T, U><<<blocks, threads, 0, stream>>>(
+      k, v, ks, vs, static_cast<const T*>(nk), static_cast<const T*>(nv),
+      items, E, D, step);
+}
+
+template <typename T>
+void launch_quant_units(int8_t* k, int8_t* v, float* ks, float* vs,
+                        const void* nk, const void* nv, int items, int E,
+                        int D, int step, int blocks, int threads,
+                        cudaStream_t stream) {
+  if (D <= kQuantMaxD / 2)
+    launch_quant<T, 4>(k, v, ks, vs, nk, nv, items, E, D, step, blocks,
+                       threads, stream);
+  else
+    launch_quant<T, 8>(k, v, ks, vs, nk, nv, items, E, D, step, blocks,
+                       threads, stream);
+}
+
+}  // namespace
+}  // namespace capdec
+
+// K5 on the plan's grid of `blocks` blocks of `threads`.
 extern "C" int capdec_write_gen_slot_q(void* k, void* v, float* ks,
                                        float* vs, const void* nk,
                                        const void* nv, int B, int L, int E,
-                                       int D, int step, int dtype,
+                                       int D, int step, int blocks,
+                                       int threads, int dtype,
                                        cudaStream_t stream) {
+  if (D % 16 || D < 16 || D > capdec::kQuantMaxD || blocks < 1 ||
+      threads % 32 || threads < 32 || threads > capdec::kQuantThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   int8_t* k8 = static_cast<int8_t*>(k);
   int8_t* v8 = static_cast<int8_t*>(v);
   if (dtype == capdec::kBF16)
-    capdec::write_gen_slot_q<__nv_bfloat16><<<B * L, 64, 0, stream>>>(
-        k8, v8, ks, vs, static_cast<const __nv_bfloat16*>(nk),
-        static_cast<const __nv_bfloat16*>(nv), E, D, step);
+    capdec::launch_quant_units<__nv_bfloat16>(k8, v8, ks, vs, nk, nv,
+                                              2 * B * L, E, D, step, blocks,
+                                              threads, stream);
   else
-    capdec::write_gen_slot_q<float><<<B * L, 64, 0, stream>>>(
-        k8, v8, ks, vs, static_cast<const float*>(nk),
-        static_cast<const float*>(nv), E, D, step);
+    capdec::launch_quant_units<float>(k8, v8, ks, vs, nk, nv, 2 * B * L, E,
+                                      D, step, blocks, threads, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,30 +1,34 @@
-// K2, K8, K9 and K15: one layer's beam-decode attention, its head slices
-// staged in shared memory by asynchronous copies that complete on
+// K2, K6, K8, K9 and K15: one layer's beam-decode attention, its head
+// slices staged in shared memory by asynchronous copies that complete on
 // mbarriers.
 //
 // Replaces capdec_tpu/ops/decode_attention.py::beam_decode_attention_rowmajor
 // (the function at :719, pl.pallas_call at :765, body _kernel_rm :186-241),
-// ::beam_decode_attention_chunked (the function at :484, pl.pallas_call
-// at :523, body _kernel_rm_chunked :326-454), ::beam_decode_attention_chunked_q
-// (the function at :569, pl.pallas_call at :620, the same body with int8
-// scales) and ::beam_decode_attention (the function at :794, pl.pallas_call
-// at :825, body _kernel :67-136). All compute one function: for beam row b
-// of image n = b / R and each head, a softmax over
+// ::beam_decode_attention_rowmajor_q (the function at :646, pl.pallas_call
+// at :684, body _kernel_rm_q :244-323), ::beam_decode_attention_chunked (the
+// function at :484, pl.pallas_call at :523, body _kernel_rm_chunked
+// :326-454), ::beam_decode_attention_chunked_q (the function at :569,
+// pl.pallas_call at :620, the same body with int8 scales) and
+// ::beam_decode_attention (the function at :794, pl.pallas_call at :825,
+// body _kernel :67-136). All compute one function: for beam row b of image
+// n = b / R and each head, a softmax over
 //   * the image's prefix slots      pk/pv [L, N, K, D]  (all K),
 //   * the row's generated slots     gk/gv [B, L, E, D]  below n_gen,
 //   * the current token             k_new/v_new [B, D]  (row stride qs),
-// then the probability-weighted sum of V, written as f32 out [B, D]. K2
-// reads n_gen = min(step, e_cap) slots, K8 n_gen = step: the caller passes
-// n_gen, and the K8 entry is the K2 entry under its own name. The slot
-// policies of the other two:
-//   * K9: the generated cache holds int8 levels with f32 absmax scales
-//     gks/gvs [B, L, 1, E] (value = level · scale), and with pks/pvs
-//     [L, N, 1, K] the prefix too. A slot's K scale multiplies its score
+// then the probability-weighted sum of V, written as f32 out [B, D]. K2 and
+// K6 read n_gen = min(step, e_cap) slots, K8 and K9 n_gen = step: the caller
+// passes n_gen, and the K8 entry is the K2 entry under its own name. The
+// slot policies of the others:
+//   * K6 and K9: the generated cache holds int8 levels with f32 absmax
+//     scales gks/gvs [B, L, 1, E] (value = level · scale), and K9's prefix
+//     with pks/pvs [L, N, 1, K] too. A slot's K scale multiplies its score
 //     after the head sum, before 1/sqrt(hd); its V scale folds into its
-//     probability before P is rounded to bf16 (the plain version's order).
-//     The current token stays unquantised (scale 1). Levels are exact in
-//     bf16, so a landed int8 stage is widened in shared memory and takes
-//     the same tensor-core path; q is never quantised.
+//     probability before P is rounded to q's type (the plain version's
+//     order). The current token stays unquantised (scale 1); q is never
+//     quantised. K9 widens each landed int8 stage in shared memory, levels
+//     being exact in bf16, and takes the same tensor-core path as K2. K6
+//     (a prefix of q's type) reads each landed int8 stage in place instead
+//     and widens the levels in registers (below).
 //   * K15: the v1 kernel, one layer's caches [B, E, D] read as L = 1,
 //     n_gen = step; the block for (head h, rows) also stores head h's
 //     columns of its rows' k_new/v_new into slot `step` of gk/gv, in place.
@@ -39,9 +43,9 @@
 // one replaced kept about one 128-byte row per warp in flight behind a
 // serial chain of warp sums, and ran at 2.8-3.2x the bound.
 //
-// K9's bytes are half of K2's in the generated cache (and, with an int8
-// prefix, in the prefix) plus 8 bytes of scales a slot; K15's add the slot
-// it writes (2·B·D).
+// K6's and K9's bytes are half of K2's in the generated cache (and, with
+// K9's int8 prefix, in the prefix) plus 8 bytes of scales a slot (K6 at the
+// served shape: 42.9 MB, 12.8 µs); K15's add the slot it writes (2·B·D).
 //
 // Design: one block per (head, image, group of at most 16 rows) serves the
 // group's rows (the prefix leaves device memory once per image and group;
@@ -55,11 +59,11 @@
 // (`cp.async.mbarrier.arrive.noinc`). The stages are the prefix K (with q,
 // k_new, v_new), the K of chunks of `tile` = 2 ceil(K / rows) generated
 // slots (twice that for int8 levels) of the block's rows, then the prefix V
-// and the V chunks. The other three warps
-// consume each stage as it lands and release it on its "empty" mbarrier:
-// they score the K stages, take one exact softmax over all of a row's
-// scores (while the producer refills the freed ring with V), then sum the
-// V stages. In bf16 the products run on the tensor cores (mma.sync
+// and the V chunks (K6: the V chunks, then the prefix V). The other three
+// warps consume each stage as it lands and release it on its "empty"
+// mbarrier: they score the K stages, take one exact softmax over all of a
+// row's scores (while the producer refills the freed ring with V), then sum
+// the V stages. In bf16 the products run on the tensor cores (mma.sync
 // m16n8k16, f32 sums): scores as K Q^T, 16 slots by 8 rows, and values as
 // V^T P^T (P rounded to bf16, as the plain version rounds it), 16 dims by
 // 8 rows, fed by ldmatrix from rows whose 16-byte words are swizzled so
@@ -70,6 +74,26 @@
 // slot's score. The consumer warps' value sums meet in shared memory in a
 // fixed order, so the result does not depend on the timing.
 //
+// K6's generated slots run on the CUDA cores in f32 FMA, in both types: for
+// each (row, head) they are a matrix-vector product with no reuse across
+// rows, about 4 operations a byte, so tensor cores buy nothing there, and
+// their fragments cost registers that six blocks an SM do not have (80 a
+// thread). A 16-byte word of a landed int8 stage is 16 levels, so LQ =
+// hd / 16 lanes take LQ slots of one row (unit k of a row takes slots k,
+// k + units, ..., so that neighbouring units read neighbouring slots), each
+// lane one word of all of them, and a reduce-scatter leaves each lane one
+// slot's score. The value pass gives each thread 16 dims of one row and
+// every J8-th slot, its sums held in registers over the chunks (sums kept
+// in shared memory between stages were read at a 64-byte lane stride, which
+// the banks serialise). A word is widened in registers with byte permutes
+// and one subtraction a level (exact; no conversion instruction), and
+// nothing is written back to shared memory: K9's widening pass through
+// shared memory cost 13 µs of its 43 on the H100 (PERF.md §6). The current
+// token is kept out of the int8 loops (its score is taken with the softmax,
+// its value with the output), so they hold no branch. The prefix V comes
+// last, so the tensor-core sums of the prefix are live in registers only
+// for that stage (live over the int8 chunks they spilled at 80 registers).
+//
 // Not chosen, as measured on the H100 (PERF.md §6): one `cp.async.bulk`
 // per 128-byte slice (the copy engine keeps too few such copies in flight)
 // and whole items resident in two large blocks an SM (their waves run in
@@ -78,8 +102,8 @@
 // Slots at or above n_gen may hold stale or NaN bits (a bounded fork copy,
 // and at slot E - 1 the next slot in memory is the next layer's slot 0): no
 // copy reaches them, so they never enter shared memory; the current token's
-// slot is read from the copied k_new/v_new rows. K9's scales are copied
-// for the slots below n_gen only (NaN above them would give 0 · NaN).
+// slot is read from the copied k_new/v_new rows. K6's and K9's scales are
+// copied for the slots below n_gen only (NaN above them would give 0 · NaN).
 //
 // Not carried over from the TPU kernels: the 0/1 head-grouping matmul (the
 // head sums are lane shuffles), the 8-slot prefix padding (a copy takes any
@@ -101,13 +125,14 @@ __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 // Shared-memory layout of one block, as byte offsets from the dynamic base
 // (each 16-byte aligned), for R = min(rows, kRowGroup) rows, values of
 // tsize bytes (q, k_new, v_new), a generated cache of csize and a prefix of
-// psize (tsize, or 1 for int8 levels). The wrapper's plan
-// (ops/decode_attention.py attention_plan) computes the same total; the
-// launch refuses a mismatch.
+// psize (tsize, or 1 for int8 levels); `inreg` (K6) reads the int8 cache's
+// stages in place. The wrapper's plan (ops/decode_attention.py
+// attention_plan) computes the same total; the launch refuses a mismatch.
 struct Layout {
   int rowb;   // bytes of one head slice of T
   int NC;     // consumer warps; the last warp of the block produces
   int J;      // f32 value pass: consumer threads per (row, 16-byte word)
+  int J8;     // K6's value pass: consumer threads per (row, 16-level word)
   int scw;    // score row width: K + nchunks * tile
   int stage;  // bytes a stage: max(K prefix slices, R * tile cache slices)
   // where each region starts; the mbarriers (nbuf full, nbuf empty) first
@@ -119,27 +144,31 @@ struct Layout {
   int sc;     // scores, then exp(score - max): f32 [R][scw]
   int scl;    // int8 scales f32: prefix K, V [K] each; cache K, V [R][n_gen]
   int part;   // f32: the value sums f32 [R][J][hd]
+  int part8;  // K6: the generated slots' value sums f32 [R][J8][hd]
   int stats;  // the softmax sums: f32 [R]
   int total;
   __host__ __device__ Layout(int R, int K, int hd, int tsize, int csize,
                              int psize, int tile, int nbuf, int threads,
-                             int n_gen) {
+                             int n_gen, bool inreg) {
     rowb = hd * tsize;
     NC = threads / 32 - 1;
     J = imax(1, NC * 32 / (R * (rowb / 16)));
+    J8 = inreg ? imax(1, NC * 32 / (R * (hd / 16))) : 0;
     scw = K + (n_gen + tile) / tile * tile;
     stage = up16(imax(K * hd * psize, R * tile * hd * csize));
     ring = up16(16 * nbuf);
     wide = ring + nbuf * stage;
     red = ring;
-    cur = wide + imax(psize < tsize ? K : 0, csize < tsize ? R * tile : 0) *
-                     rowb;
+    cur = wide + (inreg ? 0
+                        : imax(psize < tsize ? K : 0,
+                               csize < tsize ? R * tile : 0) * rowb);
     if (tsize == 2) cur = imax(cur, red + NC * ((R + 7) / 8) * 8 * hd * 4);
     sc = cur + 3 * R * rowb;
     scl = sc + up16(R * scw * 4);
     part = scl + up16(((psize == 1 ? 2 * K : 0) +
                        (csize == 1 ? 2 * R * n_gen : 0)) * 4);
-    stats = part + (tsize == 2 ? 0 : R * J * hd * 4);
+    part8 = part + (tsize == 2 ? 0 : R * J * hd * 4);
+    stats = part8 + R * J8 * hd * 4;
     total = stats + up16(R * 4);
   }
 };
@@ -349,18 +378,58 @@ __device__ __forceinline__ void widen_word(const int8_t* src, T* wide,
   }
 }
 
+// 16 consecutive values of word w16 (16 values wide) of slice idx of a T
+// region as f32.
+template <typename T, int HD>
+__device__ __forceinline__ void load16_slice(const T* base, int idx, int w16,
+                                             float (&f)[16]) {
+  constexpr int V = 16 / sizeof(T);  // values a 16-byte word
+#pragma unroll
+  for (int i = 0; i < 16 / V; ++i) {
+    float x[V];
+    load_word(word_at<T, HD>(base, idx, w16 * (16 / V) + i), x);
+#pragma unroll
+    for (int k = 0; k < V; ++k) f[i * V + k] = x[k];
+  }
+}
+
+// The 16 int8 levels at p (16-byte aligned, in shared memory) as exact f32.
+__device__ __forceinline__ void levels16(const int8_t* p, float (&f)[16]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float a[4];
+    levels4(u[i], a);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) f[4 * i + k] = a[k];
+  }
+}
+
+// A probability rounded to T, as the plain version rounds it before its
+// product with V.
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // 128-thread blocks (three consumer warps and a producer) of head_dim <= 64
 // fit six to an SM by registers.
 // T: q, k_new, v_new (and the f32 sums' inputs); C: the generated cache;
-// P: the prefix (C and P are T, or int8 levels with scales).
-template <typename T, typename C, typename P, int HD>
+// P: the prefix (C and P are T, or int8 levels with scales). kInReg (K6,
+// C int8 and P T): the cache's stages are read in place and widened in
+// registers, and its products run in f32 FMA.
+template <typename T, typename C, typename P, int HD, bool kInReg>
 __global__ void __launch_bounds__(128, HD <= 64 ? 6 : 3)
 async_attn(const Args args, float scale) {
   constexpr bool kMma = sizeof(T) == 2;  // bf16: tensor cores
   constexpr int V = 16 / sizeof(T);      // values per 16-byte word
   constexpr int LP = HD / V;             // 16-byte words a head slice
+  constexpr int LQ = HD / 16;            // 16-level words an int8 slice
   constexpr bool kNarrowP = sizeof(P) < sizeof(T);  // an int8 prefix
   constexpr bool kNarrowC = sizeof(C) < sizeof(T);  // an int8 cache
+  static_assert(!kInReg || (kNarrowC && !kNarrowP),
+                "in-place int8 reads: an int8 cache under a prefix of T");
   const T* q = static_cast<const T*>(args.q);
   const T* kn = static_cast<const T*>(args.kn);
   const T* vn = static_cast<const T*>(args.vn);
@@ -375,7 +444,7 @@ async_attn(const Args args, float scale) {
   const int RG = imin(R, kRowGroup);
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay(RG, K, HD, sizeof(T), sizeof(C), sizeof(P), tile, nbuf,
-                   blockDim.x, n_gen);
+                   blockDim.x, n_gen, kInReg);
   const int h = blockIdx.x, n = blockIdx.y;
   // this block's rows: Rb rows of image n from its row rg0 on
   const int rg0 = blockIdx.z * kRowGroup, Rb = imin(kRowGroup, R - rg0);
@@ -398,6 +467,8 @@ async_attn(const Args args, float scale) {
   float* sgk = scl + (kNarrowP ? 2 * K : 0);
   float* sgv = sgk + RG * n_gen;
   float* part = reinterpret_cast<float*>(smem + lay.part);
+  float* part8 = reinterpret_cast<float*>(smem + lay.part8);
+  const int J8 = lay.J8;
   float* den = reinterpret_cast<float*>(smem + lay.stats);
 
   if (tid == 0) {
@@ -411,10 +482,15 @@ async_attn(const Args args, float scale) {
     for (int i = tid; i < Rb * J * HD; i += blockDim.x) part[i] = 0.f;
   __syncthreads();
 
-  // Stage s: 0 the prefix K (and q, k_new, v_new and K9's scales),
+  // Stage s: 0 the prefix K (and q, k_new, v_new and the int8 scales),
   // 1 .. nchunks the K chunks of `tile` slots of the block's rows; then
-  // the prefix V and the V chunks. Stage s fills buffer s % nbuf.
-  auto chunk_of = [&](int s) { return s > nchunks ? s - nchunks - 2 : s - 1; };
+  // the prefix V and the V chunks (K6: the V chunks, then the prefix V).
+  // Stage s fills buffer s % nbuf.
+  auto chunk_of = [&](int s) {
+    if (s <= nchunks) return s - 1;
+    if constexpr (kInReg) return s == nst - 1 ? -1 : s - nchunks - 1;
+    return s - nchunks - 2;
+  };
   // an int8 stage, widened before use
   auto narrow = [&](int s) { return chunk_of(s) < 0 ? kNarrowP : kNarrowC; };
   if (warp == NC) {
@@ -669,9 +745,100 @@ async_attn(const Args args, float scale) {
     }
   };
 
+  // K6: the int8 chunk c of the block's rows, read where it landed: its
+  // slots g0 = c * tile on, gcnt of them below n_gen (the current token
+  // is apart: its score is taken with the softmax, its value with the
+  // output).
+  auto gen_slots = [&](int c) { return imin(tile, n_gen - c * tile); };
+  // K6 scores: a unit of LQ lanes takes LQ slots k, k + nu, ... of one row
+  // (nu units a row); lane sub8 sums its word of each, and a reduce-scatter
+  // leaves it slot k + nu * sub8's score. The trip count is every
+  // consumer's, so every lane reaches the shuffles.
+  const int sub8 = tid % LQ, grp8 = tid / LQ, ngrp8 = NCT / LQ;
+  auto score_q8 = [&](const int8_t* buf, int c) {
+    const int g0 = c * tile, gcnt = gen_slots(c);
+    const int nu = (gcnt + LQ - 1) / LQ;
+    for (int u0 = 0; u0 < Rb * nu; u0 += ngrp8) {
+      const int u = u0 + grp8;
+      const bool live = u < Rb * nu;
+      const int r = live ? u / nu : 0, k = live ? u % nu : 0;
+      float qv[16];
+      load16_slice<T, HD>(cur, r, sub8, qv);
+      const int8_t* base = buf + (size_t)r * tile * HD + sub8 * 16;
+      float acc[LQ];
+#pragma unroll
+      for (int j = 0; j < LQ; ++j) {
+        acc[j] = 0.f;
+        const int s = k + nu * j;
+        if (live && s < gcnt) {
+          float kv[16];
+          levels16(base + (size_t)s * HD, kv);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[j] = fmaf(qv[i], kv[i], acc[j]);
+        }
+      }
+#pragma unroll
+      for (int lv = 1; lv < LQ; lv *= 2) {
+        const int w = LQ / (2 * lv);
+        const bool hi = sub8 & w;  // keep the upper half of the 2w slots
+#pragma unroll
+        for (int j = 0; j < w; ++j) {
+          const float send = hi ? acc[j] : acc[j + w];
+          acc[j] = (hi ? acc[j + w] : acc[j]) +
+                   __shfl_xor_sync(0xffffffffu, send, w);
+        }
+      }
+      const int s = k + nu * sub8;
+      if (live && s < gcnt)
+        sc[r * scw + K + g0 + s] = acc[0] * sgk[r * n_gen + g0 + s] * scale;
+    }
+  };
+  // K6 values: item ow = tid + o8 * NCT of a consumer thread (row r, j,
+  // word col) sums the weights (V scale folded, rounded to T) times the 16
+  // dims of slots j, j + J8, ...; its sums stay in registers over the
+  // chunks (kOW items a thread: two only for hd 128 with more than 12
+  // rows) and meet in part8 after the last.
+  constexpr int kOW = HD == 128 ? 2 : 1;
+  auto values_q8 = [&](const int8_t* buf, int c, float (&acc)[kOW][16]) {
+    const int g0 = c * tile, gcnt = gen_slots(c);
+#pragma unroll
+    for (int o8 = 0; o8 < kOW; ++o8) {
+      const int ow = tid + o8 * NCT;
+      if (ow < Rb * J8 * LQ) {
+        const int col = ow % LQ, rj = ow / LQ, j = rj % J8, r = rj / J8;
+        const float* w = sc + r * scw + K + g0;
+        const int8_t* base = buf + (size_t)r * tile * HD + col * 16;
+#pragma unroll 2
+        for (int s = j; s < gcnt; s += J8) {
+          float v[16];
+          levels16(base + (size_t)s * HD, v);
+          const float e = round_to(w[s], q);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[o8][i] = fmaf(e, v[i], acc[o8][i]);
+        }
+      }
+    }
+  };
+  // value d of slice idx of `cur` (q, k_new, v_new) as f32
+  auto cur_at = [&](int idx, int d) {
+    return to_f32(*(word_at<T, HD>(cur, idx, d / V) + d % V));
+  };
+  // wait for K6's int8 stage s; released by give(s) once consumed
+  auto land8 = [&](int s) {
+    bar_wait(full + s % nbuf, (s / nbuf) & 1);
+    return reinterpret_cast<const int8_t*>(ring + (size_t)(s % nbuf) *
+                                                      lay.stage);
+  };
+
   // Scores of every K stage as it lands.
   int ub = 0;
   for (int s = 0; s <= nchunks; ++s) {
+    if constexpr (kInReg)
+      if (chunk_of(s) >= 0) {
+        score_q8(land8(s), chunk_of(s));
+        give(s);
+        continue;
+      }
     const Part<T> p = land(s);
     if constexpr (kMma) {
 #pragma unroll
@@ -689,6 +856,14 @@ async_attn(const Args args, float scale) {
   const int width = K + G;
   for (int r = warp; r < Rb; r += NC) {
     float* row = sc + r * scw;
+    if constexpr (kInReg) {  // K6: the current token's score
+      float p = 0.f;
+      for (int d = lane; d < HD; d += 32)
+        p = fmaf(cur_at(r, d), cur_at(Rb + r, d), p);
+      p = warp_sum(p);
+      if (lane == 0) row[K + n_gen] = p * scale;
+      __syncwarp();
+    }
     float m = -INFINITY;
     for (int s = lane; s < width; s += 32) m = fmaxf(m, row[s]);
     m = warp_max(m);
@@ -707,10 +882,27 @@ async_attn(const Args args, float scale) {
     if (lane == 0) den[r] = l;
   }
   consumers_sync(NCT);
-  // Values of every V stage as it lands.
+  // Values of every V stage as it lands: K6's int8 chunks first, so that
+  // the tensor-core sums o are live only for its last stage, the prefix.
+  int v0 = nchunks + 1;
+  if constexpr (kInReg) {
+    float acc8[kOW][16] = {};
+    for (; chunk_of(v0) >= 0; ++v0) {
+      values_q8(land8(v0), chunk_of(v0), acc8);
+      give(v0);
+    }
+#pragma unroll
+    for (int o8 = 0; o8 < kOW; ++o8) {
+      const int ow = tid + o8 * NCT;
+      if (ow < Rb * J8 * LQ)
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          part8[(size_t)(ow / LQ) * HD + ow % LQ * 16 + i] = acc8[o8][i];
+    }
+  }
   float o[2][HD / 16][4] = {};  // bf16: O^T of the (at most two) query tiles
   ub = 0;
-  for (int s = nchunks + 1; s < nst; ++s) {
+  for (int s = v0; s < nst; ++s) {
     const Part<T> p = land(s);
     if constexpr (kMma) {
 #pragma unroll
@@ -747,62 +939,80 @@ async_attn(const Args args, float scale) {
     } else {
       for (int j = 0; j < J; ++j) s += part[(r * J + j) * HD + d];
     }
+    if constexpr (kInReg) {  // K6: the int8 slots', then the current token's
+      for (int j = 0; j < J8; ++j) s += part8[(r * J8 + j) * HD + d];
+      s += round_to(sc[r * scw + K + n_gen], q) * cur_at(2 * Rb + r, d);
+    }
     out[(row0 + r) * D + (size_t)h * HD + d] = s / den[r];
   }
 }
 
 
-template <typename T, typename C, typename P, int HD>
+template <typename T, typename C, typename P, int HD, bool kInReg>
 cudaError_t launch(const Args& a, int threads, int smem, cudaStream_t stream) {
   const Layout lay(imin(a.R, kRowGroup), a.K, HD, sizeof(T), sizeof(C),
-                   sizeof(P), a.tile, a.nbuf, threads, a.n_gen);
+                   sizeof(P), a.tile, a.nbuf, threads, a.n_gen, kInReg);
   if (lay.total != smem || threads % 32 || threads < 64 || threads > 128 ||
       a.tile < 1 || a.nbuf < 2 || a.R < 1 || a.R > 2 * kRowGroup)
     return cudaErrorInvalidValue;
+  // K6: each consumer thread holds at most two (hd 128) or one value items
+  if (kInReg && imin(a.R, kRowGroup) * lay.J8 * (HD / 16) >
+                    (HD == 128 ? 2 : 1) * (threads - 32))
+    return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        async_attn<T, C, P, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        async_attn<T, C, P, HD, kInReg>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(a.D / HD, a.N, (a.R + kRowGroup - 1) / kRowGroup);
-  async_attn<T, C, P, HD><<<grid, threads, smem, stream>>>(
+  async_attn<T, C, P, HD, kInReg><<<grid, threads, smem, stream>>>(
       a, 1.f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
-template <typename T, typename C, typename P>
+template <typename T, typename C, typename P, bool kInReg = false>
 cudaError_t launch_hd(const Args& a, int hd, int threads, int smem,
                       cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, C, P, 32>(a, threads, smem, stream);
+      return launch<T, C, P, 32, kInReg>(a, threads, smem, stream);
     case 64:
-      return launch<T, C, P, 64>(a, threads, smem, stream);
+      return launch<T, C, P, 64, kInReg>(a, threads, smem, stream);
     case 128:
-      return launch<T, C, P, 128>(a, threads, smem, stream);
+      return launch<T, C, P, 128, kInReg>(a, threads, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The instances a caller reaches: (T, T, T) for K2, K8 and K15; (T, int8,
-// T) and (T, int8, int8) for K9 (an int8 prefix comes with its scales).
+// The slot policies a caller reaches.
+enum Kind { kPlainCache, kInt8Widened, kInt8InReg };
+
+// The instances: (T, T, T) for K2, K8 and K15; (T, int8, T) and (T, int8,
+// int8) for K9 (an int8 prefix comes with its scales); (T, int8, T) read in
+// registers for K6.
 template <typename T>
-cudaError_t launch_kind(const Args& a, bool int8_cache, int hd, int threads,
+cudaError_t launch_kind(const Args& a, Kind kind, int hd, int threads,
                         int smem, cudaStream_t stream) {
-  if (!int8_cache) return launch_hd<T, T, T>(a, hd, threads, smem, stream);
-  return a.pks ? launch_hd<T, int8_t, int8_t>(a, hd, threads, smem, stream)
-               : launch_hd<T, int8_t, T>(a, hd, threads, smem, stream);
+  switch (kind) {
+    case kPlainCache:
+      return launch_hd<T, T, T>(a, hd, threads, smem, stream);
+    case kInt8Widened:
+      return a.pks ? launch_hd<T, int8_t, int8_t>(a, hd, threads, smem,
+                                                  stream)
+                   : launch_hd<T, int8_t, T>(a, hd, threads, smem, stream);
+    default:
+      return launch_hd<T, int8_t, T, true>(a, hd, threads, smem, stream);
+  }
 }
 
-int run(const Args& a, bool int8_cache, int hd, int threads, int smem,
-        int dtype, cudaStream_t stream) {
+int run(const Args& a, Kind kind, int hd, int threads, int smem, int dtype,
+        cudaStream_t stream) {
   return static_cast<int>(
       dtype == kBF16
-          ? launch_kind<__nv_bfloat16>(a, int8_cache, hd, threads, smem,
-                                       stream)
-          : launch_kind<float>(a, int8_cache, hd, threads, smem, stream));
+          ? launch_kind<__nv_bfloat16>(a, kind, hd, threads, smem, stream)
+          : launch_kind<float>(a, kind, hd, threads, smem, stream));
 }
 
 }  // namespace
@@ -819,7 +1029,8 @@ extern "C" int capdec_beam_decode_attention_rowmajor(
                        nullptr, nullptr, out, N,    R,       L,
                        K,  E,       D,       layer,   n_gen,   tile,
                        nbuf};
-  return capdec::run(a, false, hd, threads, smem, dtype, stream);
+  return capdec::run(a, capdec::kPlainCache, hd, threads, smem, dtype,
+                     stream);
 }
 
 // K8: n_gen = step (the TPU's `chunk` tiles are the wrapper's to check).
@@ -831,6 +1042,23 @@ extern "C" int capdec_beam_decode_attention_chunked(
   return capdec_beam_decode_attention_rowmajor(
       q, kn, vn, qs, pk, pv, gk, gv, out, N, R, L, K, E, D, hd, layer, n_gen,
       tile, nbuf, threads, smem, dtype, stream);
+}
+
+// K6: n_gen = min(step, e_cap) over int8 levels gk/gv with scales gks/gvs,
+// under a prefix of q's type.
+extern "C" int capdec_beam_decode_attention_rowmajor_q(
+    const void* q, const void* kn, const void* vn, long qs, const void* pk,
+    const void* pv, const void* gk, const void* gv, const float* gks,
+    const float* gvs, float* out, int N, int R, int L, int K, int E, int D,
+    int hd, int layer, int n_gen, int tile, int nbuf, int threads, int smem,
+    int dtype, cudaStream_t stream) {
+  if (!gks || !gvs) return static_cast<int>(cudaErrorInvalidValue);
+  const capdec::Args a{q,   kn,      vn,    qs,    pk,    pv,      nullptr,
+                       nullptr, gk,  gv,    gks,   gvs,   nullptr, nullptr,
+                       out, N,       R,     L,     K,     E,       D,
+                       layer, n_gen, tile,  nbuf};
+  return capdec::run(a, capdec::kInt8InReg, hd, threads, smem, dtype,
+                     stream);
 }
 
 // K9: n_gen = step over int8 levels gk/gv with scales gks/gvs; with
@@ -848,7 +1076,8 @@ extern "C" int capdec_beam_decode_attention_chunked_q(
                        pvs, gk, gv,  gks,     gvs,     nullptr, nullptr,
                        out, N,  R,   L,       K,       E,     D,
                        layer, n_gen, tile,    nbuf};
-  return capdec::run(a, true, hd, threads, smem, dtype, stream);
+  return capdec::run(a, capdec::kInt8Widened, hd, threads, smem, dtype,
+                     stream);
 }
 
 // K15: one layer's caches gk/gv [B, E, D] (the wrapper passes L = 1,
@@ -863,5 +1092,6 @@ extern "C" int capdec_beam_decode_attention(
                        gk, gv,      out,     N,    R,       L,
                        K,  E,       D,       layer, n_gen,  tile,
                        nbuf};
-  return capdec::run(a, false, hd, threads, smem, dtype, stream);
+  return capdec::run(a, capdec::kPlainCache, hd, threads, smem, dtype,
+                     stream);
 }

@@ -40,9 +40,9 @@ SIGNATURES = {
         [P, P, P, L, *[P] * 5, *[I] * 14, P],
     "capdec_write_gen_slot": [P, P, P, P, I, I, I, I, L, P],
     "capdec_copy_forked_rows_bounded": [P, P, P, I, I, I, I, L, P],
-    "capdec_write_gen_slot_q": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "capdec_write_gen_slot_q": [*[P] * 6, *[I] * 8, P],
     "capdec_beam_decode_attention_rowmajor_q":
-        [P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+        [P, P, P, L, *[P] * 7, *[I] * 14, P],
     "capdec_copy_forked_rows": [P, P, P, I, L, P],
     "capdec_beam_decode_attention_chunked":
         [P, P, P, L, *[P] * 5, *[I] * 14, P],

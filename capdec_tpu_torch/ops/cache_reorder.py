@@ -184,6 +184,30 @@ def write_gen_slot_chunk_q_plain(k: torch.Tensor, v: torch.Tensor,
     return {"k": k, "v": v, "ks": ks, "vs": vs}
 
 
+# The launch plan of K5 (csrc/cache_reorder.cu write_gen_slot_q): blocks
+# of QUANT_THREADS threads, each warp taking the (row, layer, K|V) items
+# warp, warp + warps, ...; a lane holds `units` 8-value units (4 up to D
+# 1024, else 8) in registers. One warp an item, so that the block
+# scheduler overlaps one warp's arithmetic with the others' loads (on the
+# H100 a grid of at most 8 blocks an SM looping over items was no faster:
+# scripts/torch_int8_ablate.py).
+QUANT_THREADS = 128
+QUANT_MAX_D = 2048
+
+
+def quant_write_plan(B: int, L: int, D: int) -> dict:
+    """K5's launch for new_k/new_v [B, L, D]: `blocks` of `threads`, one
+    warp for each of the 2 B L items. Raises for a D the kernel does not
+    take."""
+    if D % 16 or not 0 < D <= QUANT_MAX_D:
+        raise ValueError(f"the kernel takes D % 16 == 0 and D <= "
+                         f"{QUANT_MAX_D}, got {D}")
+    items = 2 * B * L
+    return dict(blocks=-(-items // (QUANT_THREADS // 32)),
+                threads=QUANT_THREADS,
+                units=4 if D <= QUANT_MAX_D // 2 else 8, items=items)
+
+
 def write_gen_slot_chunk_q(k: torch.Tensor, v: torch.Tensor,
                            ks: torch.Tensor, vs: torch.Tensor,
                            new_k: torch.Tensor, new_v: torch.Tensor,
@@ -210,16 +234,15 @@ def write_gen_slot_chunk_q(k: torch.Tensor, v: torch.Tensor,
                 n.data_ptr() % 16:
             raise ValueError("new_k/new_v must be contiguous, aligned "
                              "[B, L, D] of one dtype")
-    if D % 16 or D > 2048:
-        raise ValueError(f"the kernel takes D % 16 == 0 and D <= 2048, "
-                         f"got {D}")
     if not 0 <= step < E:
         raise ValueError(f"step {step} out of range for E={E}")
+    code = _build.dtype_code(new_k)
+    plan = quant_write_plan(B, L, D)
     lib = _build.library()
     _build.check(lib.capdec_write_gen_slot_q(
         k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         new_k.data_ptr(), new_v.data_ptr(), B, L, E, D, step,
-        _build.dtype_code(new_k), _build.stream(k.device)),
+        plan["blocks"], plan["threads"], code, _build.stream(k.device)),
         "write_gen_slot_chunk_q")
     write_gen_slot_chunk_q.launches += 1
     return {"k": k, "v": v, "ks": ks, "vs": vs}

@@ -15,13 +15,12 @@ scales. K15 (the v1 kernel, which no path of the JAX package calls)
 attends over one layer's caches [B, E, D] and also writes the step's K/V
 into slot `step`, in place.
 
-On a CUDA tensor a wrapper launches csrc/decode_attention_async.cu (K2,
-K8, K9, K15: one kernel fed by asynchronous copies, launched with the plan
-of `attention_plan`; K9 and K15 are its int8 and slot-write policies) or
-csrc/decode_attention.cu (K6); each note says what bounds the kernel on
-the H100 and how the design answers. On a CPU tensor it runs its plain
-version, the un-fused attention math of the JAX reference's decode_step
-(gpt2.py:612-664).
+On a CUDA tensor a wrapper launches csrc/decode_attention_async.cu (one
+kernel fed by asynchronous copies, launched with the plan of
+`attention_plan`; K6 and K9 are its int8 policies, K15 its slot-write
+policy); its note says what bounds the kernel on the H100 and how the
+design answers. On a CPU tensor it runs its plain version, the un-fused
+attention math of the JAX reference's decode_step (gpt2.py:612-664).
 
 Generated slots at or above `step` may hold stale or NaN bits after a
 bounded fork copy: the kernel never reads them, and the plain version
@@ -149,7 +148,17 @@ def _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
     return min(step, cap)
 
 
-# The launch plan of csrc/decode_attention_async.cu (K2, K8, K9, K15).
+def _check_gen_scales(q, gk, gks, gvs):
+    """An int8 generated cache's scales (K6, K9): contiguous f32
+    [B, L, 1, E] on q's device."""
+    B, L, E = gk.shape[0], gk.shape[1], gk.shape[2]
+    for s in (gks, gvs):
+        if s.shape != (B, L, 1, E) or s.dtype != torch.float32 or \
+                s.device != q.device or not s.is_contiguous():
+            raise ValueError("gks/gvs must be contiguous f32 [B, L, 1, E]")
+
+
+# The launch plan of csrc/decode_attention_async.cu (K2, K6, K8, K9, K15).
 ATTN_THREADS = 128  # a block: three consumer warps and a producer warp
 ATTN_STAGES = 2     # stages in a block's ring
 ATTN_ROW_GROUP = 16  # rows a block serves (two tensor-core row tiles)
@@ -165,11 +174,14 @@ def _up16(x: int) -> int:
 
 
 def _attention_smem(R, K, hd, itemsize, tile, nbuf, threads, n_gen,
-                    cache_size=None, prefix_size=None) -> int:
+                    cache_size=None, prefix_size=None, inreg=False) -> int:
     """Bytes of shared memory a block uses: the `Layout` total of
     csrc/decode_attention_async.cu, which refuses a launch whose plan
     disagrees. `itemsize` is q's; `cache_size` and `prefix_size` the
-    generated cache's and the prefix's (q's, or 1 for int8 levels)."""
+    generated cache's and the prefix's (q's, or 1 for int8 levels);
+    `inreg`: K6's policy, whose int8 stages are read in place (no widened
+    stage) and whose value sums of the generated slots take J8 threads a
+    (row, 16-level word)."""
     csize, psize = cache_size or itemsize, prefix_size or itemsize
     R = min(R, ATTN_ROW_GROUP)  # the rows of one block
     rowb = hd * itemsize
@@ -177,14 +189,16 @@ def _attention_smem(R, K, hd, itemsize, tile, nbuf, threads, n_gen,
     ring = _up16(16 * nbuf)  # the full and empty mbarriers
     stage = _up16(max(K * hd * psize, R * tile * hd * csize))
     # an int8 stage widened to q's type
-    wide = max(K if psize < itemsize else 0,
-               R * tile if csize < itemsize else 0) * rowb
+    wide = 0 if inreg else max(K if psize < itemsize else 0,
+                               R * tile if csize < itemsize else 0) * rowb
     cur = ring + nbuf * stage + wide
     if itemsize == 2:  # bf16: the consumer warps' value sums, over the ring
         cur = max(cur, ring + consumers * -(-R // 8) * 8 * hd * 4)
         sums = 0
     else:  # f32: J threads' sums per (row, 16-byte word)
         sums = R * max(1, consumers * 32 // (R * (rowb // 16))) * hd * 4
+    if inreg:  # K6: the generated slots' value sums [R][J8][hd]
+        sums += R * max(1, consumers * 32 // (R * (hd // 16))) * hd * 4
     scw = K + (n_gen + tile) // tile * tile
     scales = (2 * K if psize == 1 else 0) + (2 * R * n_gen if csize == 1
                                              else 0)
@@ -195,8 +209,9 @@ def _attention_smem(R, K, hd, itemsize, tile, nbuf, threads, n_gen,
 @functools.lru_cache(maxsize=512)
 def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
                    itemsize: int, cache_size: Optional[int] = None,
-                   prefix_size: Optional[int] = None) -> dict:
-    """The launch of the K2/K8/K9/K15 kernel for one call: a block of
+                   prefix_size: Optional[int] = None,
+                   inreg: bool = False) -> dict:
+    """The launch of the K2/K6/K8/K9/K15 kernel for one call: a block of
     `threads` per (head, image, group of at most ATTN_ROW_GROUP rows) on a
     grid of (D // hd, N, ceil(R / ATTN_ROW_GROUP)), each block serving its
     group's rows. The block streams 2 * (1 + nchunks) stages through a
@@ -206,9 +221,10 @@ def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
     about twice the prefix's slices (tile = 2 ceil(K / rows);
     on the H100 this beat chunks of one prefix and rings of three to eight
     stages, and tied with three prefixes: scripts/torch_attn_sweep.py), so
-    a chunk of int8 levels (`cache_size` 1: K9) starts at twice the slots;
-    the tile shrinks until the block fits the first budget of
-    ATTN_SMEM_BUDGETS that can hold it. Raises if nothing fits a block."""
+    a chunk of int8 levels (`cache_size` 1: K6, K9) starts at twice the
+    slots; `inreg`: K6's policy (`_attention_smem`). The tile shrinks until
+    the block fits the first budget of ATTN_SMEM_BUDGETS that can hold it.
+    Raises if nothing fits a block."""
     G = n_gen + 1
     csize = cache_size or itemsize
     rows = min(R, ATTN_ROW_GROUP)
@@ -217,7 +233,7 @@ def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
         for tile in range(max(1, min(G, start)), 0, -1):
             smem = _attention_smem(R, K, hd, itemsize, tile, ATTN_STAGES,
                                    ATTN_THREADS, n_gen, cache_size,
-                                   prefix_size)
+                                   prefix_size, inreg)
             if smem <= budget:
                 return dict(grid=(D // hd, N, -(-R // ATTN_ROW_GROUP)),
                             threads=ATTN_THREADS, tile=tile,
@@ -229,12 +245,13 @@ def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
 
 
 def _attend_async(entry: str, q, k_new, v_new, pk, pv, gk, gv, layer, R,
-                  hd, n_gen, scales=None) -> torch.Tensor:
+                  hd, n_gen, scales=(), inreg=False) -> torch.Tensor:
     """One launch of csrc/decode_attention_async.cu through C entry
     `entry`: every head slice, q/k_new/v_new's included, travels in
     16-byte copies. `scales`: K9's (pks, pvs, gks, gvs), pks/pvs None for
-    a prefix of q's type; the C entry then takes them after pk/pv and
-    gk/gv."""
+    a prefix of q's type, or K6's (gks, gvs); the C entry takes the
+    prefix's after pk/pv and the cache's after gk/gv. `inreg`: K6's
+    policy."""
     if hd not in (32, 64, 128) or \
             any(t.data_ptr() % 16 for t in (q, k_new, v_new, pk, pv, gk, gv)) \
             or q.stride(0) * q.element_size() % 16:
@@ -244,13 +261,11 @@ def _attend_async(entry: str, q, k_new, v_new, pk, pv, gk, gv, layer, R,
     B, D = q.shape
     L, N, K, _ = pk.shape
     plan = attention_plan(N, R, K, D, hd, n_gen, q.element_size(),
-                          gk.element_size(), pk.element_size())
+                          gk.element_size(), pk.element_size(), inreg)
     out = torch.empty(B, D, device=q.device, dtype=torch.float32)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    pks, pvs, gks, gvs = [ptr(t) for t in scales] if scales else [None] * 4
-    prefix = (pk.data_ptr(), pv.data_ptr(),
-              *((pks, pvs) if scales else ()))
-    cache = (gk.data_ptr(), gv.data_ptr(), *((gks, gvs) if scales else ()))
+    ptrs = [None if t is None else t.data_ptr() for t in scales]
+    prefix = (pk.data_ptr(), pv.data_ptr(), *ptrs[:-2])
+    cache = (gk.data_ptr(), gv.data_ptr(), *ptrs[-2:])
     _build.check(getattr(_build.library(), entry)(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
         *prefix, *cache, out.data_ptr(), N, R, L, K, gk.shape[2], D, hd,
@@ -320,25 +335,10 @@ def beam_decode_attention_rowmajor_q(
     R, hd = beams_per_image, head_dim
     n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
                         hd, e_cap, torch.int8)
-    B, D = q.shape
-    L, N, K, _ = pk.shape
-    E = gk.shape[2]
-    if hd not in (32, 64, 128) or D % 16 or gk.data_ptr() % 16 or \
-            gv.data_ptr() % 16:
-        raise ValueError("K6 reads 16 levels per load: head_dim in "
-                         "{32, 64, 128}, D % 16 == 0, aligned caches")
-    for s in (gks, gvs):
-        if s.shape != (B, L, 1, E) or s.dtype != torch.float32 or \
-                s.device != q.device or not s.is_contiguous():
-            raise ValueError("gks/gvs must be contiguous f32 [B, L, 1, E]")
-    out = torch.empty(B, D, device=q.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.capdec_beam_decode_attention_rowmajor_q(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
-        pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-        gks.data_ptr(), gvs.data_ptr(), out.data_ptr(), N, R, L, K, E, D, hd,
-        layer, n_gen, _build.dtype_code(q), _build.stream(q.device)),
-        "beam_decode_attention_rowmajor_q")
+    _check_gen_scales(q, gk, gks, gvs)
+    out = _attend_async("capdec_beam_decode_attention_rowmajor_q", q, k_new,
+                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen,
+                        scales=(gks, gvs), inreg=True)
     beam_decode_attention_rowmajor_q.launches += 1
     return out
 
@@ -460,13 +460,8 @@ def beam_decode_attention_chunked_q(
     n_gen = _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
                            hd, chunk, torch.int8,
                            torch.int8 if int8_prefix else None)
-    B, D = q.shape
+    _check_gen_scales(q, gk, gks, gvs)
     L, N, K, _ = pk.shape
-    E = gk.shape[2]
-    for s in (gks, gvs):
-        if s.shape != (B, L, 1, E) or s.dtype != torch.float32 or \
-                s.device != q.device or not s.is_contiguous():
-            raise ValueError("gks/gvs must be contiguous f32 [B, L, 1, E]")
     for s in ((pks, pvs) if int8_prefix else ()):
         if s.shape != (L, N, 1, K) or s.dtype != torch.float32 or \
                 s.device != q.device or not s.is_contiguous():

@@ -18,11 +18,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (the least time the card could take). The slot writes K3, K5, K13
      and K14 are timed over inputs and slots rotated through more than
      twice the L2, so that they read device memory as their bound
-     assumes; K2, K8, K9 and K15 (one kernel, decode_attention_async.cu,
-     whose 18 instances must build without spills) and their SDPA
-     yardstick at steps 1, 33 and 66, on one layer and rotated over the
-     layers or cache sets (SDPA over key sets); K9 at R = 5 with both
-     prefix kinds and at R = 1 with the int8 prefix.
+     assumes (K5's four instances must build without spills); K2, K6, K8,
+     K9 and K15 (one kernel, decode_attention_async.cu, whose 24
+     instances must build without spills) and their SDPA yardstick at
+     steps 1, 33 and 66, on one layer and rotated over the layers or
+     cache sets (SDPA over key sets); K9 at R = 5 with both prefix kinds
+     and at R = 1 with the int8 prefix.
   3. The served paths: a CaptionServer on full-width weights made from a
      seed (GPT-2 124M + the 8-layer TransformerMapper, prefix 640 -> 40,
      bf16, batch 64, entry_length 67) serves 128 requests on each path;
@@ -281,13 +282,23 @@ def ptxas_report(log_text: str) -> dict:
 
 def async_attn_instance(mangled: str) -> str:
     """'bf16 cache int8 prefix int8 hd64' for the mangled name of
-    async_attn<T, C, P, HD> (int8_t mangles as 'a'; a repeated T as a
-    substitution)."""
-    m = re.search(r"async_attnI(13__nv_bfloat16|f)(.*?)Li(\d+)E", mangled)
+    async_attn<T, C, P, HD, kInReg> (int8_t mangles as 'a'; a repeated T
+    as a substitution), with ' inreg' for K6's policy (kInReg true)."""
+    m = re.search(r"async_attnI(13__nv_bfloat16|f)(.*?)Li(\d+)ELb([01])E",
+                  mangled)
     t = "bf16" if m.group(1) != "f" else "f32"
     cache = "int8" if m.group(2).startswith("a") else t
     prefix = "int8" if m.group(2) == "aa" else t
-    return f"{t} cache {cache} prefix {prefix} hd{m.group(3)}"
+    inreg = " inreg" if m.group(4) == "1" else ""
+    return f"{t} cache {cache} prefix {prefix} hd{m.group(3)}{inreg}"
+
+
+def quant_write_instance(mangled: str) -> str:
+    """'write_gen_slot_q<bf16, 4>' (value type, units a lane) for K5's
+    mangled kernel name."""
+    m = re.search(r"write_gen_slot_qI(13__nv_bfloat16|f)Li(\d+)E", mangled)
+    t = "bf16" if m.group(1) != "f" else "f32"
+    return f"write_gen_slot_q<{t}, {m.group(2)}>"
 
 
 # ---------------------------------------------------------------------------
@@ -512,12 +523,26 @@ def _int8(gen, *shape):
                          dtype=torch.int8)
 
 
-def check_quantising_write(gen):
+def quantising_write_call(fn, k, v, ks, vs, sets):
+    """A call of K5 (or its plain version) `fn` on the caches k/v and
+    scales ks/vs: call i quantises bf16 new K/V set i of a rotation into
+    slot i mod E, so that no pass fits in the L2."""
+    n, E = len(sets), k.shape[2]
+    return rotating(lambda i: fn(k, v, ks, vs, *sets[i % n], i % E), n * E)
+
+
+def check_quantising_write(gen, ptxas):
     """K5: levels and scales bit-identical to the plain version; every
-    other slot untouched."""
+    other slot untouched; its instances built without spills."""
     from capdec_tpu_torch.ops import cache_reorder as cr
     N, R, L, E, D = (MAIN[k] for k in ("N", "R", "L", "E", "D"))
     B = N * R
+    regs = {quant_write_instance(name): rep for name, rep in ptxas.items()
+            if "write_gen_slot_q" in name}
+    require(not ptxas or len(regs) == 4, f"ptxas: K5 reported {regs}")
+    for t, rep in regs.items():
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"{t} spills: {rep}")
     k0, v0 = _int8(gen, B, L, E, D), _int8(gen, B, L, E, D)
     ks0, vs0 = (torch.rand(B, L, 1, E, generator=gen, device=DEVICE)
                 for _ in range(2))
@@ -541,14 +566,9 @@ def check_quantising_write(gen):
             require(torch.equal(a["k"][:, :, other], k0[:, :, other]) and
                     torch.equal(a["vs"][..., other], vs0[..., other]),
                     f"K5 {dtype} step {step}: touched another slot")
-    k, v, ks, vs = k0.clone(), v0.clone(), ks0.clone(), vs0.clone()
     # timed over rotating bf16 new K/V sets and slots (no pass fits in L2)
-    sets = new_kv_sets(gen, (B, L, D))
-    n = len(sets)
-
-    def call(fn):
-        return rotating(lambda i: fn(k, v, ks, vs, *sets[i % n], i % E),
-                        n * E)
+    timed = (k0.clone(), v0.clone(), ks0.clone(), vs0.clone(),
+             new_kv_sets(gen, (B, L, D)))
 
     # new K/V in (bf16), levels and scales out; ~6 f32 operations a value
     b_ms, b_by = bound_ms(2 * B * L * D * 2 + 2 * B * L * (D + 4),
@@ -558,17 +578,22 @@ def check_quantising_write(gen):
         source="capdec_tpu_torch/csrc/cache_reorder.cu",
         replaces="capdec_tpu/ops/cache_reorder.py:413",
         max_abs_err=0.0, max_abs_err_f32=0.0,
-        ms=time_ms(call(cr.write_gen_slot_chunk_q)),
-        plain_ms=time_ms(call(cr.write_gen_slot_chunk_q_plain)),
+        ms=time_ms(quantising_write_call(cr.write_gen_slot_chunk_q,
+                                         *timed)),
+        plain_ms=time_ms(quantising_write_call(
+            cr.write_gen_slot_chunk_q_plain, *timed)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_note="null: no one PyTorch call quantises and writes a slot",
+        ptxas=regs,
+        plan=cr.quant_write_plan(B, L, D),
         shape=f"B={B} L={L} E={E} D={D} bf16 -> int8, inputs rotated over "
-              f"{n} sets and the {E} slots")
+              f"{len(timed[4])} sets and the {E} slots")
 
 
 def check_int8_attention(gen):
-    """K6 against its plain version over random int8 levels, with NaN
-    scales at the slots it must not read."""
+    """K6 against its plain version over random int8 levels: bf16 and f32,
+    steps 0, 1, 17 and 66 under e_cap 16 and 72, with NaN scales at the
+    slots it must not read. Timed at ATTN_STEPS, one layer and rotated."""
     from capdec_tpu_torch.ops import decode_attention as da
     N, R, L, K, E, D, H = (MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
                                              "H"))
@@ -585,7 +610,7 @@ def check_int8_attention(gen):
         q, kn, vn = rand(B, 3 * D, dtype=dtype).split(D, dim=-1)
         pk, pv = rand(L, N, K, D, dtype=dtype), rand(L, N, K, D, dtype=dtype)
         err = 0.0
-        for step in (1, 17, MAIN["entry_length"] - 1):
+        for step in (0, 1, 17, MAIN["entry_length"] - 1):
             gks, gvs = gks0.clone(), gvs0.clone()
             gks[..., step:] = float("nan")  # never read
             gvs[..., step:] = float("nan")
@@ -604,33 +629,28 @@ def check_int8_attention(gen):
         errs[dtype] = err
         if dtype == torch.bfloat16:
             timed = (q, kn, vn, pk, pv, gks, gvs)
+    # time the longest read (step 66 under e_cap 72; the NaN tail lies
+    # above it) and the steps ATTN_STEPS, each also rotated past the L2
     q, kn, vn, pk, pv, gks, gvs = timed
     step = MAIN["entry_length"] - 1
     args = (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, layer)
     kw = dict(beams_per_image=R, head_dim=hd, e_cap=E)
-    # library yardstick: SDPA over keys and values dequantised and
-    # concatenated beforehand, as for K2
-    deq = lambda g, sc: (g[:, layer, :step].float()
-                         * sc[:, layer, 0, :step, None]).to(q.dtype)
-    keys = torch.cat([pk[layer].repeat_interleave(R, 0), deq(gk, gks),
-                      kn[:, None]], 1)
-    vals = torch.cat([pv[layer].repeat_interleave(R, 0), deq(gv, gvs),
-                      vn[:, None]], 1)
-    S = K + step + 1
-    lib = sdpa_ms(q, keys, vals, H)
-    nbytes = ((3 * B * D + 2 * N * K * D) * 2 + 2 * B * step * D
-              + 2 * B * step * 4 + B * D * 4)
-    b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * S, torch.bfloat16)
+    steps = attention_step_times(
+        lambda s, l: da.beam_decode_attention_rowmajor_q(
+            q, kn, vn, pk, pv, gk, gv, gks, gvs, s, l, **kw),
+        q, kn, vn, pk, pv, gk, gv, R, H, scales=(None, None, gks, gvs))
     return dict(
         name="beam_decode_attention_rowmajor_q", route="cuda",
-        source="capdec_tpu_torch/csrc/decode_attention.cu",
+        source="capdec_tpu_torch/csrc/decode_attention_async.cu",
         replaces="capdec_tpu/ops/decode_attention.py:646",
         max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32=errs[torch.float32],
-        ms=time_ms(lambda: da.beam_decode_attention_rowmajor_q(*args, **kw)),
+        **{k: steps[step][k] for k in ("ms", "rotated_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "library_rotated_ms")},
         plain_ms=time_ms(
             lambda: da.beam_decode_attention_rowmajor_q_plain(*args, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        steps=steps,
         library_note="scaled_dot_product_attention on keys and values "
                      "dequantised and concatenated beforehand",
         shape=f"N={N} R={R} K={K} step={step} e_cap={E} D={D} bf16 q, "
@@ -1541,11 +1561,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  ptxas:", line.strip())
         ptxas = ptxas_report(log_path.read_text())
-    # the K2/K8/K9/K15 kernel's registers and spills, by value type, cache
-    # and prefix kind and head_dim: 2 value types x 3 kinds x 3 head_dims
+    # the K2/K6/K8/K9/K15 kernel's registers and spills, by value type,
+    # slot policy and head_dim: 2 value types x 4 policies x 3 head_dims
     async_attn = {async_attn_instance(name): rep
                   for name, rep in ptxas.items() if "async_attn" in name}
-    require(not log_path.exists() or len(async_attn) == 18,
+    require(not log_path.exists() or len(async_attn) == 24,
             f"ptxas: async_attn reported {sorted(async_attn)} in "
             f"{log_path.name}")
     for t, rep in async_attn.items():
@@ -1554,7 +1574,7 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     kernels = [check_lm_head(gen, ptxas), check_decode_attention(gen),
-               *check_cache_kernels(gen), check_quantising_write(gen),
+               *check_cache_kernels(gen), check_quantising_write(gen, ptxas),
                check_int8_attention(gen), check_whole_row_fork(gen),
                check_chunked_attention(gen),
                check_chunked_int8_attention(gen), check_seqmajor_write(gen),
@@ -1562,7 +1582,10 @@ def main() -> int:
                check_v1_attention(gen)]
     for k in kernels:
         if k["source"].endswith("decode_attention_async.cu"):
-            k["ptxas"] = async_attn
+            # K6's instances (its in-register policy) apart from the others'
+            k6 = k["name"] == "beam_decode_attention_rowmajor_q"
+            k["ptxas"] = {t: rep for t, rep in async_attn.items()
+                          if t.endswith(" inreg") == k6}
         log(json.dumps({"phase": "kernel_check", **k}))
 
     # the weights have a generator of their own, so the checks above do

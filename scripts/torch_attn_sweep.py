@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The K2/K8/K9 kernel's time under other launch plans, on one NVIDIA GPU.
+"""The K2/K6/K8/K9 kernel's time under other launch plans, on one NVIDIA
+GPU.
 
     python3 scripts/torch_attn_sweep.py [--tree DIR]
 
@@ -11,7 +12,9 @@ N = 64 images x R = 5, K = 40, E = 72, D = 768, 12 heads x 64) at steps
 1, 33 and 66 over the layers in turn (so that the reads come from device
 memory), greedy's `beam_decode_attention_chunked` at R = 1, step 66, and
 `beam_decode_attention_chunked_q` (K9, int8 cache and int8 prefix) at
-step 66 with R = 5 (path (b)) and R = 1 (path (e)). The plans: chunks of
+step 66 with R = 5 (path (b)) and R = 1 (path (e)), and
+`beam_decode_attention_rowmajor_q` (K6, int8 cache, bf16 prefix, R = 5)
+at steps 1 and 66. The plans: chunks of
 1 to 4 prefixes' slices (tile = m ceil(K / rows)), 2 to 8 ring stages, 96
 or 128 threads, each under a shared-memory budget of 30 to 75 KB a block.
 It prints the card's name and power limit, the shipped plan's times (and
@@ -86,9 +89,15 @@ def main(argv=None) -> int:
                 *qs, *pre8, *g8[r], 66, i % L, beams_per_image=r,
                 head_dim=hd, **ps)
 
+        def k6(step):
+            return lambda i: da.beam_decode_attention_rowmajor_q(
+                q, kn, vn, pk, pv, *g8[R], step, i % L, beams_per_image=R,
+                head_dim=hd)
+
         return {"1": beam(1), "33": beam(33), "66": beam(66),
                 "greedy_66": greedy, "k9_66": k9(R, (q, kn, vn)),
-                "k9_greedy_66": k9(1, (q1, kn1, vn1))}
+                "k9_greedy_66": k9(1, (q1, kn1, vn1)), "k6_1": k6(1),
+                "k6_66": k6(66)}
 
     def times(da):
         return {k: cs.time_ms(cs.rotating(fn, L), iters=40)
@@ -101,13 +110,14 @@ def main(argv=None) -> int:
     print(json.dumps({"plan": "shipped",
                       "served": shipped(N, R, K, D, hd, 66, 2),
                       "served_k9": shipped(N, R, K, D, hd, 66, 2, 1, 1),
+                      "served_k6": shipped(N, R, K, D, hd, 66, 2, 1, 2, True),
                       "ms": times(da)}), flush=True)
     rows = []
     for budget_kb, stages, mult, threads in itertools.product(
             (30, 37, 45, 75), (2, 3, 4, 8), (1, 2, 3, 4), (96, 128)):
         def plan(N_, R_, K_, D_, hd_, n_gen, itemsize, cache_size=None,
-                 prefix_size=None, budget_kb=budget_kb, stages=stages,
-                 mult=mult, threads=threads):
+                 prefix_size=None, inreg=False, budget_kb=budget_kb,
+                 stages=stages, mult=mult, threads=threads):
             G = n_gen + 1
             rows_ = min(R_, da.ATTN_ROW_GROUP)
             tile = max(1, min(G, mult * -(-K_ // rows_)))
@@ -115,7 +125,7 @@ def main(argv=None) -> int:
             for nbuf in range(min(2 * (1 + nchunks), stages), 1, -1):
                 smem = da._attention_smem(R_, K_, hd_, itemsize, tile, nbuf,
                                           threads, n_gen, cache_size,
-                                          prefix_size)
+                                          prefix_size, inreg)
                 if smem <= budget_kb * 1024:
                     return dict(grid=(D_ // hd_, N_,
                                       -(-R_ // da.ATTN_ROW_GROUP)),
@@ -123,7 +133,7 @@ def main(argv=None) -> int:
                                 nchunks=nchunks, smem=smem)
             return None
         if any(plan(N, r, K, D, hd, 66, 2, *kind) is None
-               for r in (R, 1) for kind in ((), (1, 1))):
+               for r in (R, 1) for kind in ((), (1, 1), (1, 2, True))):
             continue
         da.attention_plan = plan
         try:
@@ -133,10 +143,12 @@ def main(argv=None) -> int:
         rows.append(dict(budget_kb=budget_kb, stages=stages,
                          tile_prefixes=mult, threads=threads,
                          served=plan(N, R, K, D, hd, 66, 2),
-                         served_k9=plan(N, R, K, D, hd, 66, 2, 1, 1), ms=ms))
+                         served_k9=plan(N, R, K, D, hd, 66, 2, 1, 1),
+                         served_k6=plan(N, R, K, D, hd, 66, 2, 1, 2, True),
+                         ms=ms))
     for row in sorted(rows, key=lambda r: r["ms"]["66"]):
         print(json.dumps(row))
-    for key in ("k9_66", "k9_greedy_66"):
+    for key in ("k9_66", "k9_greedy_66", "k6_66"):
         best = min(rows, key=lambda r: r["ms"][key])
         print(json.dumps({"best_for": key, **best}))
     return 0

@@ -23,7 +23,8 @@ pallas_slot_write=True`) and `--ancestry` ancestry attention.
 Prints one JSON line: the batch's wall time (unprofiled, and under the
 profiler), the device time summed over its kernels, the device busy share
 (device time / unprofiled wall), the number of kernel launches and decode
-steps, and the top device-time consumers. Then, without the profiler, it
+steps, the top device-time consumers, and every hand-written kernel's
+device time (capdec_device_ms). Then, without the profiler, it
 serves 128 requests twice each way in the order A B B A: A = `serve()`
 (the batch in flight decodes on the worker thread), B = back-to-back
 synchronous `caption()` calls of 64, and prints each run's captions/s.
@@ -173,6 +174,10 @@ def main(argv=None) -> int:
         "launches_per_step": len(kernels) / max(steps, 1),
         "top_device_ms": [{"kernel": k[:90], "launches": n,
                            "ms": t / 1e3} for k, (n, t) in top],
+        "capdec_device_ms": [{"kernel": k[:90], "launches": n,
+                              "ms": t / 1e3}
+                             for k, (n, t) in sorted(by_name.items())
+                             if "capdec::" in k],
     }))
     return 0
 

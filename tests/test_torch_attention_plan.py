@@ -1,10 +1,12 @@
-"""The launch plan of the K2/K8/K9/K15 decode-attention kernel
+"""The launch plan of the K2/K6/K8/K9/K15 decode-attention kernel
 (csrc/decode_attention_async.cu), checked on the CPU: shared memory within
 a Hopper block's 227 KB (and one wave of six blocks an SM at the served
 shapes), the chunks covering every generated slot and the current token
 once, the grid covering every (head, row) once in row groups of at most
-16, and one launch per wrapper call with the plan's arguments. The launch itself is recorded by a stand-in for the
-kernel library: the kernel runs only on the card (tests/test_torch_cuda.py).
+16, K6's value items within its consumer threads, and one launch per
+wrapper call with the plan's arguments, or a refusal before any launch.
+The launch itself is recorded by a stand-in for the kernel library: the
+kernel runs only on the card (tests/test_torch_cuda.py).
 """
 import ctypes
 
@@ -359,4 +361,147 @@ def test_v1_refuses_what_it_cannot_copy(library):
         v1(qkv=qkv.split(D, dim=-1))
     with pytest.raises(ValueError, match="1..32 beams"):
         v1(R=33)
+    assert library.calls == []
+
+
+# K6 (`beam_decode_attention_rowmajor_q`): an int8 cache read in place under
+# a prefix of q's type (`inreg`), n_gen = min(step, e_cap)
+K6_STEPS = (0, 1, 15, 16, 17, 33, 66, E - 1)
+
+
+def _k6_plan(R, hd, n_gen, itemsize, n=N):
+    return da.attention_plan(n, R, K, 12 * hd, hd, n_gen, itemsize, 1,
+                             itemsize, True)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("R", [1, 2, 5, 8, 16, 17, 24, 32])
+@pytest.mark.parametrize("e_cap", [16, 72, None])
+def test_k6_plan_fits_a_block_and_covers_the_slots(itemsize, hd, R, e_cap):
+    """Within a block, the layout's total, every generated slot below
+    n_gen and the current token in one chunk, the int8 chunk starting at
+    twice the slots of one of q's type, and each consumer thread holding
+    at most its kernel's value items (two for hd 128, else one)."""
+    rows = min(R, da.ATTN_ROW_GROUP)
+    for step in K6_STEPS:
+        n_gen = min(step, e_cap or E)
+        plan = _k6_plan(R, hd, n_gen, itemsize)
+        assert plan["smem"] <= BLOCK_SMEM
+        assert plan["smem"] == da._attention_smem(
+            R, K, hd, itemsize, plan["tile"], plan["nbuf"], plan["threads"],
+            n_gen, 1, itemsize, True)
+        tile, slots = plan["tile"], n_gen + 1
+        assert (plan["nchunks"] - 1) * tile < slots <= plan["nchunks"] * tile
+        assert 1 <= tile <= min(slots, 4 * -(-K // rows))
+        assert plan["grid"] == (12, N, -(-R // da.ATTN_ROW_GROUP))
+        consumers = plan["threads"] - 32
+        j8 = max(1, consumers // (rows * (hd // 16)))
+        assert rows * j8 * (hd // 16) <= (2 if hd == 128 else 1) * consumers
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_served_k6_plan_is_one_wave(dtype):
+    """The int8 path's K6 (R = 5, head_dim 64) at every n_gen it meets
+    under staged growth (e_cap 16 .. 72): six blocks an SM, so all N x 12
+    blocks are resident at once, with tile 32 (three chunks at step 66)
+    in bf16."""
+    for n_gen in range(E):
+        plan = _k6_plan(5, HD, n_gen, dtype.itemsize)
+        per_sm = min(SM_SMEM // (plan["smem"] + BLOCK_RESERVED),
+                     2048 // plan["threads"])
+        assert per_sm >= 6 and per_sm * SMS >= N * D // HD, n_gen
+    assert _k6_plan(5, HD, 66, 2)["tile"] == 32
+
+
+def test_k6_layout_reads_int8_stages_in_place():
+    """K6's layout against K9's with a bf16 prefix at the same tile: no
+    widened stage of bf16 slices, and the generated slots' value sums
+    [R][J8][hd] in f32 in its place."""
+    R, tile, n_gen = 5, 32, 66
+    k9 = da._attention_smem(R, K, HD, 2, tile, 2, 128, n_gen, 1, 2)
+    k6 = da._attention_smem(R, K, HD, 2, tile, 2, 128, n_gen, 1, 2, True)
+    j8 = 96 // (R * HD // 16)
+    assert k6 - k9 == -max(K, R * tile) * HD * 2 + R * j8 * HD * 4
+
+
+def _k6_inputs(R, dtype, n=2, L=3, hd=HD):
+    q, kn, vn, pk, pv, _, _ = _inputs(R, dtype, n, L, hd)
+    d = 12 * hd
+    gk, gv = (torch.zeros(n * R, L, E, d, dtype=torch.int8)
+              for _ in range(2))
+    gks, gvs = (torch.zeros(n * R, L, 1, E) for _ in range(2))
+    return q, kn, vn, pk, pv, gk, gv, gks, gvs
+
+
+@pytest.mark.parametrize("R", [1, 5, 24])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("step", [0, 16, 33, 66])
+@pytest.mark.parametrize("e_cap", [16, None])
+def test_k6_one_launch_per_call_with_the_plan(library, R, dtype, step,
+                                              e_cap):
+    """K6: one launch of its C entry with the pointers and the plan in the
+    order of its SIGNATURES row (no prefix scales: the prefix is q's
+    type)."""
+    n, L, layer = 2, 3, 1
+    args = _k6_inputs(R, dtype, n, L)
+    wrapper = da.beam_decode_attention_rowmajor_q
+    n0 = wrapper.launches
+    out = wrapper(*args, step, layer, beams_per_image=R, head_dim=HD,
+                  e_cap=e_cap)
+    assert wrapper.launches == n0 + 1
+    entry = "capdec_beam_decode_attention_rowmajor_q"
+    assert len(library.calls) == 1 and library.calls[0][0] == entry
+    assert out.shape == (n * R, D) and out.dtype == torch.float32
+    got = library.calls[0][1]
+    q, kn, vn, pk, pv, gk, gv, gks, gvs = args
+    assert got[:3] == (q.data_ptr(), kn.data_ptr(), vn.data_ptr())
+    assert got[3] == q.stride(0)
+    assert got[4:10] == tuple(t.data_ptr() for t in (pk, pv, gk, gv, gks,
+                                                     gvs))
+    n_gen = min(step, e_cap or E)
+    plan = _k6_plan(R, HD, n_gen, dtype.itemsize, n)
+    assert got[11:] == (n, R, L, K, E, D, HD, layer, n_gen, plan["tile"],
+                        plan["nbuf"], plan["threads"], plan["smem"],
+                        _build.DTYPE_CODES[dtype], 0)
+    sig = _build.SIGNATURES[entry]
+    assert len(sig) == len(got)
+    assert all(t is ctypes.c_void_p for t in sig[4:11])
+    assert sig[3] is ctypes.c_long
+    assert all(t is ctypes.c_int for t in sig[11:-1])
+
+
+def test_k6_refuses_before_any_launch(library):
+    """K6: scales of the wrong shape, dtype or layout, misaligned caches or
+    rows, head_dim 96, an e_cap out of range, 33 beams and a cache that is
+    not int8 are refused before any launch."""
+    wrapper = da.beam_decode_attention_rowmajor_q
+    kw = dict(beams_per_image=5, head_dim=HD)
+    args = _k6_inputs(5, torch.bfloat16)
+    gks = args[7]
+    for bad in (gks[:, :, :, :E - 1], gks.double(),
+                gks.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError, match="gks/gvs"):
+            wrapper(*args[:7], bad, args[8], 3, 1, **kw)
+        with pytest.raises(ValueError, match="gks/gvs"):
+            wrapper(*args[:8], bad, 3, 1, **kw)
+    gk = torch.zeros(args[5].numel() + 1, dtype=torch.int8)[1:].view(
+        args[5].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        wrapper(*args[:5], gk, *args[6:], 3, 1, **kw)
+    qkv = torch.zeros(10, 3 * D + 1, dtype=torch.bfloat16)[:, 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        wrapper(*qkv.split(D, dim=-1), *args[3:], 3, 1, **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        wrapper(*_k6_inputs(5, torch.bfloat16, hd=96), 3, 1,
+                beams_per_image=5, head_dim=96)
+    for e_cap in (0, E + 1):
+        with pytest.raises(ValueError, match="e_cap"):
+            wrapper(*args, 3, 1, e_cap=e_cap, **kw)
+    with pytest.raises(ValueError, match="1..32 beams"):
+        wrapper(*_k6_inputs(33, torch.bfloat16, n=1), 3, 1,
+                beams_per_image=33, head_dim=HD)
+    with pytest.raises(ValueError, match="int8"):
+        wrapper(*args[:5], args[5].to(torch.bfloat16),
+                args[6].to(torch.bfloat16), *args[7:], 3, 1, **kw)
     assert library.calls == []

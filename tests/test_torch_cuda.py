@@ -13,8 +13,14 @@ K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
 kernel) at R = 1, 2, 5 and 8 and in two row groups (R = 17, 24, 32; K9
 up to 24), steps at the ends and at its chunk tile's edges, e_cap below
 the step, head_dim 32, 64 and 128, NaN also in the next layer's slot 0
-(K9: scale), both K9 prefix kinds, one launch per call;
-K3/K4/K5/K7/K13 bit-exact; the gathers K10-K12 and the slot write K14
+(K9: scale), both K9 prefix kinds, one launch per call; K6 (the
+in-register int8 policy of the same kernel) at R = 1, 2, 5, 8, 16, 17 and
+32, head_dim 32, 64 and 128, its tile's edges, step 0, e_cap below the
+step and step = e_cap, NaN scales at and above n_gen; K3/K4/K7/K13
+bit-exact; K5 bit-exact at D 64, 768, 1024 and 2048, item counts not a
+multiple of a block's warps, grids with fewer warps than items, exact
+ties (x / s = k + 0.5) and an amax outside [2^-60, 2^100] (the division
+route); the gathers K10-K12 and the slot write K14
 bit-exact in f32, bf16 and int8, and the gathers refuse an output that
 overlaps their input and assert on a source outside the batch; K15 (v1
 attention with the fused slot write) within K2's tolerances, its slot
@@ -121,9 +127,9 @@ def test_lm_head_ties_across_tile_and_block_edges(dev, gen, dtype, tol, _,
 # steps at the ends, at the edges of the plan's chunk (tile = 2 ceil(40 /
 # rows), twice that for K9's int8 cache: cache_size 1) and the served
 # paths' last step (66)
-def _async_steps(R, cache_size=None):
+def _async_steps(R, cache_size=None, inreg=False):
     tile = decode_attention.attention_plan(8, R, 40, 768, 64, 71, 2,
-                                           cache_size)["tile"]
+                                           cache_size, None, inreg)["tile"]
     return sorted({s for s in (0, 1, tile - 1, tile, tile + 1, 66, 71)
                    if 0 <= s < 72})
 
@@ -206,10 +212,25 @@ def test_cache_kernels_bit_exact(dev, gen, dtype):
     assert torch.equal(a["k"][:, :, 13:], k[:, :, 13:])
 
 
+# K5 at the served width, at D 64, 1024 and 2048 (its limit; 4 and 8
+# units a lane), and with 2 B L items not a multiple of a block's 4 warps
+# (42, 1998, 3330); `blocks`: a grid of fewer warps than items, each warp
+# looping over items (3 blocks: 12 warps over 42 items; 5: 20 over 3330)
+QUANT_SHAPES = [(40, 3, 768, None), (7, 3, 64, None), (33, 3, 2048, None),
+                (333, 3, 1024, None), (333, 5, 768, None),
+                (333, 5, 2048, None), (7, 3, 64, 3), (333, 5, 768, 5)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("step", [0, 7, 8, 66])
-def test_quantising_slot_write_kernel_bit_exact(dev, gen, dtype, step):
-    B, L, E, D = 40, 3, 72, 768
+@pytest.mark.parametrize("B,L,D,blocks", QUANT_SHAPES)
+def test_quantising_slot_write_kernel_bit_exact(dev, gen, monkeypatch,
+                                                dtype, step, B, L, D, blocks):
+    if blocks:
+        plan = cache_reorder.quant_write_plan
+        monkeypatch.setattr(cache_reorder, "quant_write_plan",
+                            lambda *a: dict(plan(*a), blocks=blocks))
+    E = 72
     k, v = (torch.randint(-127, 128, (B, L, E, D), generator=gen,
                           device=dev, dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand(B, L, 1, E, generator=gen, device=dev)
@@ -217,8 +238,11 @@ def test_quantising_slot_write_kernel_bit_exact(dev, gen, dtype, step):
     nk, nv = (torch.randn(B, L, D, generator=gen, device=dev).to(dtype)
               for _ in range(2))
     nk[0, 1] = 0  # a zero row takes scale 1
-    nv[1, 0, :127] = torch.arange(-63, 64, device=dev) + 0.5  # x / s = k + .5
-    nv[1, 0, 127:] = 127
+    nk[1, 1] *= 1e-30  # amax below 2^-60 and above 2^100: the division
+    nk[2, 2] *= 1e35
+    m = min(D, 128) - 1  # x / s = k + .5 under amax 127
+    nv[1, 0, :m] = torch.arange(-(m // 2), m - m // 2, device=dev) + 0.5
+    nv[1, 0, m:] = 127
     n0 = cache_reorder.write_gen_slot_chunk_q.launches
     a = cache_reorder.write_gen_slot_chunk_q(k.clone(), v.clone(), ks.clone(),
                                              vs.clone(), nk, nv, step)
@@ -229,14 +253,30 @@ def test_quantising_slot_write_kernel_bit_exact(dev, gen, dtype, step):
         assert torch.equal(a[name], b[name]), name
     other = torch.arange(E, device=dev) != step
     assert torch.equal(a["k"][:, :, other], k[:, :, other])
+    assert torch.equal(a["v"][:, :, other], v[:, :, other])
     assert torch.equal(a["ks"][..., other], ks[..., other])
+    assert torch.equal(a["vs"][..., other], vs[..., other])
+
+
+# K6 (8 images, K = 40, E = 72, layer 1 of 3): for each R (two row groups
+# from 17), the steps at the ends and at its chunk tile's edges under e_cap
+# 72; at R 1 and 5 also step 0, e_cap below the step and step = e_cap
+K6_CASES = ([(R, s, 72) for R in (1, 5, 16, 17, 32)
+             for s in _async_steps(R, 1, inreg=True)]
+            + [(R, s, c) for R in (1, 5)
+               for s, c in ((0, 16), (1, 16), (16, 16), (17, 16), (17, 72),
+                            (32, 32), (66, 72))])
 
 
 @pytest.mark.parametrize("dtype,_,tol", DTYPES)
-@pytest.mark.parametrize("step,e_cap", [(1, 16), (17, 16), (17, 72),
-                                        (66, 72)])
-def test_int8_decode_attention_kernel(dev, gen, dtype, _, tol, step, e_cap):
-    N, R, L, K, E, D = 8, 5, 3, 40, 72, 768
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("R,step,e_cap", K6_CASES)
+def test_int8_decode_attention_kernel(dev, gen, dtype, _, tol, hd, R, step,
+                                      e_cap):
+    """K6 within the attention kernels' tolerances, NaN scales at and
+    above n_gen = min(step, e_cap) and in the next layer's slot 0, one
+    launch per call."""
+    N, L, K, E, D = 8, 3, 40, 72, 12 * hd
     B = N * R
     r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
     q, kn, vn = r(B, 3 * D).split(D, dim=-1)
@@ -245,11 +285,14 @@ def test_int8_decode_attention_kernel(dev, gen, dtype, _, tol, step, e_cap):
                             device=dev, dtype=torch.int8) for _ in range(2))
     gks, gvs = (torch.rand(B, L, 1, E, generator=gen, device=dev) * 3 / 127
                 for _ in range(2))
-    gks[..., step:] = float("nan")
-    gvs[..., step:] = float("nan")
-    args = (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, 2)
-    kw = dict(beams_per_image=R, head_dim=64, e_cap=e_cap)
+    for s in (gks, gvs):
+        s[..., min(step, e_cap):] = float("nan")
+        s[:, 2, 0, 0] = float("nan")
+    args = (q, kn, vn, pk, pv, gk, gv, gks, gvs, step, 1)
+    kw = dict(beams_per_image=R, head_dim=hd, e_cap=e_cap)
+    n0 = decode_attention.beam_decode_attention_rowmajor_q.launches
     out = decode_attention.beam_decode_attention_rowmajor_q(*args, **kw)
+    assert decode_attention.beam_decode_attention_rowmajor_q.launches == n0 + 1
     ref = decode_attention.beam_decode_attention_rowmajor_q_plain(*args, **kw)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
