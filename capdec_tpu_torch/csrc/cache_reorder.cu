@@ -1,5 +1,6 @@
 // K3, K4, K5, K7 and K14: in-place updates of the row-major generated KV
-// cache [B, L, E, D]; K13: K3 for the seq-major cache [L, B, E, D]. K3, K4,
+// cache [B, L, E, D]; K13: the slot write of the seq-major cache
+// [L, B, E, D], from per-layer views. K3, K4,
 // K7, K13 and K14 move bytes only, so one kernel serves every
 // dtype: rows move as 16-byte words (the wrappers require
 // D·itemsize % 16 == 0).
@@ -23,11 +24,31 @@
 //
 // K13 write_gen_slot_seqmajor replaces
 // capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk_seqmajor (:380,
-// pallas_call in _write_chunk_impl :318 with row_axis 1): K3 for the
-// seq-major caches [L, B, E, D] of greedy/top-p decode, new_k/new_v
-// [L, B, D]. Bound: bytes, as K3. K3's design with the seq-major strides:
-// one block per (row b, layer l) copies the D values of row (l·B + b) of
-// new into slot `step` at ((l·B + b)·E + step)·D, as 16-byte words.
+// body _write_chunk_impl :275, pallas_call :318 with row_axis 1): slot
+// `step` of the seq-major caches [L, B, E, D] of greedy/top-p decode takes
+// the step's K/V of every layer. Bound: bytes, 2·L·B·D·itemsize read and
+// as many written. On the TPU the decode scan stacked each layer's K/V
+// into [L, B, D] for free; the port's layers run in a Python loop, and a
+// stack there is two more launches and 2·L·B·D·itemsize more bytes each
+// way. So K13 reads the K/V where the layers leave them: L strided [B, D]
+// views (the k and v thirds of each layer's [B, 3D] qkv output), whose 2·L
+// base pointers and row strides come by value in a __grid_constant__
+// parameter struct (a device table would cost a copy a step). At 4.7 MB a
+// launch the fixed cost is a large share of the time, so the grid is cut
+// for the bytes and not by (row, layer): one warp takes one (layer, row,
+// K|V) item 2·(l·B + b) + (0 K | 1 V), whose row is row16 16-byte words;
+// a lane issues all of its W words' non-coherent loads (ld.global.nc)
+// before any store, W the least of 1, 2, 4 or 8 with 32·W >= row16 (the
+// row in passes of 32·W words beyond that). At D 768 bf16 (96 words, W 4,
+// three live) the served call is 1536 warps with no idle lane, in blocks
+// of four warps, one wave. The wrapper's plan
+// (ops/cache_reorder.py::seqmajor_write_plan) chooses warps, W and the
+// grid; the C entry refuses a plan that is not its own layout's. On the
+// H100 (scripts/torch_slot_write_ablate.py) the call takes the launch's
+// floor (the empty kernel on the same grid), then the loads' round trip,
+// then the stores, whichever way the grid is cut (a warp a K|V row, a
+// (layer, row) or 32 words; blocks of 1-8 warps); reading the sources
+// from the struct costs about 0.15 µs against scalar parameters.
 //
 // K4 copy_forked_rows_bounded replaces
 // capdec_tpu/ops/cache_reorder.py::copy_forked_rows_bounded (:210,
@@ -70,9 +91,29 @@
 // forked row written once and each source row read once. The grid is
 // (row, span tile) over 16-byte words; blocks of a row that kept its lane
 // exit at once. The lane invariant makes the in-place copy safe.
+#include <climits>
+
 #include "common.cuh"
 
 namespace capdec {
+
+// K13's sources, by value: layer l's K rows start at k[l], row b at
+// k[l] + b·k_row16[l] 16-byte words (likewise v).
+constexpr int kSeqMaxLayers = 64;
+constexpr int kSeqMaxWarps = 8;
+struct SeqmajorSources {
+  const uint4* k[kSeqMaxLayers];
+  const uint4* v[kSeqMaxLayers];
+  int k_row16[kSeqMaxLayers];
+  int v_row16[kSeqMaxLayers];
+};
+
+// The words a lane holds for a row of row16 16-byte words: the least of
+// 1, 2, 4, 8 with 32·W >= row16, else 8 (the row in passes).
+constexpr int seq_words(long row16) {
+  return row16 <= 32 ? 1 : row16 <= 64 ? 2 : row16 <= 128 ? 4 : 8;
+}
+
 namespace {
 
 constexpr float kInv127 = 1.0f / 127.0f;  // rounded once, in f32
@@ -114,21 +155,36 @@ __global__ void write_gen_slot(uint4* __restrict__ k, uint4* __restrict__ v,
   }
 }
 
-__global__ void write_gen_slot_seqmajor(uint4* __restrict__ k,
-                                        uint4* __restrict__ v,
-                                        const uint4* __restrict__ nk,
-                                        const uint4* __restrict__ nv, int B,
-                                        int E, int step, long row16) {
-  const size_t row = (size_t)blockIdx.y * B + blockIdx.x;  // l·B + b
-  uint4* kd = k + (row * E + step) * row16;
-  uint4* vd = v + (row * E + step) * row16;
-  const uint4* ks = nk + row * row16;
-  const uint4* vs = nv + row * row16;
-  for (long i = threadIdx.x; i < row16; i += blockDim.x) {
-    kd[i] = ks[i];
-    vd[i] = vs[i];
+template <int W>
+__global__ void __launch_bounds__(kSeqMaxWarps * 32)
+write_gen_slot_seqmajor(uint4* __restrict__ k, uint4* __restrict__ v,
+                        const __grid_constant__ SeqmajorSources src, int B,
+                        int E, int step, int row16, int items) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  for (int it = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       it < items; it += warps) {
+    const int row = it >> 1;  // l·B + b
+    const int l = row / B, b = row - l * B;
+    const bool is_v = it & 1;
+    const uint4* s = is_v ? src.v[l] + (size_t)b * src.v_row16[l]
+                          : src.k[l] + (size_t)b * src.k_row16[l];
+    uint4* d = (is_v ? v : k) + ((size_t)row * E + step) * row16;
+    for (int base = lane; base < row16; base += 32 * W) {
+      uint4 w[W];
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        if (base + 32 * c < row16) w[c] = __ldg(s + base + 32 * c);
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        if (base + 32 * c < row16) d[base + 32 * c] = w[c];
+    }
   }
 }
+
+// The floor of a launch on K13's grid: a kernel that does nothing,
+// timed beside K13 (chip_smoke.py, scripts/torch_slot_write_steps.py).
+__global__ void empty_grid() {}
 
 __global__ void copy_forked_rows_bounded(uint4* k, uint4* v,
                                          const int64_t* __restrict__ src,
@@ -286,15 +342,47 @@ extern "C" int capdec_write_gen_slot(void* k, void* v, const void* nk,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int capdec_write_gen_slot_seqmajor(void* k, void* v,
-                                              const void* nk, const void* nv,
-                                              int L, int B, int E, int step,
-                                              long row_bytes,
-                                              cudaStream_t stream) {
-  capdec::write_gen_slot_seqmajor<<<dim3(B, L), 128, 0, stream>>>(
-      static_cast<uint4*>(k), static_cast<uint4*>(v),
-      static_cast<const uint4*>(nk), static_cast<const uint4*>(nv), B, E,
-      step, row_bytes / 16);
+// K13 on the plan's grid: `blocks` blocks of `warps` warps, `words`
+// 16-byte words a lane (the plan must be this layout's).
+extern "C" int capdec_write_gen_slot_seqmajor(
+    void* k, void* v, const capdec::SeqmajorSources* src, int L, int B,
+    int E, int step, long row_bytes, int warps, int words, int blocks,
+    cudaStream_t stream) {
+  const long row16 = row_bytes / 16;
+  const long items = 2L * L * B;
+  if (L < 1 || L > capdec::kSeqMaxLayers || B < 1 || row_bytes % 16 ||
+      row16 < 1 || row16 > INT_MAX || items > INT_MAX || step < 0 ||
+      step >= E || warps < 1 || warps > capdec::kSeqMaxWarps ||
+      blocks < 1 || words != capdec::seq_words(row16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint4* k4 = static_cast<uint4*>(k);
+  uint4* v4 = static_cast<uint4*>(v);
+  const dim3 grid(blocks), block(32 * warps);
+  const int r = (int)row16, n = (int)items;
+  switch (words) {
+    case 1:
+      capdec::write_gen_slot_seqmajor<1><<<grid, block, 0, stream>>>(
+          k4, v4, *src, B, E, step, r, n);
+      break;
+    case 2:
+      capdec::write_gen_slot_seqmajor<2><<<grid, block, 0, stream>>>(
+          k4, v4, *src, B, E, step, r, n);
+      break;
+    case 4:
+      capdec::write_gen_slot_seqmajor<4><<<grid, block, 0, stream>>>(
+          k4, v4, *src, B, E, step, r, n);
+      break;
+    default:
+      capdec::write_gen_slot_seqmajor<8><<<grid, block, 0, stream>>>(
+          k4, v4, *src, B, E, step, r, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel on `blocks` blocks of `threads`.
+extern "C" int capdec_empty_grid(int blocks, int threads,
+                                 cudaStream_t stream) {
+  capdec::empty_grid<<<blocks, threads, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -474,10 +474,11 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     step < e_cap; the chunked kernels are bounded by `step` alone); the
     slot write is K3 (`chunk_slot_write`; K5 over int8), else K14
     (`slot_write_kernel`), else the plain write. Seq-major: the plain
-    attention math, and the slot write K13 (int8: a quantising write in
-    plain PyTorch). `fused_attention` / `chunk_slot_write` /
-    `slot_write_kernel` choose the kernel wrappers (True) or their plain
-    PyTorch versions (False).
+    attention math, and the slot write K13, which reads each layer's K/V
+    where the layer left it (int8: a quantising write in plain PyTorch;
+    every other write takes the layers' K/V stacked). `fused_attention` /
+    `chunk_slot_write` / `slot_write_kernel` choose the kernel wrappers
+    (True) or their plain PyTorch versions (False).
 
     `anc_rows` [B, E] int64 (ancestry attention, either layout): row b's
     slot e lives in cache row anc_rows[b, e]; the cache never moves, and
@@ -512,9 +513,13 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         x = _block_mlp(x + out.to(x.dtype), blk, cdt)
         ks.append(k_new)
         vs.append(v_new)
-    axis = 1 if rowmajor else 0  # [B, L, D] or [L, B, D]
-    write(gk, gv, *scales, torch.stack(ks, dim=axis),
-          torch.stack(vs, dim=axis), step)
+    if write is cache_reorder.write_gen_slot_chunk_seqmajor:
+        # K13 reads the per-layer views where they lie: no stacking copy
+        write(gk, gv, ks, vs, step)
+    else:
+        axis = 1 if rowmajor else 0  # [B, L, D] or [L, B, D]
+        write(gk, gv, *scales, torch.stack(ks, dim=axis),
+              torch.stack(vs, dim=axis), step)
     if return_hidden:
         return final_hidden(model, cfg, x)
     return final_logits(model, cfg, x)

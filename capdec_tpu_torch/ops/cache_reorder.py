@@ -5,7 +5,8 @@ capdec_tpu/ops/cache_reorder.py):
     row-major cache [B, L, E, D]), K4 `copy_forked_rows_bounded`, K5
     `write_gen_slot_chunk_q` (int8, with `absmax_int8_quant`), K7
     `copy_forked_rows`, and K13 `write_gen_slot_chunk_seqmajor` (the
-    seq-major cache [L, B, E, D]);
+    seq-major cache [L, B, E, D], from per-layer views of the step's
+    K/V);
   * out of place, into output caches that must not overlap the input: the
     row gathers K10 `reorder_rows_leading` (row-major), K11
     `reorder_cache_rows` and K12 `reorder_cache_rows_bounded` (seq-major,
@@ -81,7 +82,7 @@ def write_gen_slot_chunk_plain(k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_slot_write(k, v, new_k, new_v, step, name):
-    """Validate a byte-moving slot write (K3, K13, K14) on CUDA tensors:
+    """Validate a byte-moving slot write (K3, K14) on CUDA tensors:
     new_k/new_v are [k.shape[0], k.shape[1], D] of the cache's dtype.
     Returns the bytes of one slot row."""
     row_bytes = _check_cache(k, v, name)
@@ -124,26 +125,123 @@ def write_gen_slot_chunk(k: torch.Tensor, v: torch.Tensor,
 write_gen_slot_chunk.launches = 0
 
 
-# K13's plain version: the slot axis is 2 in both layouts.
-write_gen_slot_chunk_seqmajor_plain = write_gen_slot_chunk_plain
+def _stacked(new):
+    """new_k/new_v of K13 as [L, B, D]: a tensor as it is, a sequence of
+    L [B, D] tensors stacked."""
+    return new if torch.is_tensor(new) else torch.stack(list(new))
+
+
+def write_gen_slot_chunk_seqmajor_plain(k: torch.Tensor, v: torch.Tensor,
+                                        new_k, new_v, step: int
+                                        ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version: slot `step` of k/v [L, B, E, D] takes
+    new_k/new_v, each [L, B, D] or a sequence of L [B, D] (stacked first),
+    in place."""
+    return write_gen_slot_chunk_plain(k, v, _stacked(new_k), _stacked(new_v),
+                                      step)
+
+
+# The launch plan of K13 (csrc/cache_reorder.cu write_gen_slot_seqmajor):
+# one warp a (layer, row, K|V) item, a lane holding `words` of the row's
+# 16-byte words (the least of SEQ_WORDS with 32 words >= the row's words;
+# a longer row goes in passes), in blocks of SEQ_WARPS warps, or of fewer
+# where SEQ_WARPS would leave SMs without a block.
+SEQ_WARPS = 4
+SEQ_WORDS = (1, 2, 4, 8)
+
+
+def seqmajor_write_plan(L: int, B: int, D: int, itemsize: int,
+                        sms: int) -> dict:
+    """K13's launch for L layers of B rows of D values of `itemsize`
+    bytes on a card of `sms` SMs: `blocks` of `warps` warps (`threads`
+    threads), `words` 16-byte words a lane in `passes` passes over a row,
+    one warp for each of the 2 L B items. Raises for a shape the kernel
+    does not take."""
+    row_bytes = D * itemsize
+    if row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"the kernel moves 16-byte words: D * itemsize % "
+                         f"16 == 0, got {D} * {itemsize}")
+    if not 1 <= L <= _build.SEQ_MAX_LAYERS or B < 1:
+        raise ValueError(f"the kernel takes 1 <= L <= "
+                         f"{_build.SEQ_MAX_LAYERS} layers and B >= 1 rows, "
+                         f"got L={L}, B={B}")
+    row16 = row_bytes // 16
+    words = next((w for w in SEQ_WORDS if 32 * w >= row16), SEQ_WORDS[-1])
+    items = 2 * L * B
+    warps = SEQ_WARPS
+    while warps > 1 and -(-items // warps) < sms:
+        warps //= 2
+    return dict(warps=warps, threads=32 * warps, words=words,
+                blocks=-(-items // warps), items=items, row16=row16,
+                passes=-(-row16 // (32 * words)))
+
+
+def _layer_views(new, k, v, name):
+    """The base pointers and row strides (16-byte words) of the L [B, D]
+    views K13 reads for new_k or new_v: a sequence of L tensors, or a
+    tensor [L, B, D] read as its rows. Each view has the cache's dtype and
+    device, a contiguous last dimension, a 16-byte aligned base, a row
+    stride of at least D values and a multiple of 16 bytes (B > 1), and
+    does not overlap k or v."""
+    L, B, E, D = k.shape
+    views = new.unbind(0) if torch.is_tensor(new) else tuple(new)
+    if len(views) != L:
+        raise ValueError(f"{name}: new_k/new_v must hold {L} layers, got "
+                         f"{len(views)}")
+    item, dtype, device = k.element_size(), k.dtype, k.device
+    shape = torch.Size((B, D))
+    k0, v0 = k.data_ptr(), v.data_ptr()  # contiguous caches (_check_cache)
+    k1, v1 = k0 + k.numel() * item, v0 + v.numel() * item
+    ptrs, rows = [], []
+    for t in views:
+        if t.shape != shape or t.dtype is not dtype or t.device != device:
+            raise ValueError(f"{name}: each layer of new_k/new_v must be "
+                             f"{[B, D]} of the cache's dtype and device")
+        rs, cs = t.stride()
+        p = t.data_ptr()
+        if cs != 1 or p % 16 or B > 1 and (rs < D or rs * item % 16 or
+                                           rs * item // 16 >= 2 ** 31):
+            raise ValueError(f"{name}: a layer's view needs a contiguous "
+                             "last dimension, a 16-byte aligned base and a "
+                             "row stride of at least D values, a multiple "
+                             "of 16 bytes")
+        end = p + ((B - 1) * rs + D) * item
+        if p < k1 and k0 < end or p < v1 and v0 < end:
+            raise ValueError(f"{name}: new_k/new_v must not overlap the "
+                             "caches")
+        ptrs.append(p)
+        rows.append(rs * item // 16 if B > 1 else 0)
+    return ptrs, rows
 
 
 def write_gen_slot_chunk_seqmajor(k: torch.Tensor, v: torch.Tensor,
-                                  new_k: torch.Tensor, new_v: torch.Tensor,
-                                  step: int) -> Dict[str, torch.Tensor]:
+                                  new_k, new_v, step: int
+                                  ) -> Dict[str, torch.Tensor]:
     """`write_gen_slot_chunk` for the seq-major caches k/v [L, B, E, D] of
-    greedy/top-p decode: new_k/new_v [L, B, D] go to slot `step`, in
-    place."""
+    greedy/top-p decode: slot `step` takes new_k/new_v, in place. Each of
+    new_k/new_v is a sequence of L [B, D] views (decode_step's per-layer
+    thirds of its qkv outputs, read where they lie) or a tensor [L, B, D]
+    (the JAX signature), read as its L rows; one launch either way."""
     if _build.on_cpu(k):
         return write_gen_slot_chunk_seqmajor_plain(k, v, new_k, new_v, step)
-    row_bytes = _check_slot_write(k, v, new_k, new_v, step,
-                                  "write_gen_slot_chunk_seqmajor")
+    name = "write_gen_slot_chunk_seqmajor"
+    row_bytes = _check_cache(k, v, name)
     L, B, E, D = k.shape
+    if L > _build.SEQ_MAX_LAYERS:
+        raise ValueError(f"{name}: at most {_build.SEQ_MAX_LAYERS} layers, "
+                         f"got {L}")
+    if not 0 <= step < E:
+        raise ValueError(f"{name}: step {step} out of range for E={E}")
+    src = _build.SeqmajorSources()
+    src.k[:L], src.k_row16[:L] = _layer_views(new_k, k, v, name)
+    src.v[:L], src.v_row16[:L] = _layer_views(new_v, k, v, name)
+    plan = seqmajor_write_plan(L, B, D, k.element_size(),
+                               _build.sm_count(k.device))
     lib = _build.library()
     _build.check(lib.capdec_write_gen_slot_seqmajor(
-        k.data_ptr(), v.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-        L, B, E, step, row_bytes, _build.stream(k.device)),
-        "write_gen_slot_chunk_seqmajor")
+        k.data_ptr(), v.data_ptr(), src, L, B, E, step, row_bytes,
+        plan["warps"], plan["words"], plan["blocks"],
+        _build.stream(k.device)), name)
     write_gen_slot_chunk_seqmajor.launches += 1
     return {"k": k, "v": v}
 

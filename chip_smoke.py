@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (the least time the card could take). The slot writes K3, K5, K13
      and K14 are timed over inputs and slots rotated through more than
      twice the L2, so that they read device memory as their bound
-     assumes (K5's four instances must build without spills); K2, K6, K8,
+     assumes (K5's and K13's four instances each must build without
+     spills); K13 is checked and timed from the per-layer views of qkv
+     buffers, as decode_step hands them over (and checked from [L, B, D]
+     tensors), beside the empty kernel on its grid, the floor of one
+     launch, and the library route (torch.stack, then index_copy_); K2, K6, K8,
      K9 and K15 (one kernel, decode_attention_async.cu, whose 24
      instances must build without spills) and their SDPA yardstick at
      steps 1, 33 and 66, on one layer and rotated over the layers or
@@ -37,6 +41,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (K1, K2, K3, K10); (g) seq-major beam, rowmajor_cache=False (K1,
      K11); (h) the K14 slot write, chunk_slot_write=False with
      pallas_slot_write (K1, K2, K14, K4); (i) ancestry=True (K1, K3).
+     Path (d) launches K13 once a step, and one of its batches is
+     profiled for every CUDA kernel it launches per step.
      K12 and K15 lie on no served path (the JAX engine calls neither)
      and must launch on none; K15 (the v1 attention with its fused slot
      write) is checked at the beam path's per-layer shapes in phase 2.
@@ -851,43 +857,134 @@ def check_chunked_int8_attention(gen):
               "greedy_r1: R=1, int8 prefix)")
 
 
-def check_seqmajor_write(gen):
+def seq_write_instance(mangled: str) -> str:
+    """'write_gen_slot_seqmajor<4>' (16-byte words a lane) for K13's
+    mangled kernel name."""
+    m = re.search(r"write_gen_slot_seqmajorILi(\d+)E", mangled)
+    return f"write_gen_slot_seqmajor<{m.group(1)}>"
+
+
+def qkv_view_sets(gen, L, N, D, dtype=torch.bfloat16, n=None):
+    """K13's inputs as decode_step hands them over: (new_k, new_v), the
+    per-layer k and v thirds of a [L, N, 3D] buffer of qkv rows, for n
+    buffers (default: as many as one pass of K/V reads past
+    L2_FLUSH_BYTES, for a rotation)."""
+    n = n or -(-L2_FLUSH_BYTES // (2 * L * N * D * 2))
+    sets = []
+    for _ in range(n):
+        qkv = torch.randn(L, N, 3 * D, generator=gen, device=DEVICE).to(dtype)
+        sets.append(([t[:, D:2 * D] for t in qkv],
+                     [t[:, 2 * D:] for t in qkv]))
+    return sets
+
+
+def seqmajor_write_call(fn, k, v, sets, stack=False):
+    """A call of a seq-major slot write `fn(k, v, new_k, new_v, step)`:
+    call i reads qkv set i of a rotation and writes slot i mod E; with
+    `stack` the per-layer views are first stacked into [L, N, D] (the
+    route of decode_step before K13 took views)."""
+    n, E = len(sets), k.shape[2]
+
+    def call(i):
+        nk, nv = sets[i % n]
+        if stack:
+            nk, nv = torch.stack(nk), torch.stack(nv)
+        fn(k, v, nk, nv, i % E)
+    return rotating(call, n * E)
+
+
+def stack_index_copy(E):
+    """The library route of K13 from views over E slots: torch.stack of
+    each side, then `index_copy_` into slot `step` of k and v."""
+    idx = [torch.tensor([s], device=DEVICE) for s in range(E)]
+
+    def call(k, v, nk, nv, step):
+        k.index_copy_(2, idx[step], torch.stack(nk).unsqueeze(2))
+        v.index_copy_(2, idx[step], torch.stack(nv).unsqueeze(2))
+    return call
+
+
+def empty_grid_call(plan):
+    """A launch of the empty kernel on `plan`'s grid: the floor of any
+    one launch of that grid on the smoke's timer."""
+    from capdec_tpu_torch.ops import _build
+    lib, stream = _build.library(), _build.stream(torch.device(DEVICE))
+    return lambda: _build.check(lib.capdec_empty_grid(
+        plan["blocks"], plan["threads"], stream), "empty_grid")
+
+
+def check_seqmajor_write(gen, ptxas):
     """K13 bit-identical to its plain version at the greedy path's shapes
-    (seq-major [L, N, E, D]); every other slot untouched."""
-    from capdec_tpu_torch.ops import cache_reorder as cr
+    (seq-major [L, N, E, D]) from the per-layer views of qkv buffers, as
+    decode_step hands them over, and from [L, N, D] tensors, in bf16 and
+    f32 at steps 0, 7, 8 and E-1; every other slot and the sources
+    untouched; its four instances built without spills. Timed from views
+    rotated past the L2, beside its plain version, the library route
+    (stack, then `index_copy_`), the empty kernel on its grid (the floor
+    of one launch) and, from stacked tensors, K13 alone."""
+    from capdec_tpu_torch.ops import _build, cache_reorder as cr
     N, L, E, D = (MAIN[k] for k in ("N", "L", "E", "D"))
+    regs = {seq_write_instance(name): rep for name, rep in ptxas.items()
+            if "write_gen_slot_seqmajor" in name}
+    require(not ptxas or len(regs) == 4, f"ptxas: K13 reported {regs}")
+    for t, rep in regs.items():
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"{t} spills: {rep}")
     for dtype in (torch.bfloat16, torch.float32):
         rand = lambda *s: torch.randn(*s, generator=gen,
                                       device=DEVICE).to(dtype)
         k0, v0 = rand(L, N, E, D), rand(L, N, E, D)
-        nk, nv = rand(L, N, D), rand(L, N, D)
+        (views,) = qkv_view_sets(gen, L, N, D, dtype, n=1)
+        held = [t.clone() for t in views[0] + views[1]]
+        stacked = tuple(torch.stack(side) for side in views)
         for step in (0, 7, 8, MAIN["entry_length"] - 1):
-            a = cr.write_gen_slot_chunk_seqmajor(k0.clone(), v0.clone(), nk,
-                                                 nv, step)
-            b = cr.write_gen_slot_chunk_seqmajor_plain(k0.clone(),
-                                                       v0.clone(), nk, nv,
-                                                       step)
-            torch.cuda.synchronize()
-            require(torch.equal(a["k"], b["k"]) and
-                    torch.equal(a["v"], b["v"]),
-                    f"K13 {dtype} step {step}: slot write differs from the "
-                    "plain version")
-            other = torch.arange(E, device=DEVICE) != step
-            require(torch.equal(a["v"][:, :, other], v0[:, :, other]),
-                    f"K13 {dtype} step {step}: touched another slot")
+            for form, (nk, nv) in (("views", views), ("tensors", stacked)):
+                a = cr.write_gen_slot_chunk_seqmajor(k0.clone(), v0.clone(),
+                                                     nk, nv, step)
+                b = cr.write_gen_slot_chunk_seqmajor_plain(
+                    k0.clone(), v0.clone(), nk, nv, step)
+                torch.cuda.synchronize()
+                require(torch.equal(a["k"], b["k"]) and
+                        torch.equal(a["v"], b["v"]),
+                        f"K13 {dtype} {form} step {step}: slot write "
+                        "differs from the plain version")
+                other = torch.arange(E, device=DEVICE) != step
+                require(torch.equal(a["k"][:, :, other], k0[:, :, other]) and
+                        torch.equal(a["v"][:, :, other], v0[:, :, other]),
+                        f"K13 {dtype} {form} step {step}: touched another "
+                        "slot")
+        require(all(torch.equal(t, h) for t, h in
+                    zip(views[0] + views[1], held)),
+                f"K13 {dtype}: a source changed")
         if dtype == torch.bfloat16:
             k, v = k0, v0
-    n = n_kv_sets((L, N, D))
+    sets = qkv_view_sets(gen, L, N, D)
+    plan = cr.seqmajor_write_plan(L, N, D, 2, _build.sm_count(
+        torch.device(DEVICE)))
+    tensor_form = slot_write_times(gen, cr.write_gen_slot_chunk_seqmajor,
+                                   cr.write_gen_slot_chunk_seqmajor_plain,
+                                   k, v, (L, N, D))
+    b_ms, b_by = bound_ms(2 * 2 * L * N * D * 2, 0, torch.bfloat16)
     return dict(
         name="write_gen_slot_chunk_seqmajor", route="cuda",
         source="capdec_tpu_torch/csrc/cache_reorder.cu",
         replaces="capdec_tpu/ops/cache_reorder.py:380",
         max_abs_err=0.0, max_abs_err_f32=0.0,
-        **slot_write_times(gen, cr.write_gen_slot_chunk_seqmajor,
-                           cr.write_gen_slot_chunk_seqmajor_plain, k, v,
-                           (L, N, D)),
-        shape=f"L={L} B={N} E={E} D={D} bf16 (seq-major), inputs rotated "
-              f"over {n} sets and the {E} slots")
+        ms=time_ms(seqmajor_write_call(cr.write_gen_slot_chunk_seqmajor, k,
+                                       v, sets)),
+        plain_ms=time_ms(seqmajor_write_call(
+            cr.write_gen_slot_chunk_seqmajor_plain, k, v, sets)),
+        library_ms=time_ms(seqmajor_write_call(stack_index_copy(E), k, v,
+                                               sets)),
+        bound_ms=b_ms, bound_by=b_by,
+        floor_ms=time_ms(empty_grid_call(plan)),
+        tensor_form_ms=tensor_form["ms"], ptxas=regs, plan=plan,
+        shape=f"L={L} B={N} E={E} D={D} bf16 (seq-major), from the "
+              f"per-layer views of [B, 3D] qkv buffers rotated over "
+              f"{len(sets)} sets and the {E} slots; library: torch.stack "
+              "of each side, then index_copy_ on dim 2 of k and v; floor: "
+              "the empty kernel on K13's grid; tensor_form_ms: K13 from "
+              "[L, B, D] tensors")
 
 
 def check_gathers(gen):
@@ -1269,6 +1366,34 @@ def serve_path(server, embeds, path):
                 batches=server.stats["batches"], launches=launches)
 
 
+def launches_per_step(server, embeds) -> dict:
+    """Every CUDA kernel one batch of the server launches, under
+    torch.profiler, per decode step (a step launches K1 once), and the
+    kernels the profile counts by name (capdec's own)."""
+    from capdec_tpu_torch.ops import lm_head
+    server.caption(embeds[:MAIN["N"]])  # warm
+    torch.cuda.synchronize()
+    steps0 = lm_head.lm_head_topk.launches
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        server.caption(embeds[:MAIN["N"]])
+        torch.cuda.synchronize()
+    steps = lm_head.lm_head_topk.launches - steps0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = {}
+    for e in kernels:
+        m = re.search(r"capdec::(?:\(anonymous namespace\)::)?(\w+(<[^>]*>)?)",
+                      e.name)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0) + 1
+    return dict(decode_steps=steps, kernel_launches=len(kernels),
+                launches_per_step=len(kernels) / max(steps, 1),
+                capdec_launches_per_step={n: c / max(steps, 1)
+                                          for n, c in sorted(ours.items())})
+
+
 def token_share(ta, la, tb, lb) -> float:
     """Share of token positions (up to the longer of two lengths) at which
     two decodes [N, E] agree."""
@@ -1577,7 +1702,8 @@ def main() -> int:
                *check_cache_kernels(gen), check_quantising_write(gen, ptxas),
                check_int8_attention(gen), check_whole_row_fork(gen),
                check_chunked_attention(gen),
-               check_chunked_int8_attention(gen), check_seqmajor_write(gen),
+               check_chunked_int8_attention(gen),
+               check_seqmajor_write(gen, ptxas),
                *check_gathers(gen), check_single_slot_write(gen),
                check_v1_attention(gen)]
     for k in kernels:
@@ -1602,6 +1728,11 @@ def main() -> int:
                     "v3 int8 path: int8_prefix must resolve on")
         server.warmup()
         served[phase] = serve_path(server, embeds, path)
+        if phase == "greedy_k13_path":  # K13's path: one launch a step
+            n = served[phase]["launches"]
+            require(n["write_gen_slot_chunk_seqmajor"] == n["lm_head_topk"],
+                    f"path (d): K13 must launch once a step, got {n}")
+            served[phase].update(launches_per_step(server, embeds))
         configs[phase] = dc
         log(json.dumps({"phase": phase, **served[phase]}))
         del server
@@ -1663,8 +1794,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cublas_ms", "max_abs_err_f32", "launches_by_path", "bf16_prefix",
-            "greedy_r1", "rotated_ms", "library_rotated_ms", "steps", "ptxas",
-            "shape")
+            "greedy_r1", "rotated_ms", "library_rotated_ms", "floor_ms",
+            "tensor_form_ms", "steps", "ptxas", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

@@ -16,8 +16,9 @@ the step, head_dim 32, 64 and 128, NaN also in the next layer's slot 0
 (K9: scale), both K9 prefix kinds, one launch per call; K6 (the
 in-register int8 policy of the same kernel) at R = 1, 2, 5, 8, 16, 17 and
 32, head_dim 32, 64 and 128, its tile's edges, step 0, e_cap below the
-step and step = e_cap, NaN scales at and above n_gen; K3/K4/K7/K13
-bit-exact; K5 bit-exact at D 64, 768, 1024 and 2048, item counts not a
+step and step = e_cap, NaN scales at and above n_gen; K3/K4/K7
+bit-exact; K13 bit-exact from per-layer views of qkv buffers and from
+[L, B, D] tensors at L up to 64, B up to 320 and D up to 1600; K5 bit-exact at D 64, 768, 1024 and 2048, item counts not a
 multiple of a block's warps, grids with fewer warps than items, exact
 ties (x / s = k + 0.5) and an amax outside [2^-60, 2^100] (the division
 route); the gathers K10-K12 and the slot write K14
@@ -413,20 +414,40 @@ def test_chunked_int8_kernel_head_dims(dev, gen, dtype, _, tol, int8_prefix,
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
 
 
+# K13 at the limits of its plan: L up to 64 layers, B up to 320 rows, D
+# up to GPT-2 XL's 1600 (bf16 rows of 1, 2, 4 and 8 words a lane; f32 rows
+# of 2 passes), E 16; and the shape this test had first
+SEQ_CASES = [(L, B, 16, D) for L in (1, 12, 48, 64) for B in (1, 7, 64, 320)
+             for D in (64, 768, 1024, 1600)] + [(3, 40, 24, 768)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_seqmajor_slot_write_kernel_bit_exact(dev, gen, dtype):
-    L, B, E, D = 3, 40, 24, 768
+@pytest.mark.parametrize("L,B,E,D", SEQ_CASES)
+def test_seqmajor_slot_write_kernel_bit_exact(dev, gen, dtype, L, B, E, D):
+    """K13 from per-layer views (the k and v thirds of [B, 3D] qkv
+    buffers) and from [L, B, D] tensors: bit-identical to the plain
+    version at steps 0, 7, 8, 9 and E-1, every other slot and the sources
+    untouched, one launch a call."""
     r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
-    k, v, nk, nv = r(L, B, E, D), r(L, B, E, D), r(L, B, D), r(L, B, D)
-    n0 = cache_reorder.write_gen_slot_chunk_seqmajor.launches
-    a = cache_reorder.write_gen_slot_chunk_seqmajor(k.clone(), v.clone(), nk,
-                                                    nv, 9)
-    b = cache_reorder.write_gen_slot_chunk_seqmajor_plain(
-        k.clone(), v.clone(), nk, nv, 9)
-    assert cache_reorder.write_gen_slot_chunk_seqmajor.launches == n0 + 1
-    assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
-    other = torch.arange(E, device=dev) != 9
-    assert torch.equal(a["k"][:, :, other], k[:, :, other])
+    k, v, qkv = r(L, B, E, D), r(L, B, E, D), r(L, B, 3 * D)
+    held = qkv.clone()
+    views = ([t[:, D:2 * D] for t in qkv], [t[:, 2 * D:] for t in qkv])
+    stacked = (qkv[:, :, D:2 * D].contiguous(), qkv[:, :, 2 * D:].contiguous())
+    for step in (0, 7, 8, 9, E - 1):
+        for nk, nv in (views, stacked):
+            n0 = cache_reorder.write_gen_slot_chunk_seqmajor.launches
+            a = cache_reorder.write_gen_slot_chunk_seqmajor(
+                k.clone(), v.clone(), nk, nv, step)
+            b = cache_reorder.write_gen_slot_chunk_seqmajor_plain(
+                k.clone(), v.clone(), nk, nv, step)
+            assert cache_reorder.write_gen_slot_chunk_seqmajor.launches == \
+                n0 + 1
+            assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+            other = torch.arange(E, device=dev) != step
+            assert torch.equal(a["k"][:, :, other], k[:, :, other])
+            assert torch.equal(a["v"][:, :, other], v[:, :, other])
+            del a, b
+    assert torch.equal(qkv, held)
 
 
 @pytest.mark.parametrize("B", LM_BS)
