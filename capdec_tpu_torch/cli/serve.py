@@ -126,8 +126,7 @@ def main(argv=None):
         sys.exit('need --embeddings_pickle or --watch')
     if args.mesh:
         raise NotImplementedError(
-            '--mesh is not ported yet (ROADMAP.md Queue 1, item 13: '
-            'parallelism)')
+            '--mesh is not ported yet (ROADMAP.md Queue 1, parallelism)')
     device = resolve_device(args.device)
 
     sd = ckpt_lib.load_state_dict(args.checkpoint)

@@ -49,7 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--only_prefix', action='store_true', default=False,
                    help='train only the mapper; GPT-2 frozen')
     p.add_argument('--mapping_type', type=str, default='transformer',
-                   help='mlp/transformer/transformer_encoder (transformer_decoder is not ported yet)')
+                   choices=('mlp', 'transformer', 'transformer_encoder',
+                            'transformer_decoder', 'mapping_network'),
+                   help='mlp/transformer/transformer_encoder/transformer_decoder/mapping_network')
     p.add_argument('--num_layers', type=int, default=8, help='mapper layers')
     p.add_argument('--is_not_rn', action='store_true', default=False,
                    help='CLIP backbone: False for RN50x4 (640-d), True for ViT (512-d)')
@@ -132,7 +134,7 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             "--mesh (multi-device training) is not ported yet (ROADMAP.md "
-            "Queue 1, item 13: parallelism)")
+            "Queue 1, parallelism)")
     device = resolve_device(args.device)
     prefix_dim = 640 if not args.is_not_rn else 512
 

@@ -953,7 +953,8 @@ cudaError_t launch(const Args& a, int threads, int smem, cudaStream_t stream) {
   const Layout lay(imin(a.R, kRowGroup), a.K, HD, sizeof(T), sizeof(C),
                    sizeof(P), a.tile, a.nbuf, threads, a.n_gen, kInReg);
   if (lay.total != smem || threads % 32 || threads < 64 || threads > 128 ||
-      a.tile < 1 || a.nbuf < 2 || a.R < 1 || a.R > 2 * kRowGroup)
+      a.tile < 1 || a.nbuf < 2 || a.R < 1 ||
+      (a.R + kRowGroup - 1) / kRowGroup > 65535 || a.N > 65535)
     return cudaErrorInvalidValue;
   // K6: each consumer thread holds at most two (hd 128) or one value items
   if (kInReg && imin(a.R, kRowGroup) * lay.J8 * (HD / 16) >

@@ -481,3 +481,11 @@ def beam_top_select(tokens: torch.Tensor, seq_lengths: torch.Tensor,
     top = order[:, 0]
     return tokens[rows, top], seq_lengths[rows, top]
 
+
+def beam_top_texts(tokenizer, tokens: torch.Tensor, seq_lengths: torch.Tensor,
+                   order: torch.Tensor) -> List[str]:
+    """Best caption per image: `[t[0] for t in beam_texts(...)]`, with
+    only the ranked-first beams copied to the host and detokenized."""
+    top_toks, top_lens = beam_top_select(tokens, seq_lengths, order)
+    t, ln = top_toks.cpu().numpy(), top_lens.cpu().numpy()
+    return [tokenizer.decode(t[n, :int(ln[n])]) for n in range(t.shape[0])]

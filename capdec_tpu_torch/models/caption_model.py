@@ -189,37 +189,57 @@ def config_from_torch_state_dict(sd: Dict[str, Any],
                                  compute_dtype: torch.dtype = torch.float32,
                                  **overrides) -> CaptionModelConfig:
     """Infer the caption-model architecture from checkpoint shapes (the
-    reference stores no config beside its `.pt`). The mapper's
-    num_heads / mlp_ratio stay at the reference's fixed 8 / 2.0."""
+    reference stores no config beside its `.pt`), as
+    capdec_tpu/models/caption_model.py:173-230 does. The mapper's
+    num_heads / mlp_ratio stay at the reference's fixed 8 / 2.0; a
+    transformer_decoder encoder of another width than 512 is refused."""
     def shape(key):
         return tuple(sd[key].shape)
 
     gcfg = gpt2.config_from_torch_state_dict(sd, prefix="gpt.",
                                              compute_dtype=compute_dtype)
     d_emb = gcfg.n_embd
-    if "clip_project.transformer.layers.0.norm1.weight" in sd:
-        base = "clip_project.transformer.layers."
+
+    def n_layers(base):
         seg = base.count(".")
+        return len({k.split(".")[seg] for k in sd if k.startswith(base)})
+
+    if "clip_project.transformer.layers.0.norm1.weight" in sd:
+        mapping_type = "transformer"
+        prefix_length = shape("clip_project.prefix_const")[0]
         out_dim, prefix_size = shape("clip_project.linear.weight")
-        cfg = CaptionModelConfig(
-            prefix_length=shape("clip_project.prefix_const")[0],
-            clip_length=out_dim // d_emb, prefix_size=prefix_size,
-            num_layers=len({k.split(".")[seg] for k in sd
-                            if k.startswith(base)}),
-            mapping_type="transformer", gpt2=gcfg)
-    elif "clip_project.model.0.weight" in sd:
-        idx = sorted(int(k.split(".")[2]) for k in sd
-                     if k.startswith("clip_project.model.")
-                     and k.endswith(".weight"))
-        prefix_length = shape(f"clip_project.model.{idx[-1]}.weight")[0] // d_emb
-        cfg = CaptionModelConfig(
-            prefix_length=prefix_length, clip_length=prefix_length,
-            prefix_size=shape(f"clip_project.model.{idx[0]}.weight")[1],
-            num_layers=len(idx), mapping_type="mlp", gpt2=gcfg)
+        clip_length = out_dim // d_emb
+        num_layers = n_layers("clip_project.transformer.layers.")
+    elif "clip_project.ref_encoder.layers.0.norm1.weight" in sd:
+        mapping_type = "transformer_decoder"
+        prefix_length = shape("clip_project.prefix_const")[0]
+        dim_ref = shape("clip_project.ref_encoder.layers.0.norm1.weight")[0]
+        if dim_ref != mappers.MapperConfig.enc_dec_dim_ref:
+            # the config cannot carry another encoder width (the reference
+            # hardcodes 512 too); going on would mis-load the weights
+            raise ValueError(
+                f"transformer_decoder checkpoint has encoder width "
+                f"{dim_ref}, but only "
+                f"{mappers.MapperConfig.enc_dec_dim_ref} is supported")
+        out_dim, prefix_size = shape("clip_project.linear.weight")
+        clip_length = out_dim // dim_ref
+        num_layers = n_layers("clip_project.ref_encoder.layers.")
     else:
-        raise NotImplementedError(
-            "only the transformer and mlp mappers are ported yet "
-            "(ROADMAP.md Queue 1, item 2: mappers)")
+        # Sequential MLP: `model.*` (mlp) or `mlp.model.*` (mapping_network)
+        mapping_network = "clip_project.mlp.model.0.weight" in sd
+        base = ("clip_project.mlp.model." if mapping_network
+                else "clip_project.model.")
+        mapping_type = "mapping_network" if mapping_network else "mlp"
+        idx = sorted(int(k[len(base):].split(".")[0]) for k in sd
+                     if k.startswith(base) and k.endswith(".weight"))
+        prefix_size = shape(f"{base}{idx[0]}.weight")[1]
+        prefix_length = shape(f"{base}{idx[-1]}.weight")[0] // d_emb
+        clip_length = prefix_length
+        num_layers = len(idx)
+    cfg = CaptionModelConfig(
+        prefix_length=prefix_length, clip_length=clip_length,
+        prefix_size=prefix_size, num_layers=num_layers,
+        mapping_type=mapping_type, gpt2=gcfg)
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 

@@ -354,6 +354,13 @@ def quantize_prefix_cache(prefix_cache: Cache) -> Cache:
             "vs": sv[..., 0][:, :, None, :].contiguous()}
 
 
+def repeat_prefix_cache(prefix_cache: Cache, repeats: int) -> Cache:
+    """Tile a [L, N, ...] prefix cache to [L, N*R, ...]: image n's entry
+    repeated R times in a row on axis 1 (the unified-cache layout)."""
+    return {k: torch.repeat_interleave(v, repeats, dim=1)
+            for k, v in prefix_cache.items()}
+
+
 def init_gen_cache_rowmajor(cfg: GPT2Config, batch: int, max_new: int,
                             dtype: Optional[torch.dtype] = None,
                             device=None) -> Cache:

@@ -132,9 +132,9 @@ def _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
             pv.shape != pk.shape or gv.shape != gk.shape:
         raise ValueError("shape mismatch: q [N*R, D], pk/pv [L, N, K, D], "
                          "gk/gv [N*R, L, E, D]")
-    if hd % 32 or hd > 128 or D % hd or not 0 < R <= 32:
-        raise ValueError("kernel takes head_dim in {32, 64, 96, 128} and "
-                         "1..32 beams per image")
+    if hd not in (32, 64, 128) or D % hd or R < 1:
+        raise ValueError("kernel takes head_dim in {32, 64, 128} and at "
+                         "least one beam per image")
     qs = q.stride(0)
     if any(t.stride() != (qs, 1) for t in (q, k_new, v_new)):
         raise ValueError("q/k_new/v_new need unit column stride and one "
@@ -252,12 +252,11 @@ def _attend_async(entry: str, q, k_new, v_new, pk, pv, gk, gv, layer, R,
     a prefix of q's type, or K6's (gks, gvs); the C entry takes the
     prefix's after pk/pv and the cache's after gk/gv. `inreg`: K6's
     policy."""
-    if hd not in (32, 64, 128) or \
-            any(t.data_ptr() % 16 for t in (q, k_new, v_new, pk, pv, gk, gv)) \
+    if any(t.data_ptr() % 16 for t in (q, k_new, v_new, pk, pv, gk, gv)) \
             or q.stride(0) * q.element_size() % 16:
         raise ValueError("decode attention copies head slices in 16-byte "
-                         "words: head_dim in {32, 64, 128}, 16-byte-aligned "
-                         "q/k_new/v_new rows and caches")
+                         "words: 16-byte-aligned q/k_new/v_new rows and "
+                         "caches")
     B, D = q.shape
     L, N, K, _ = pk.shape
     plan = attention_plan(N, R, K, D, hd, n_gen, q.element_size(),
@@ -366,19 +365,6 @@ def _chunk_reads(step, chunk, E):
     return min(E, max(chunk, -(-step // chunk) * chunk))
 
 
-def _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
-                   chunk, gen_dtype, prefix_dtype=None):
-    """Validate a K8/K9 call on CUDA tensors; returns the generated-slot
-    read count (`step`)."""
-    n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
-                        hd, None, gen_dtype, prefix_dtype)
-    if hd not in (32, 64, 128) or q.shape[1] % 16 or gk.data_ptr() % 16 \
-            or gv.data_ptr() % 16:
-        raise ValueError("K8/K9 read 16 values per load: head_dim in "
-                         "{32, 64, 128}, D % 16 == 0, aligned caches")
-    return n_gen
-
-
 def beam_decode_attention_chunked_plain(
         q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
@@ -408,9 +394,9 @@ def beam_decode_attention_chunked(
             q, k_new, v_new, pk, pv, gk, gv, step, layer,
             beams_per_image=beams_per_image, head_dim=head_dim, chunk=chunk)
     R, hd = beams_per_image, head_dim
+    n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
+                        None, q.dtype)
     _check_chunks(q, gk, R, chunk)
-    n_gen = _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
-                           hd, chunk, q.dtype)
     out = _attend_async("capdec_beam_decode_attention_chunked", q, k_new,
                         v_new, pk, pv, gk, gv, layer, R, hd, n_gen)
     beam_decode_attention_chunked.launches += 1
@@ -455,11 +441,10 @@ def beam_decode_attention_chunked_q(
             beams_per_image=beams_per_image, head_dim=head_dim, chunk=chunk,
             pks=pks, pvs=pvs)
     R, hd = beams_per_image, head_dim
-    _check_chunks(q, gk, R, chunk, pks, pvs)
     int8_prefix = pks is not None
-    n_gen = _check_chunked(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
-                           hd, chunk, torch.int8,
-                           torch.int8 if int8_prefix else None)
+    n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
+                        None, torch.int8, torch.int8 if int8_prefix else None)
+    _check_chunks(q, gk, R, chunk, pks, pvs)
     _check_gen_scales(q, gk, gks, gvs)
     L, N, K, _ = pk.shape
     for s in ((pks, pvs) if int8_prefix else ()):

@@ -85,7 +85,7 @@ class CaptionServer:
         if cfg.mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving is not ported yet "
-                "(ROADMAP.md Queue 1, item 13: parallelism)")
+                "(ROADMAP.md Queue 1, parallelism)")
         self._device = resolve_device(device)
         self._model = model.to(self._device).eval()
         # the decoder's weights in the compute dtype, cast once

@@ -78,7 +78,7 @@ def train(model_cfg: caption_model.CaptionModelConfig,
     if mesh is not None:
         raise NotImplementedError(
             "multi-device training is not ported yet (ROADMAP.md Queue 1, "
-            "item 13: parallelism)")
+            "parallelism)")
     device = resolve_device(device)
     os.makedirs(loop_cfg.out_dir, exist_ok=True)
     if params is None:

@@ -70,13 +70,19 @@ def train_step_matmul_flops(cfg: caption_model.CaptionModelConfig,
                                               m.mlp_ratio)
         mapper_fwd = batch * mp_pos * m.num_layers * mblk \
             + 2 * m.dim_clip * m.clip_length * m.dim_embedding * batch
-    elif m.canonical_type() == "mlp":
+    elif m.canonical_type() in ("mlp", "mapping_network"):
+        # the JAX package counts mapping_network with the mlp formula too
         h = m.dim_embedding * m.prefix_length
         mapper_fwd = 2 * batch * (m.dim_clip * h // 2 + (h // 2) * h)
-    else:
-        raise NotImplementedError(
-            f"mapping_type {m.mapping_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1, item 2: mappers)")
+    else:  # transformer_decoder: encoder over clip_length at dim_ref +
+        # interleaved cross/self decoder over prefix_length
+        dr = m.enc_dec_dim_ref
+        enc = batch * m.clip_length * m.num_layers * \
+            mapper_transformer_block_flops(dr, m.clip_length, m.mlp_ratio)
+        dec = batch * m.prefix_length * 2 * m.num_layers * \
+            mapper_transformer_block_flops(
+                m.dim_embedding, m.clip_length + m.prefix_length, m.mlp_ratio)
+        mapper_fwd = enc + dec + 2 * m.dim_clip * m.clip_length * dr * batch
     mapper = 3.0 * mapper_fwd
 
     return gpt_fwd + gpt_bwd + head + mapper

@@ -46,8 +46,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K12 and K15 lie on no served path (the JAX engine calls neither)
      and must launch on none; K15 (the v1 attention with its fused slot
      write) is checked at the beam path's per-layer shapes in phase 2.
+     Then beam 33 (beam33): 64 images at beam_size 33 on the bf16 beam
+     path (K1-K4; K2 in three row groups of 16), and K2 at R 33 timed
+     against its plain version, SDPA and its bound.
   4. Kernels against plain versions over whole decodes, in f32: 8 images
-     on the beam path, (a), (c), (d) and (f)-(i) give identical tokens
+     on the beam path, (a), (c), (d), (f)-(i) and beam 33 give identical
+     tokens
      (the bf16 path's token share with f32 is reported), and (f)'s
      tokens, lengths and beam order equal the beam path's (the cache
      moves are exact copies); a batch of 64 images on
@@ -63,7 +67,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rows falling, (j) leaving GPT-2 bit-unchanged, no decode kernel
      launched, and the saved `smoke-000.pt` serving a batch of 64. Then
      one f32 step at batch 2 on the card against the CPU (loss and
-     mapper gradient).
+     mapper gradient). Then the two other mappers (mappers):
+     transformer_decoder and mapping_network at full width, 3 steps of
+     (j) each (finite losses, the no-noise loss falling), the loop's `.pt`
+     read back with an inferred config and serving 64 captions on K1-K4,
+     and each mapper's f32 forward at batch 2, card against CPU, within
+     1e-4 relative L2. Then the predict CLI (predict) on the card from
+     (j)'s `smoke-000.pt` with --infer_model_config, --embeddings_pickle
+     (128 records) and --score_gt at batch 64: beam (K1-K4), --int8_kv
+     (K1, K5-K7) and --no_beam (K1), 128 captions each, the beam run's
+     first 64 equal to CaptionServer's for the same embeddings.
   6. A JSON line of the kernels, then {"ok": true, "device": ...} last.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -1233,39 +1246,43 @@ def check_v1_attention(gen):
 # ---------------------------------------------------------------------------
 
 
-def model_config(compute_dtype=torch.bfloat16, **kw):
-    """The full-width model: GPT-2 124M + the 8-layer TransformerMapper,
-    prefix 640 -> 40 (`kw`: only_prefix, ce_chunk_rows)."""
+def model_config(compute_dtype=torch.bfloat16, mapping_type="transformer",
+                 **kw):
+    """The full-width model: GPT-2 124M + the 8-layer mapper (the
+    TransformerMapper unless `mapping_type` says otherwise), prefix
+    640 -> 40 (`kw`: only_prefix, ce_chunk_rows)."""
     from capdec_tpu_torch.models import caption_model, gpt2
     return caption_model.CaptionModelConfig(
         prefix_length=MAIN["K"], clip_length=MAIN["K"],
         prefix_size=MAIN["prefix_size"], num_layers=MAIN["mapper_layers"],
-        mapping_type="transformer",
+        mapping_type=mapping_type,
         gpt2=gpt2.GPT2Config(vocab_size=MAIN["V"], n_embd=MAIN["D"],
                              n_layer=MAIN["L"], n_head=MAIN["H"],
                              compute_dtype=compute_dtype), **kw)
 
 
-def build_server(gen, model=None, beam=True, **knobs):
+def build_server(gen, model=None, beam=True, beam_size=MAIN["R"], cfg=None,
+                 tokenizer=None, **knobs):
     """The main path's server: BeamConfig(**knobs), or with beam=False
     greedy/top-p decoding with ToppConfig(**knobs). `model` reuses weights
-    made before. Returns (server, model, cfg, the decode config)."""
+    made before (of config `cfg`, default the main path's). Returns
+    (server, model, cfg, the decode config)."""
     from capdec_tpu_torch import serve
     from capdec_tpu_torch.models import caption_model
     from capdec_tpu_torch.utils.tokenizer import ByteTokenizer
-    cfg = model_config()
+    cfg = cfg or model_config()
     if model is None:
         model = caption_model.init_params(cfg, gen, device=DEVICE)
     E = MAIN["entry_length"]
     if beam:
-        dc = serve.BeamConfig(beam_size=MAIN["R"], entry_length=E, **knobs)
+        dc = serve.BeamConfig(beam_size=beam_size, entry_length=E, **knobs)
         sc = serve.ServeConfig(batch_size=MAIN["N"], beam_config=dc)
     else:
         dc = serve.ToppConfig(entry_length=E, **knobs)
         sc = serve.ServeConfig(batch_size=MAIN["N"], beam=False,
                                topp_config=dc)
-    server = serve.CaptionServer(model, cfg, ByteTokenizer(), sc,
-                                 device=DEVICE)
+    server = serve.CaptionServer(model, cfg, tokenizer or ByteTokenizer(),
+                                 sc, device=DEVICE)
     return server, model, cfg, dc
 
 
@@ -1342,23 +1359,34 @@ PATHS = (
 )
 
 
-def serve_path(server, embeds, path):
+def zero_counters() -> None:
     for fn in counters().values():
         fn.launches = 0
+
+
+def launch_set(path, what: str) -> dict:
+    """The launch counts since zero_counters(): every kernel of `path`
+    launched, no other."""
+    launches = {name: fn.launches for name, fn in counters().items()}
+    for name, n in launches.items():
+        if name in path:
+            require(n > 0, f"{what}: kernel {name} was never launched")
+        else:
+            require(n == 0, f"{what}: kernel {name} is not on this path but "
+                            f"launched {n} times")
+    return launches
+
+
+def serve_path(server, embeds, path):
+    zero_counters()
     t0 = time.perf_counter()
     got = dict(server.serve((i, embeds[i]) for i in range(len(embeds))))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = launch_set(path, "served path")
     require(sorted(got) == list(range(len(embeds))) and
             all(isinstance(t, str) for t in got.values()),
             "served path: every request must get one caption")
-    for name, n in launches.items():
-        if name in path:
-            require(n > 0, f"served path: kernel {name} was never launched")
-        else:
-            require(n == 0, f"served path: kernel {name} is not on this "
-                            f"path but launched {n} times")
     pct = server.latency_percentiles()
     return dict(served=len(got), wall_s=wall,
                 captions_per_s=len(got) / wall, latency_p50_s=pct["p50"],
@@ -1552,8 +1580,7 @@ def train_mode(only_prefix, ds, out_dir, embeds):
             log_every=1, seed=SEED, save_state=False, **kw), ds, noise,
             params=model, device=DEVICE)
 
-    for fn in counters().values():
-        fn.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     run("warm", max_steps=TRAIN["warm_steps"])
     run("timed")
@@ -1656,6 +1683,238 @@ def card_cpu_step(sd, ds):
                 worst_tensor_rel_max_err=worst[0], worst_tensor=worst[1])
 
 
+# ---------------------------------------------------------------------------
+# Beam 33: the attention kernel in three row groups of 16
+# ---------------------------------------------------------------------------
+
+WIDE_R = 33  # beams per image: more than the 32 the kernel once took
+BEAM_PATH = PATHS[0][3]  # K1-K4
+INT8_PATH = PATHS[1][3]  # K1, K5-K7
+
+
+def wide_attention_times(gen) -> dict:
+    """K2 at R 33 (64 images, a grid of three row groups) at the served
+    shapes' last step, bf16, against its plain version (NaN in the slots
+    it must not read): its time beside the plain version's, SDPA's on
+    keys concatenated beforehand, and the bound. One layer's generated
+    cache is 233 MB, past the L2, so a repeated call reads device
+    memory."""
+    from capdec_tpu_torch.ops import decode_attention as da
+    N, L, K, E, D, H = (MAIN[k] for k in ("N", "L", "K", "E", "D", "H"))
+    R, step, layer = WIDE_R, MAIN["entry_length"] - 1, L // 2
+    B, hd = N * R, D // H
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+
+    q, kn, vn = rand(B, 3 * D).split(D, dim=-1)
+    pk, pv, gk, gv = rand(L, N, K, D), rand(L, N, K, D), rand(B, L, E, D), \
+        rand(B, L, E, D)
+    for g in (gk, gv):
+        g[:, :, step:] = float("nan")
+        g[:, layer + 1, 0] = float("nan")
+    args = (q, kn, vn, pk, pv, gk, gv, step, layer)
+    kw = dict(beams_per_image=R, head_dim=hd, e_cap=E)
+    kernel = lambda: da.beam_decode_attention_rowmajor(*args, **kw)
+    plain = lambda: da.beam_decode_attention_rowmajor_plain(*args, **kw)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()), "K2 at R 33: non-finite output")
+    require(torch.allclose(out, ref, atol=2e-2, rtol=2e-2),
+            f"K2 at R 33: max abs err {max_err(out, ref)}")
+    S = K + step + 1
+    keys, vals = (torch.cat([p[layer].repeat_interleave(R, 0),
+                             g[:, layer, :step], n[:, None]], 1)
+                  for p, g, n in ((pk, gk, kn), (pv, gv, vn)))
+    nbytes = 3 * B * D * 2 + 2 * N * K * D * 2 + 2 * B * step * D * 2 \
+        + B * D * 4
+    b_ms, b_by = bound_ms(nbytes, 4.0 * B * D * S, torch.bfloat16)
+    plan = da.attention_plan(N, R, K, D, hd, step, 2)
+    return dict(R=R, grid=list(plan["grid"]), max_abs_err=max_err(out, ref),
+                ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=b_ms,
+                bound_by=b_by, library_ms=sdpa_ms(q, keys, vals, H),
+                shape=f"N={N} R={R} K={K} step={step} e_cap={E} D={D} bf16")
+
+
+# ---------------------------------------------------------------------------
+# The two other mappers, trained, saved and served
+# ---------------------------------------------------------------------------
+
+NEW_MAPPERS = ("transformer_decoder", "mapping_network")
+MAPPER_STEPS = 3
+
+
+def mapper_mode(mapping_type, ds, out_dir, embeds) -> dict:
+    """A full-width caption model with `mapping_type`'s mapper (8 layers,
+    the encoder-decoder's encoder 512 wide): MAPPER_STEPS steps of (j)
+    through train.loop.train (finite losses, the no-noise loss on the
+    corpus's distinct rows falling, no decode kernel launched), the loop's
+    `smoke_latest.pt` read back with an inferred config, 64 captions
+    served from it on the beam path (K1-K4), and its mapper's f32 forward
+    at batch 2 on the card against the CPU (1e-4 relative L2)."""
+    import pathlib
+    from capdec_tpu_torch.models import caption_model, mappers
+    from capdec_tpu_torch.train import loop, step
+    from capdec_tpu_torch.utils import checkpoint
+    cfg = model_config(mapping_type=mapping_type, only_prefix=True)
+    model = caption_model.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    rows = np.arange(TRAIN["distinct"])
+    fixed = {"tokens": ds.tokens[rows], "mask": ds.mask[rows],
+             "prefix": ds.batch_prefixes(rows)}
+    eval_fn = step.make_eval_step(cfg)
+    loss0 = float(eval_fn(model, fixed))
+    out_dir = pathlib.Path(out_dir)
+    zero_counters()
+    t0 = time.perf_counter()
+    loop.train(cfg, loop.TrainLoopConfig(
+        epochs=1, batch_size=TRAIN["batch"], lr=TRAIN["lr"], warmup_steps=0,
+        out_dir=str(out_dir), prefix="smoke", log_every=1, seed=SEED,
+        save_state=False, max_steps=MAPPER_STEPS,
+        latest_every_steps=MAPPER_STEPS), ds,
+        step.NoiseConfig(variance=TRAIN["variance"]), params=model,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch_set((), f"{mapping_type} training")
+    with open(out_dir / "metrics.jsonl") as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    require(len(losses) == MAPPER_STEPS and np.isfinite(losses).all(),
+            f"{mapping_type} training: losses {losses}")
+    loss1 = float(eval_fn(model, fixed))
+    require(np.isfinite(loss1) and loss1 < loss0,
+            f"{mapping_type} training: the loss on the distinct rows went "
+            f"{loss0} -> {loss1}")
+    del model
+    sd = checkpoint.load_state_dict(
+        checkpoint.latest_checkpoint_path(str(out_dir), "smoke"))
+    inferred = caption_model.config_from_torch_state_dict(
+        sd, compute_dtype=torch.bfloat16)
+    layers = 7 if mapping_type == "mapping_network" else cfg.num_layers
+    require(dataclasses.replace(cfg, only_prefix=False, num_layers=layers)
+            == inferred, f"{mapping_type}: inferred config {inferred}")
+    served = caption_model.params_from_torch_state_dict(sd, inferred, DEVICE)
+    server = build_server(None, model=served, cfg=inferred)[0]
+    run = serve_path(server, embeds[:MAIN["N"]], BEAM_PATH)
+    del server, served
+    # the mapper alone in f32 on both devices, from the saved weights
+    mcfg = inferred.mapper
+    x = embeds[:TRAIN["cpu_batch"]]
+    x = torch.from_numpy((x / np.linalg.norm(x, axis=-1, keepdims=True))
+                         .astype(np.float32))
+    msd = {k[len("clip_project."):]: v for k, v in sd.items()
+           if k.startswith("clip_project.")}
+    outs = {}
+    for dev in ("cpu", DEVICE):
+        mapper = mappers.build_mapper(mcfg, dev)
+        mapper.load_state_dict(msd, strict=True)
+        with torch.no_grad():
+            outs[dev] = mapper(x.to(dev)).cpu().double()
+    rel = float((outs[DEVICE] - outs["cpu"]).norm() / outs["cpu"].norm())
+    require(rel <= 1e-4, f"{mapping_type}: f32 forward card vs CPU {rel} "
+                         "relative L2")
+    torch.cuda.empty_cache()
+    return dict(mapping_type=mapping_type, steps=MAPPER_STEPS,
+                losses=losses, distinct_rows_loss=[loss0, loss1],
+                train_wall_s=wall, inferred_num_layers=inferred.num_layers,
+                served=run["served"], serve_captions_per_s=run["captions_per_s"],
+                launches=run["launches"], f32_forward_card_cpu_rel_l2=rel)
+
+
+# ---------------------------------------------------------------------------
+# The predict CLI from (j)'s checkpoint
+# ---------------------------------------------------------------------------
+
+PREDICT_RUNS = (("beam", [], BEAM_PATH), ("int8", ["--int8_kv"], INT8_PATH),
+                ("greedy", ["--no_beam"], ("lm_head_topk",)))
+
+
+def predict_runs(ckpt: str, embeds, tmp: str) -> dict:
+    """`capdec_tpu_torch.cli.predict.main` on the card from `ckpt` with
+    --infer_model_config, --embeddings_pickle (MAIN["requests"] records)
+    and --score_gt at batch 64: beam, --int8_kv and --no_beam, each with
+    its launch set and a caption per record (captions/s over the whole
+    CLI call: loading, config inference and scoring included). The beam
+    run's first 64 captions must equal, lowercased, what CaptionServer
+    gives the same 64 embeddings at batch 64: one engine on one batch."""
+    import os
+    import pickle
+    from capdec_tpu_torch.cli import predict
+    from capdec_tpu_torch.models import caption_model
+    from capdec_tpu_torch.utils import checkpoint
+    from capdec_tpu_torch.utils.tokenizer import load_tokenizer
+    n = MAIN["requests"]
+    rng = np.random.RandomState(SEED + 1)
+    records = [{"image_id": i, "clip_embedding": i,
+                "caption": " ".join(rng.choice(WORDS, 8)) + "."}
+               for i in range(n)]
+    root = f"{tmp}/data"
+    os.makedirs(f"{root}/coco/annotations")
+    with open(f"{root}/coco/annotations/single_caption_per_sample_val.json",
+              "w") as f:
+        json.dump(records, f)
+    gt = f"{tmp}/gt.json"
+    with open(gt, "w") as f:
+        json.dump({"images": [{"id": r["image_id"]} for r in records],
+                   "annotations": [{"image_id": r["image_id"], "id": i,
+                                    "caption": r["caption"]}
+                                   for i, r in enumerate(records)]}, f)
+    pkl = f"{tmp}/predict_embeddings.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"clip_embedding": embeds[:n], "captions": records}, f)
+    runs = {}
+    old_root = os.environ.get("CAPDEC_DATA_ROOT")
+    os.environ["CAPDEC_DATA_ROOT"] = root
+    try:
+        for name, flags, path in PREDICT_RUNS:
+            out = f"{tmp}/predict_{name}.json"
+            zero_counters()
+            t0 = time.perf_counter()
+            results = predict.main([
+                "--checkpoint", ckpt, "--infer_model_config",
+                "--embeddings_pickle", pkl, "--score_gt", gt,
+                "--batch_size", str(MAIN["N"]), "--out", out,
+                "--dataset_mode", "0", *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_set(path, f"predict {name}")
+            with open(out) as f:
+                written = json.load(f)
+            require(written == results and
+                    [r["image_id"] for r in written] == list(range(n)),
+                    f"predict {name}: {len(written)} captions written")
+            name_of = os.path.basename(ckpt).split(".")[0]
+            with open(f"{tmp}/{name_of}_scores.json") as f:
+                scores = json.load(f)
+            runs[name] = dict(captions=len(written), wall_s=wall,
+                              captions_per_s=len(written) / wall,
+                              launches=launches,
+                              scores={k: scores[k] for k in (
+                                  "Bleu_4", "METEOR", "ROUGE_L", "CIDEr")})
+    finally:
+        if old_root is None:
+            os.environ.pop("CAPDEC_DATA_ROOT", None)
+        else:
+            os.environ["CAPDEC_DATA_ROOT"] = old_root
+    sd = checkpoint.load_state_dict(ckpt)
+    cfg = caption_model.config_from_torch_state_dict(
+        sd, compute_dtype=torch.bfloat16)
+    server = build_server(
+        None, model=caption_model.params_from_torch_state_dict(
+            sd, cfg, DEVICE), cfg=cfg, tokenizer=load_tokenizer())[0]
+    captions = server.caption(embeds[:MAIN["N"]])
+    with open(f"{tmp}/predict_beam.json") as f:
+        beam = [r["caption"] for r in json.load(f)[:MAIN["N"]]]
+    same = sum(a == b.lower() for a, b in zip(beam, captions))
+    require(same == MAIN["N"], f"predict beam vs CaptionServer: "
+                               f"{same} of {MAIN['N']} captions equal")
+    runs["beam"]["equal_to_server"] = same
+    del server
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1736,11 +1995,19 @@ def main() -> int:
         configs[phase] = dc
         log(json.dumps({"phase": phase, **served[phase]}))
         del server
-    for k in kernels:
-        k["launches_by_path"] = {
-            phase: run["launches"][k["name"]]
-            for phase, run in served.items() if run["launches"][k["name"]]}
-        k["launches"] = sum(k["launches_by_path"].values())
+    # beam 33 on the bf16 beam path: K2 in three row groups of 16
+    server, _, _, dc = build_server(None, model=model, beam_size=WIDE_R)
+    require(resolve_config(dc).fused_attention,
+            "beam 33 must take the fused attention route")
+    server.warmup()
+    served["beam33_path"] = serve_path(server, embeds[:MAIN["N"]], BEAM_PATH)
+    configs["beam33_path"] = dc
+    del server
+    k2 = next(k for k in kernels
+              if k["name"] == "beam_decode_attention_rowmajor")
+    k2["r33"] = wide_attention_times(gen)
+    log(json.dumps({"phase": "beam33", **served["beam33_path"],
+                    "k2_r33": k2["r33"]}))
 
     bf16_gpt = cast_params_for_decode(model.gpt, cfg.gpt2)
     few, many = (embeds[:MAIN[k]] for k in ("identity_images", "int8_images"))
@@ -1767,7 +2034,7 @@ def main() -> int:
             same_as=configs["main_path"])),
         *((f"{p}_token_identity", lambda p=p: token_identity(
             model, cfg, True, configs[f"{p}_path"], bf16_gpt, few))
-          for p in ("seqmajor", "slot_write", "ancestry")))
+          for p in ("seqmajor", "slot_write", "ancestry", "beam33")))
     for phase, call in checks:
         log(json.dumps({"phase": phase, **call()}))
     del model, bf16_gpt
@@ -1789,13 +2056,32 @@ def main() -> int:
         log(json.dumps({"phase": "train_card_vs_cpu",
                         **card_cpu_step(sd, ds)}))
         del sd
+        torch.cuda.empty_cache()
+        mapped = {}
+        for mapping_type in NEW_MAPPERS:
+            mapped[mapping_type] = mapper_mode(
+                mapping_type, ds, f"{tmp}/{mapping_type}", embeds)
+            served[f"{mapping_type}_path"] = dict(
+                launches=mapped[mapping_type]["launches"],
+                captions_per_s=mapped[mapping_type]["serve_captions_per_s"])
+            log(json.dumps({"phase": "mappers", **mapped[mapping_type]}))
+        predicted = predict_runs(f"{tmp}/train_j/timed/smoke-000.pt", embeds,
+                                 tmp)
+        for name, run in predicted.items():
+            served[f"predict_{name}"] = run
+            log(json.dumps({"phase": "predict", "run": name, **run}))
+    for k in kernels:
+        k["launches_by_path"] = {
+            phase: run["launches"][k["name"]]
+            for phase, run in served.items() if run["launches"][k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
 
     name = torch.cuda.get_device_name(0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cublas_ms", "max_abs_err_f32", "launches_by_path", "bf16_prefix",
             "greedy_r1", "rotated_ms", "library_rotated_ms", "floor_ms",
-            "tensor_form_ms", "steps", "ptxas", "shape")
+            "tensor_form_ms", "steps", "r33", "ptxas", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

@@ -45,10 +45,10 @@ def test_plan_fits_a_block_and_covers_the_slots(itemsize, R, step):
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_plan_fits_every_head_dim_and_beam_count(hd, itemsize):
-    for R in (1, 8, 16, 17, 24, 32):
+    for R in (1, 8, 16, 17, 24, 32, 33, 48, 64):
         plan = da.attention_plan(N, R, K, 12 * hd, hd, E - 1, itemsize)
         assert plan["smem"] <= BLOCK_SMEM
-        assert plan["grid"] == (12, N, 1 if R <= 16 else 2)
+        assert plan["grid"] == (12, N, -(-R // 16))
 
 
 @pytest.mark.parametrize("R", [1, 5])
@@ -63,7 +63,7 @@ def test_served_plan_is_one_wave(R):
         assert per_sm * SMS >= N * D // HD, step
 
 
-@pytest.mark.parametrize("R", [1, 5, 16, 17, 24, 32])
+@pytest.mark.parametrize("R", [1, 5, 16, 17, 24, 32, 33, 48])
 def test_grid_covers_every_head_and_row_once(R):
     """Block (h, n, z) of the plan's grid serves head h of rows
     n*R + 16z .. n*R + min(R, 16z + 16) - 1 (the kernel's blockIdx
@@ -155,8 +155,8 @@ def test_one_launch_per_call_with_the_plan(library, entry, wrapper, kw, R,
 def test_refuses_a_head_dim_or_cache_it_cannot_copy(library, wrapper, kw):
     """head_dim 96 (a head slice that is no power-of-two count of 16-byte
     words), caches or q/k_new/v_new rows that do not start on 16 bytes,
-    and more than 32 beams per image (two row groups) are refused before
-    any launch; 24 beams launch once, in two row groups."""
+    and no beam per image are refused before any launch; 24 beams launch
+    once, in two row groups, and 33 once, in three."""
     hd96 = _inputs(5, torch.bfloat16, hd=96)
     with pytest.raises(ValueError, match="head_dim"):
         wrapper(*hd96, 3, 1, beams_per_image=5, head_dim=96, **kw)
@@ -169,13 +169,17 @@ def test_refuses_a_head_dim_or_cache_it_cannot_copy(library, wrapper, kw):
     with pytest.raises(ValueError, match="aligned"):
         wrapper(*qkv.split(D, dim=-1), *caches, 3, 1, beams_per_image=5,
                 head_dim=HD, **kw)
-    with pytest.raises(ValueError, match="1..32 beams"):
-        wrapper(*_inputs(33, torch.bfloat16), 3, 1, beams_per_image=33,
+    with pytest.raises(ValueError, match="at least one beam"):
+        wrapper(*_inputs(0, torch.bfloat16), 3, 1, beams_per_image=0,
                 head_dim=HD, **kw)
     assert library.calls == []
     wrapper(*_inputs(24, torch.bfloat16), 3, 1, beams_per_image=24,
             head_dim=HD, **kw)
     assert len(library.calls) == 1 and library.calls[0][1][10] == 24
+    wrapper(*_inputs(33, torch.bfloat16), 3, 1, beams_per_image=33,
+            head_dim=HD, **kw)
+    assert len(library.calls) == 2 and library.calls[1][1][10] == 33
+    assert da.attention_plan(2, 33, K, D, HD, 3, 2)["grid"] == (12, 2, 3)
 
 
 def test_plan_refuses_what_no_block_holds():
@@ -188,7 +192,7 @@ KINDS = [(2, 1, 2), (2, 1, 1), (4, 1, 4), (4, 1, 1), (2, 2, 2), (4, 4, 4)]
 
 @pytest.mark.parametrize("itemsize,cache_size,prefix_size", KINDS)
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("R", [1, 2, 5, 8, 16, 17, 24, 32])
+@pytest.mark.parametrize("R", [1, 2, 5, 8, 16, 17, 24, 32, 33])
 def test_int8_plan_fits_a_block_and_covers_the_slots(itemsize, cache_size,
                                                      prefix_size, hd, R):
     """K9's plans (an int8 cache under a prefix of q's type or of int8
@@ -318,8 +322,8 @@ def test_v1_one_launch_per_call_with_the_plan(library, R, dtype, step):
 
 @pytest.mark.parametrize("int8_prefix", [False, True])
 def test_int8_chunked_refuses_what_it_cannot_copy(library, int8_prefix):
-    """K9: head_dim 96, misaligned caches or rows and 33 beams are refused
-    before any launch."""
+    """K9: head_dim 96, misaligned caches or rows and no beam are refused
+    before any launch; 33 beams launch once."""
     kw = dict(chunk=8)
     args, pre = _int8_inputs(5, torch.bfloat16, int8_prefix, hd=96)
     wrapper = da.beam_decode_attention_chunked_q
@@ -335,15 +339,18 @@ def test_int8_chunked_refuses_what_it_cannot_copy(library, int8_prefix):
     with pytest.raises(ValueError, match="aligned"):
         wrapper(*qkv.split(D, dim=-1), *args[3:], 3, 1, beams_per_image=5,
                 head_dim=HD, **kw, **pre)
-    args, pre = _int8_inputs(33, torch.bfloat16, int8_prefix, n=1)
-    with pytest.raises(ValueError, match="1..32 beams"):
-        wrapper(*args, 3, 1, beams_per_image=33, head_dim=HD, **kw, **pre)
+    args, pre = _int8_inputs(0, torch.bfloat16, int8_prefix, n=1)
+    with pytest.raises(ValueError, match="at least one beam"):
+        wrapper(*args, 3, 1, beams_per_image=0, head_dim=HD, **kw, **pre)
     assert library.calls == []
+    args, pre = _int8_inputs(33, torch.bfloat16, int8_prefix, n=1)
+    wrapper(*args, 3, 1, beams_per_image=33, head_dim=HD, **kw, **pre)
+    assert len(library.calls) == 1 and library.calls[0][1][14] == 33
 
 
 def test_v1_refuses_what_it_cannot_copy(library):
-    """K15: head_dim 96, misaligned caches or rows and 33 beams are
-    refused before any launch."""
+    """K15: head_dim 96, misaligned caches or rows and no beam are
+    refused before any launch; 33 beams launch once."""
     def v1(R=5, hd=HD, offset=0, qkv=None):
         q, kn, vn, pk, pv, gk, gv = _inputs(R, torch.bfloat16, 2, 1, hd,
                                             offset)
@@ -359,9 +366,11 @@ def test_v1_refuses_what_it_cannot_copy(library):
     qkv = torch.zeros(10, 3 * D + 1, dtype=torch.bfloat16)[:, 1:]
     with pytest.raises(ValueError, match="aligned"):
         v1(qkv=qkv.split(D, dim=-1))
-    with pytest.raises(ValueError, match="1..32 beams"):
-        v1(R=33)
+    with pytest.raises(ValueError, match="at least one beam"):
+        v1(R=0)
     assert library.calls == []
+    v1(R=33)
+    assert len(library.calls) == 1 and library.calls[0][1][10] == 33
 
 
 # K6 (`beam_decode_attention_rowmajor_q`): an int8 cache read in place under
@@ -376,7 +385,7 @@ def _k6_plan(R, hd, n_gen, itemsize, n=N):
 
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("R", [1, 2, 5, 8, 16, 17, 24, 32])
+@pytest.mark.parametrize("R", [1, 2, 5, 8, 16, 17, 24, 32, 33])
 @pytest.mark.parametrize("e_cap", [16, 72, None])
 def test_k6_plan_fits_a_block_and_covers_the_slots(itemsize, hd, R, e_cap):
     """Within a block, the layout's total, every generated slot below
@@ -473,8 +482,8 @@ def test_k6_one_launch_per_call_with_the_plan(library, R, dtype, step,
 
 def test_k6_refuses_before_any_launch(library):
     """K6: scales of the wrong shape, dtype or layout, misaligned caches or
-    rows, head_dim 96, an e_cap out of range, 33 beams and a cache that is
-    not int8 are refused before any launch."""
+    rows, head_dim 96, an e_cap out of range, no beam and a cache that is
+    not int8 are refused before any launch; 33 beams launch once."""
     wrapper = da.beam_decode_attention_rowmajor_q
     kw = dict(beams_per_image=5, head_dim=HD)
     args = _k6_inputs(5, torch.bfloat16)
@@ -498,10 +507,13 @@ def test_k6_refuses_before_any_launch(library):
     for e_cap in (0, E + 1):
         with pytest.raises(ValueError, match="e_cap"):
             wrapper(*args, 3, 1, e_cap=e_cap, **kw)
-    with pytest.raises(ValueError, match="1..32 beams"):
-        wrapper(*_k6_inputs(33, torch.bfloat16, n=1), 3, 1,
-                beams_per_image=33, head_dim=HD)
+    with pytest.raises(ValueError, match="at least one beam"):
+        wrapper(*_k6_inputs(0, torch.bfloat16, n=1), 3, 1,
+                beams_per_image=0, head_dim=HD)
     with pytest.raises(ValueError, match="int8"):
         wrapper(*args[:5], args[5].to(torch.bfloat16),
                 args[6].to(torch.bfloat16), *args[7:], 3, 1, **kw)
     assert library.calls == []
+    wrapper(*_k6_inputs(33, torch.bfloat16, n=1), 3, 1,
+            beams_per_image=33, head_dim=HD)
+    assert len(library.calls) == 1 and library.calls[0][1][12] == 33

@@ -10,8 +10,8 @@ Tolerances: K1 indices identical and values/lse within 2e-3 (bf16) or
 its vocab tiles and of its persistent blocks' ranges; the attention kernels
 K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
 (K2, K8) or scales (K6, K9) they must not read; K2, K8, K9 and K15 (one
-kernel) at R = 1, 2, 5 and 8 and in two row groups (R = 17, 24, 32; K9
-up to 24), steps at the ends and at its chunk tile's edges, e_cap below
+kernel) at R = 1, 2, 5 and 8, in two row groups (R = 17, 24, 32; K9
+up to 24) and, with K6, in three and four (R = 33, 48), steps at the ends and at its chunk tile's edges, e_cap below
 the step, head_dim 32, 64 and 128, NaN also in the next layer's slot 0
 (K9: scale), both K9 prefix kinds, one launch per call; K6 (the
 in-register int8 policy of the same kernel) at R = 1, 2, 5, 8, 16, 17 and
@@ -28,8 +28,8 @@ attention with the fused slot write) within K2's tolerances, its slot
 write bit-exact, every other slot untouched, NaN tails unread, and bad
 shapes, dtypes and overlapping caches refused; tiny beam searches (bf16/f32 cache, int8 cache with
 staged growth, the slot-bounded v3 paths, the non-lane, seq-major, K14,
-ancestry and temperature paths) and greedy searches (every route) in f32
-give identical tokens through the kernels and through the plain versions
+ancestry and temperature paths, and a beam of 33 on the K2, K6 and K8
+routes) and greedy searches (every route) in f32 give identical tokens through the kernels and through the plain versions
 (int8: a token share of at least 0.98).
 """
 import pathlib
@@ -691,3 +691,76 @@ def test_v1_attention_kernel_refuses_bad_arguments(dev, gen):
     with pytest.raises(ValueError, match="overlap"):
         v1(gk[:, 0], gk[:, 1], gk[:, 2], pk, pv, gk, gv, 3, **kw)
     assert v1.launches == n0
+
+
+# R > 32: three and four row groups of 16, the last one partial at R 33
+WIDE_R = [33, 48]
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("R", WIDE_R)
+@pytest.mark.parametrize("step", [0, 33, 71])
+@pytest.mark.parametrize("kernel", ["K2", "K6", "K8", "K9", "K9 int8 prefix",
+                                    "K15"])
+def test_attention_kernels_beyond_32_beams(dev, gen, dtype, _, tol, R, step,
+                                           kernel):
+    """K2, K6, K8, K9 (both prefix kinds) and K15 at more than 32 beams per
+    image, against their plain versions, one launch per call."""
+    da = decode_attention
+    kw = dict(beams_per_image=R, head_dim=64)
+    if kernel in ("K2", "K8", "K15"):
+        args = _async_inputs(gen, dev, dtype, 2, R, 64, step)
+        if kernel == "K15":
+            q, kn, vn, pk, pv, gk, gv, _, _ = args
+            args = (q, kn, vn, pk[1], pv[1], gk[:, 1].contiguous(),
+                    gv[:, 1].contiguous(), step)
+        fn, plain, more = {
+            "K2": (da.beam_decode_attention_rowmajor,
+                   da.beam_decode_attention_rowmajor_plain, {}),
+            "K8": (da.beam_decode_attention_chunked,
+                   da.beam_decode_attention_chunked_plain, dict(chunk=8)),
+            "K15": (da.beam_decode_attention, da.beam_decode_attention_plain,
+                    {})}[kernel]
+    elif kernel == "K6":
+        args, _pre = _int8_inputs(gen, dev, dtype, 2, R, 64, step, False)
+        fn, plain, more = (da.beam_decode_attention_rowmajor_q,
+                           da.beam_decode_attention_rowmajor_q_plain, {})
+    else:
+        args, more = _int8_inputs(gen, dev, dtype, 2, R, 64, step,
+                                  kernel.endswith("prefix"))
+        more = dict(chunk=8, **more)
+        fn, plain = (da.beam_decode_attention_chunked_q,
+                     da.beam_decode_attention_chunked_q_plain)
+    n0 = fn.launches
+    if kernel == "K15":
+        out = fn(*args[:5], args[5].clone(), args[6].clone(), step, **kw)[0]
+        ref = plain(*args[:5], args[5].clone(), args[6].clone(), step,
+                    **kw)[0]
+    else:
+        out = fn(*args, **kw, **more)
+        ref = plain(*args, **kw, **more)
+    assert fn.launches == n0 + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(kv_cache_int8=True),
+                                   dict(fused_slot_chunks=8)])
+def test_beam_search_beyond_32_beams_matches_plain_path(dev, gen, knobs):
+    """A beam of 33 through the fused routes (K2, K6 or K8) in f32 gives
+    the plain path's tokens (int8: a share of at least 0.98)."""
+    cfg, model, prefix = _tiny(dev, gen)
+    bc = beam.BeamConfig(beam_size=33, entry_length=20, stop_token=-1,
+                         **knobs)
+    assert beam.resolve_config(bc).fused_attention
+    a = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc)
+    b = beam.beam_search(model.gpt, cfg.gpt2, prefix, bc.plain())
+    if knobs.get("kv_cache_int8"):
+        assert torch.isfinite(a[2]).all()
+        assert (a[0] == b[0]).float().mean() >= 0.98
+        return
+    for name, x, y in zip(("tokens", "lengths", "scores", "order"), a, b):
+        if name == "scores":
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(x, y), name

@@ -10,7 +10,9 @@ package, on the CPU in f32.
     the JAX package loads in the port, with equal parameters.
   * `python -m capdec_tpu_torch.cli.train --device cpu` on the corpus of
     tests/test_cli_main_e2e.py gives the JAX CLI's loss_per_epoch from the
-    same `--pretrain_weights`; `--mesh` and unported mappers raise.
+    same `--pretrain_weights`; `--mesh` raises, `transformer_decoder`
+    trains and its checkpoint's config is inferred, an unknown mapper is
+    refused.
 """
 import dataclasses
 import functools
@@ -195,6 +197,15 @@ def test_train_cli_matches_the_jax_cli(tmp_path, monkeypatch):
         assert json.load(f)["device"] == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(flags + ["--out_dir", out, "--device", "cpu", "--mesh=2,1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(flags[:-2] + ["--out_dir", out, "--device", "cpu",
-                               "--mapping_type", "transformer_decoder"])
+    # every mapper type trains: the encoder-decoder's epoch checkpoint
+    # loads with an inferred config of its type; an unknown type is refused
+    dec = str(tmp_path / "dec")
+    cli.main(flags[:-2] + ["--out_dir", dec, "--device", "cpu",
+                           "--mapping_type", "transformer_decoder"])
+    sd = checkpoint.load_state_dict(os.path.join(dec, "tiny-001.pt"))
+    cfg = caption_model.config_from_torch_state_dict(sd)
+    assert (cfg.mapping_type, cfg.num_layers, cfg.prefix_length) == \
+        ("transformer_decoder", 1, 2)
+    with pytest.raises(SystemExit):
+        cli.main(flags[:-2] + ["--out_dir", dec, "--device", "cpu",
+                               "--mapping_type", "no_such_mapper"])
