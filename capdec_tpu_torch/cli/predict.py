@@ -3,16 +3,19 @@
 runner, plus `--device`.
 
     python -m capdec_tpu_torch.cli.predict --checkpoint c.pt \\
-        --embeddings_pickle e.pkl [--infer_model_config] [--int8_kv] \\
-        [--no_beam] [--score_gt gt.json] [--device cpu]
+        (--embeddings_pickle e.pkl | --clip_checkpoint RN50x4.pt) \\
+        [--infer_model_config] [--int8_kv] [--no_beam] \\
+        [--score_gt gt.json] [--device cpu]
 
 Dataset modes (reference :427): 0 coco val, 1 flickr30, 2 humor, 3
 romantic, 4 factual, 5 coco val text-only, 6 coco train, 7/8 snowboard /
 news variants. GT JSON and image roots come from a registry rooted at
 CAPDEC_DATA_ROOT instead of the reference's hardcoded cluster paths.
-Embeddings come from `--embeddings_pickle`; encoding images or captions
-with `--clip_checkpoint` waits for the CLIP port and `--mesh` for
-parallelism (both raise).
+Embeddings come from `--embeddings_pickle`, or from the image files (or,
+with `--text_autoencoder` / dataset_mode 5, the captions) through the
+CLIP towers of `--clip_checkpoint`: RN50x4 or ViT-B/32 by `--is_rn`, or
+the checkpoint's own architecture under `--infer_model_config`. `--mesh`
+waits for parallelism (it raises).
 """
 from __future__ import annotations
 
@@ -45,6 +48,14 @@ def dataset_registry(root: str):
     }
 
 
+def image_path_fn_for_mode(mode: int, images_root: str):
+    if mode in (0, 7, 8):
+        return lambda d: f"{images_root}/COCO_val2014_{int(d['image_id']):012d}.jpg"
+    if mode == 6:
+        return lambda d: f"{images_root}/COCO_train2014_{int(d['image_id']):012d}.jpg"
+    return lambda d: f"{images_root}/{d['filename']}"
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--checkpoint', default='./checkpoints/coco_prefix-009.pt')
@@ -69,8 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--mapping_type', type=str, default='transformer_encoder',
                    help='mlp/transformer_encoder/transformer_decoder/mapping_network')
     p.add_argument('--clip_checkpoint', default='',
-                   help='path to the OpenAI CLIP .pt (image/text encoding; '
-                        'not ported yet, raises)')
+                   help='path to the OpenAI CLIP .pt (required for image/text encode)')
     p.add_argument('--embeddings_pickle', default='',
                    help='use precomputed CLIP embeddings from this pickle instead of encoding')
     p.add_argument('--batch_size', type=int, default=32)
@@ -100,7 +110,7 @@ def main(argv=None):
 
     from ..decode import BeamConfig
     from ..eval import predictions as pred_lib
-    from ..models import caption_model, gpt2
+    from ..models import caption_model, clip as clip_lib, gpt2
     from ..utils import checkpoint as ckpt_lib
     from ..utils.tokenizer import load_tokenizer
     from ..utils.torch_setup import resolve_device
@@ -109,12 +119,7 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             '--mesh is not ported yet (ROADMAP.md Queue 1, parallelism)')
-    if not args.embeddings_pickle:
-        if args.clip_checkpoint:
-            raise NotImplementedError(
-                '--clip_checkpoint (image and caption encoding) is not '
-                'ported yet (ROADMAP.md Queue 1, CLIP and embeddings); pass '
-                '--embeddings_pickle')
+    if not (args.embeddings_pickle or args.clip_checkpoint):
         sys.exit("--clip_checkpoint or --embeddings_pickle required")
     device = resolve_device(args.device)
     print(f'beam search = {args.beam}', flush=True)
@@ -125,7 +130,7 @@ def main(argv=None):
     reg = dataset_registry(root)
     if args.dataset_mode not in reg:
         sys.exit("Wrong dataset mode")
-    gt_path, _ = reg[args.dataset_mode]
+    gt_path, images_root = reg[args.dataset_mode]
     with open(gt_path) as f:
         data = json.load(f)
     print(f'loaded data: {len(data)} records; sample: {data[0]}', flush=True)
@@ -179,12 +184,38 @@ def main(argv=None):
         bridger_fn = load_bridger_fn(prefix_dim, device=device)
 
     tokenizer = load_tokenizer()
-    with open(args.embeddings_pickle, 'rb') as f:
-        all_data = pickle.load(f)
-    emb = all_data['clip_embedding']
-    if hasattr(emb, 'numpy'):
-        emb = emb.float().numpy()
-    embed_fn = pred_lib.make_pickle_embed_fn(np.asarray(emb, np.float32))
+
+    # embedding source
+    record_filter = None
+    if args.embeddings_pickle:
+        with open(args.embeddings_pickle, 'rb') as f:
+            all_data = pickle.load(f)
+        emb = all_data['clip_embedding']
+        if hasattr(emb, 'numpy'):
+            emb = emb.float().numpy()
+        embed_fn = pred_lib.make_pickle_embed_fn(np.asarray(emb, np.float32))
+    else:
+        # with shape-inferred model config, infer the CLIP arch too
+        model_name = (None if args.infer_model_config
+                      else "RN50x4" if args.is_rn else "ViT-B/32")
+        clip_model, clip_cfg = clip_lib.load_openai_checkpoint(
+            args.clip_checkpoint, model_name, device=device)
+        if args.text_autoencoder or args.dataset_mode == 5:
+            from ..utils.clip_tokenizer import CLIPTokenizer
+            embed_fn = pred_lib.make_text_embed_fn(
+                clip_model, clip_cfg, CLIPTokenizer(), device=device)
+        else:
+            path_fn = image_path_fn_for_mode(args.dataset_mode, images_root)
+            embed_fn = pred_lib.make_image_embed_fn(
+                clip_model, clip_cfg, path_fn, device=device)
+            record_filter = lambda d: os.path.isfile(path_fn(d))
+
+    text_embed_fn = None
+    if (args.ablation_image_dist and args.clip_checkpoint
+            and not args.embeddings_pickle):
+        from ..utils.clip_tokenizer import CLIPTokenizer
+        text_embed_fn = pred_lib.make_text_embed_fn(
+            clip_model, clip_cfg, CLIPTokenizer(), device=device)
 
     bc = BeamConfig()
     if args.int8_kv:
@@ -196,7 +227,8 @@ def main(argv=None):
         add_modality_offset=args.add_modality_offset, modality_offset=offset,
         text_autoencoder=args.text_autoencoder,
         ablation_dist=args.ablation_dist,
-        ablation_image_dist=args.ablation_image_dist)
+        ablation_image_dist=args.ablation_image_dist,
+        text_embed_fn=text_embed_fn, record_filter=record_filter)
     results = pred_lib.run_predictions(data, embed_fn, model, model_cfg,
                                        tokenizer, pcfg, out_path=out_path,
                                        bridger_fn=bridger_fn, device=device)

@@ -9,18 +9,22 @@ unless it is given `device="cpu"`, where the kernels' plain versions run.
 
 Reference-parity behaviours:
   * `dont_normalize_prefix`, the inference modality offset
-    (`offset_to_add_in_inference`), the modality-bridger hook
+    (`offset_to_add_in_inference`), the modality-bridger hook,
+    text-autoencoder mode (dataset_mode 5 / `--text_autoencoder`: encode
+    the *caption* text instead of the image, predictions_runner.py:215-218)
   * output JSON `[{"caption": ..., "image_id": ...}]`, lowercased
     captions, a flush every `flush_every // batch_size` batches
   * per-batch latency stats (replacing the CUDA-event Timer)
 
-Image and caption-text encoding wait for the CLIP port and multi-device
-eval for parallelism (ROADMAP.md Queue 1); both raise.
+Embedding sources: image files or caption text through the port's CLIP
+towers, or a precomputed pickle. Multi-device eval waits for parallelism
+(ROADMAP.md Queue 1) and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Callable, List, Optional
 
 import numpy as np
@@ -73,8 +77,8 @@ def run_predictions(records: List[dict],
     """Generate captions for `records`.
 
     `embed_batch_fn(records) -> [B, D] raw CLIP embeddings` abstracts the
-    encode side (precomputed embeddings here), so the runner is testable
-    without CLIP weights. Steps per batch: the L2 norm, the offset, the
+    encode side (image files, caption text, or precomputed embeddings), so
+    the runner is testable without CLIP weights. Steps per batch: the L2 norm, the offset, the
     bridger hook, `map_prefix`, then beam search (the rank-0 beam) or
     greedy/top-p."""
     from . import ablation
@@ -159,19 +163,49 @@ def run_predictions(records: List[dict],
 # ---------------------------------------------------------------------------
 
 
-def make_image_embed_fn(*args, **kwargs):
-    """Batched image encoder: waits for the CLIP port."""
-    raise NotImplementedError(
-        "image encoding is not ported yet (ROADMAP.md Queue 1, CLIP and "
-        "embeddings)")
+def make_image_embed_fn(clip_model, clip_cfg, image_path_fn: Callable,
+                        device=None):
+    """Batched image encoder on the card (unless `device` names another);
+    missing files get zero embeddings and are reported (the reference
+    skips them, predictions_runner.py:206-209)."""
+    from ..data.embeddings import image_encoder
+    from ..data.image_ops import load_and_preprocess
+
+    device = resolve_device(device)
+    n_px = clip_cfg.vision.image_resolution
+    encode = image_encoder(clip_model.to(device).eval(), device)
+    skips = [0]
+
+    def fn(records):
+        imgs = []
+        for d in records:
+            path = image_path_fn(d)
+            if os.path.isfile(path):
+                imgs.append(load_and_preprocess(path, n_px))
+            else:
+                skips[0] += 1
+                print(f"skips= {skips[0]}  filename= {path}", flush=True)
+                imgs.append(np.zeros((n_px, n_px, 3), np.float32))
+        return encode(np.stack(imgs))
+
+    return fn
 
 
-def make_text_embed_fn(*args, **kwargs):
-    """Caption-text encoder for the text-autoencoder mode: waits for the
-    CLIP port."""
-    raise NotImplementedError(
-        "caption-text encoding is not ported yet (ROADMAP.md Queue 1, CLIP "
-        "and embeddings)")
+def make_text_embed_fn(clip_model, clip_cfg, clip_tokenizer, device=None):
+    """Caption-text encoder for the text-autoencoder mode, on the card
+    unless `device` names another."""
+    from ..data.embeddings import text_encoder
+    from ..utils.clip_tokenizer import tokenize_with_truncation
+
+    device = resolve_device(device)
+    encode = text_encoder(clip_model.to(device).eval(), device)
+
+    def fn(records):
+        rows = [tokenize_with_truncation(clip_tokenizer, d["caption"])[0][0]
+                for d in records]
+        return encode(np.stack(rows))
+
+    return fn
 
 
 def make_pickle_embed_fn(prefixes: np.ndarray):

@@ -76,7 +76,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (j)'s `smoke-000.pt` with --infer_model_config, --embeddings_pickle
      (128 records) and --score_gt at batch 64: beam (K1-K4), --int8_kv
      (K1, K5-K7) and --no_beam (K1), 128 captions each, the beam run's
-     first 64 equal to CaptionServer's for the same embeddings.
+     first 64 equal to CaptionServer's for the same embeddings. Then the
+     CLIP chain (clip), the README Quickstart at full width from caption
+     text and image files: ViT-B/32 and RN50x4 from the port's random
+     init at seed 0, saved as fp16 OpenAI-layout .pt files; a synthetic
+     BPE merge file (CAPDEC_CLIP_BPE_PATH); a synthetic Karpathy JSON (128
+     test images of mixed sizes and aspects as JPEG files, 128 val
+     captions, 600 train captions of random words, some with gender terms,
+     six longer than 77 tokens). parse_corpus karpathy; embeddings_generator
+     text mode with RN50x4 and --fix_gender_imbalance_mode 1; the train
+     CLI (one epoch of --only_prefix, 10 steps); predict --clip_checkpoint
+     --infer_model_config --score_gt at batch 64, beam 5, on the 128 image
+     files (K1-K4 and no other kernel, 128 captions), whose captions must
+     equal predict's from the pickle embeddings_generator writes in image
+     mode on the same images. ViT-B/32: image mode, and predict
+     --text_autoencoder on its text tower (a 512-wide checkpoint trained
+     the same way). Each tower's f32 output on a batch of 4, card against
+     CPU, within 1e-4 relative L2; RN50x4's activations after each stage
+     finite; images/s and captions/s of each CLI call and of each tower
+     beside the card's name and power limit.
   6. A JSON line of the kernels, then {"ok": true, "device": ...} last.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -1915,6 +1933,299 @@ def predict_runs(ckpt: str, embeds, tmp: str) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The clip phase: the README Quickstart (parse, embed, train, predict and
+# score) at full width on random CLIP weights
+# ---------------------------------------------------------------------------
+
+CLIP_RUN = dict(test_images=128, val_images=128, train_images=120,
+                captions_per_image=5, long_captions=6, train_bs=60,
+                tower_images=64, tower_captions=256, cross_batch=4)
+CLIP_FILES = {"RN50x4": "rn50x4.pt", "ViT-B/32": "vit_b32.pt"}
+GENDER_WORDS = ("boy", "girl", "his", "her", "men", "women", "father",
+                "mother")
+IMAGE_SIZES = ((640, 480), (480, 640), (500, 375), (333, 500), (288, 288),
+               (1024, 768), (200, 150), (427, 640))
+
+
+def bpe_merges(words):
+    """CLIP-format merges that build each word from its characters (a
+    synthetic stand-in for bpe_simple_vocab_16e6.txt.gz)."""
+    merges = {}
+    for w in words:
+        pieces = list(w[:-1]) + [w[-1] + "</w>"]
+        cur = pieces[0]
+        for piece in pieces[1:]:
+            merges[(cur, piece)] = None
+            cur += piece
+    return list(merges)
+
+
+def clip_inputs(tmp: str, rng) -> dict:
+    """The synthetic BPE file, a Karpathy JSON (CLIP_RUN["test_images"]
+    test images as COCO_val2014_{id:012d}.jpg files of mixed sizes and
+    aspects, a val split, and a train + restval split of about 600
+    captions of random words, some with gender terms, a few longer than 77
+    tokens) and the fp16 OpenAI-layout checkpoints of both CLIPs from the
+    port's random init at seed 0."""
+    import gzip
+    import os
+    from PIL import Image
+    from capdec_tpu_torch.models import clip
+    vocab = WORDS + GENDER_WORDS
+    bpe = f"{tmp}/bpe_simple_vocab_16e6.txt.gz"
+    with gzip.open(bpe, "wt", encoding="utf-8") as f:
+        f.write("version\n" + "\n".join(f"{a} {b}" for a, b in
+                                        bpe_merges(vocab)) + "\n")
+
+    def caption(n_words):
+        words = list(rng.choice(vocab, n_words))
+        if rng.rand() < 0.3:
+            words[rng.randint(n_words)] = rng.choice(GENDER_WORDS)
+        return " ".join(words) + "."
+
+    images_dir = f"{tmp}/data/coco/val2014"
+    os.makedirs(images_dir)
+    entries, sentid = [], 0
+    splits = (("test", CLIP_RUN["test_images"], 1),
+              ("val", CLIP_RUN["val_images"], 1),
+              ("train", CLIP_RUN["train_images"] - 20,
+               CLIP_RUN["captions_per_image"]),
+              ("restval", 20, CLIP_RUN["captions_per_image"]))
+    long_left = CLIP_RUN["long_captions"]
+    for base, (split, n, per) in zip((1, 1001, 2001, 3001), splits):
+        for i in range(n):
+            name = f"COCO_val2014_{base + i:012d}.jpg"
+            if split == "test":
+                w, h = IMAGE_SIZES[i % len(IMAGE_SIZES)]
+                small = rng.randint(0, 256, (h // 16, w // 16, 3), np.uint8)
+                Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+                    f"{images_dir}/{name}", quality=90)
+            sents = []
+            for _ in range(per):
+                n_words = rng.randint(6, 13)
+                if split in ("train", "restval") and long_left:
+                    n_words, long_left = 90, long_left - 1
+                sents.append({"raw": caption(n_words), "sentid": sentid})
+                sentid += 1
+            entries.append({"filename": name, "split": split,
+                            "sentences": sents})
+    karpathy = f"{tmp}/dataset_coco.json"
+    with open(karpathy, "w") as f:
+        json.dump({"images": entries}, f)
+    ckpts = {}
+    for name, fname in CLIP_FILES.items():
+        model = clip.build_model(
+            clip.MODEL_CONFIGS[name],
+            torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+        ckpts[name] = f"{tmp}/{fname}"
+        clip.save_openai_checkpoint(model, ckpts[name])
+        del model
+    torch.cuda.empty_cache()
+    return dict(bpe=bpe, karpathy=karpathy, root=f"{tmp}/data",
+                images=images_dir, ckpts=ckpts)
+
+
+def timed_cli(main, argv):
+    """One in-process CLI call: (its return value, its wall seconds, the
+    card synchronised at the end)."""
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tower_checks(name, ckpt, images_dir, records, bpe) -> dict:
+    """One CLIP's towers from its fp16 checkpoint in f32: each tower's
+    rate on the card (CLIP_RUN["tower_images"] preprocessed test images,
+    CLIP_RUN["tower_captions"] captions; CUDA events), each tower's output
+    on a batch of CLIP_RUN["cross_batch"] on the card against the CPU
+    (1e-4 relative L2), and the largest activation after each stage of
+    the ResNet, which must stay finite."""
+    from capdec_tpu_torch.data.image_ops import load_and_preprocess
+    from capdec_tpu_torch.models import clip
+    from capdec_tpu_torch.utils.clip_tokenizer import (
+        CLIPTokenizer, tokenize_with_truncation)
+    card, cfg = clip.load_openai_checkpoint(ckpt, name, device=DEVICE)
+    cpu, _ = clip.load_openai_checkpoint(ckpt, name, device="cpu")
+    n_px = cfg.vision.image_resolution
+    tok = CLIPTokenizer(bpe)
+    images = torch.from_numpy(np.stack([
+        load_and_preprocess(f"{images_dir}/{r['filename']}", n_px)
+        for r in records[:CLIP_RUN["tower_images"]]])).to(DEVICE)
+    rows = [tokenize_with_truncation(tok, r["caption"])[0][0] for r in records]
+    reps = -(-CLIP_RUN["tower_captions"] // len(rows))
+    tokens = torch.from_numpy(np.stack((rows * reps)[
+        :CLIP_RUN["tower_captions"]])).to(DEVICE)
+    image_ms = time_ms(lambda: card.encode_image(images), iters=5, warmup=2)
+    text_ms = time_ms(lambda: card.encode_text(tokens), iters=5, warmup=2)
+    b = CLIP_RUN["cross_batch"]
+    rel = {}
+    for tower, x in (("image", images[:b]), ("text", tokens[:b])):
+        encode = f"encode_{tower}"
+        want = getattr(cpu, encode)(x.cpu()).double()
+        got = getattr(card, encode)(x).cpu().double()
+        require(bool(torch.isfinite(got).all()), f"{name} {tower}: not finite")
+        rel[tower] = float((got - want).norm() / want.norm())
+        require(rel[tower] <= 1e-4, f"{name} {tower} tower: card vs CPU "
+                                    f"{rel[tower]} relative L2")
+    stages = {}
+    if cfg.is_resnet:
+        v = card.visual
+        with torch.no_grad():
+            x = v.stem(images[:b].permute(0, 3, 1, 2))
+            stages["stem"] = float(x.abs().max())
+            for i in range(1, 5):
+                x = getattr(v, f"layer{i}")(x)
+                stages[f"layer{i}"] = float(x.abs().max())
+            stages["attnpool"] = float(v.attnpool(x).abs().max())
+        require(all(np.isfinite(list(stages.values()))),
+                f"{name}: activations not finite {stages}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return dict(image_tower_images_per_s=CLIP_RUN["tower_images"] / image_ms
+                * 1e3, image_tower_ms=image_ms,
+                text_tower_captions_per_s=CLIP_RUN["tower_captions"] / text_ms
+                * 1e3, text_tower_ms=text_ms,
+                card_cpu_rel_l2=rel, max_abs_activation=stages)
+
+
+def clip_phase(tmp: str) -> dict:
+    """The Quickstart chain on the card from caption text and image files
+    to scored captions, at full width: parse_corpus karpathy;
+    embeddings_generator text mode with RN50x4 and gender balancing; the
+    train CLI (one epoch of --only_prefix, 10 steps); predict
+    --clip_checkpoint --infer_model_config --score_gt at batch 64, beam 5,
+    on the 128 test images (K1-K4 and no other kernel, 128 captions); the
+    same from a pickle embeddings_generator wrote in image mode (the same
+    captions). Then ViT-B/32: embeddings_generator image mode, a 512-wide
+    checkpoint trained the same way, and predict --text_autoencoder on
+    ViT-B/32's text tower. Every tower card against CPU in f32."""
+    import os
+    import pickle
+    from capdec_tpu_torch.cli import embeddings_generator, parse_corpus
+    from capdec_tpu_torch.cli import predict, train
+    ins = clip_inputs(tmp, np.random.RandomState(SEED + 2))
+    root, ann = ins["root"], f"{ins['root']}/coco/annotations"
+    old = {k: os.environ.get(k) for k in ("CAPDEC_DATA_ROOT",
+                                          "CAPDEC_CLIP_BPE_PATH")}
+    os.environ.update(CAPDEC_DATA_ROOT=root, CAPDEC_CLIP_BPE_PATH=ins["bpe"])
+    steps, runs = {}, {}
+    try:
+        _, wall = timed_cli(parse_corpus.main, [
+            "karpathy", "--karpathy_json", ins["karpathy"], "--out_dir", ann])
+        with open(f"{ann}/train.json") as f:
+            n_train = len(json.load(f))
+        with open(f"{ann}/test.json") as f:
+            test = json.load(f)
+        steps["parse"] = dict(wall_s=wall, captions=n_train + 2 * len(test))
+        # dataset_mode 0's records: one caption per test image, its row in
+        # an image-mode pickle and its file name
+        for i, r in enumerate(test):
+            r.update(clip_embedding=i,
+                     filename=f"COCO_val2014_{r['image_id']:012d}.jpg")
+        with open(f"{ann}/single_caption_per_sample_val.json", "w") as f:
+            json.dump(test, f)
+        n = len(test)
+        require(n == CLIP_RUN["test_images"], f"clip: {n} test records")
+
+        def embed(model_name, out, extra):
+            _, wall = timed_cli(embeddings_generator.main, [
+                "--clip_checkpoint", ins["ckpts"][model_name],
+                "--clip_model_type", model_name, "--out", out,
+                "--batch_size", "256", *extra])
+            with open(out, "rb") as f:
+                return pickle.load(f), wall
+
+        def train_on(pkl, out_dir, extra):
+            _, wall = timed_cli(train.main, [
+                "--data", pkl, "--out_dir", out_dir, "--epochs", "1",
+                "--only_prefix", "--bs", str(CLIP_RUN["train_bs"]),
+                "--noise_variance", str(TRAIN["variance"]), "--lr",
+                str(TRAIN["lr"]), "--bf16", "--prefix", "clip", *extra])
+            return f"{out_dir}/clip-000.pt", wall
+
+        def predict_run(name, ckpt, flags, gt):
+            out = f"{tmp}/clip_predict_{name}.json"
+            zero_counters()
+            results, wall = timed_cli(predict.main, [
+                "--checkpoint", ckpt, "--score_gt", f"{ann}/{gt}",
+                "--batch_size", str(MAIN["N"]), "--out", out, *flags])
+            launches = launch_set(BEAM_PATH, f"clip predict {name}")
+            require(len(results) == n and all(
+                isinstance(r["caption"], str) for r in results),
+                f"clip predict {name}: {len(results)} captions")
+            runs[name] = dict(captions=len(results), wall_s=wall,
+                              captions_per_s=len(results) / wall,
+                              launches=launches)
+            return results
+
+        text_pkl = f"{tmp}/clip_text_rn50x4.pkl"
+        data, wall = embed("RN50x4", text_pkl, [
+            "--annotations", f"{ann}/train.json",
+            "--fix_gender_imbalance_mode", "1"])
+        emb = data["clip_embedding_text_dave"]
+        require(emb.shape == (n_train, 640) and np.isfinite(emb).all(),
+                f"clip: text embeddings {emb.shape}")
+        steps["embed_text"] = dict(wall_s=wall, captions_per_s=n_train / wall)
+        rn_ckpt, wall = train_on(text_pkl, f"{tmp}/clip_train_rn", [])
+        steps["train"] = dict(wall_s=wall, samples_per_s=n_train / wall,
+                              steps=n_train // CLIP_RUN["train_bs"])
+        image_route = predict_run("image", rn_ckpt, [
+            "--infer_model_config", "--clip_checkpoint",
+            ins["ckpts"]["RN50x4"], "--dataset_mode", "0"],
+            "test_metrics_format.json")
+        img_pkl = f"{tmp}/clip_images_rn50x4.pkl"
+        data, wall = embed("RN50x4", img_pkl, [
+            "--add_text_embedding", "0", "--images_path",
+            ins["images"] + "/", "--annotations",
+            f"{ann}/single_caption_per_sample_val.json"])
+        require(data["clip_embedding"].shape == (n, 640),
+                "clip: image-mode pickle shape")
+        steps["embed_images_rn50x4"] = dict(wall_s=wall,
+                                            images_per_s=n / wall)
+        pickle_route = predict_run("pickle", rn_ckpt, [
+            "--infer_model_config", "--embeddings_pickle", img_pkl,
+            "--dataset_mode", "0"], "test_metrics_format.json")
+        same = sum(a == b for a, b in zip(image_route, pickle_route))
+        require(same == n, f"clip: image route vs image-mode pickle: {same} "
+                           f"of {n} captions equal")
+        runs["image"]["equal_to_pickle_route"] = same
+        # ViT-B/32: image mode, then a 512-wide checkpoint for its text tower
+        data, wall = embed("ViT-B/32", f"{tmp}/clip_images_vit.pkl", [
+            "--add_text_embedding", "0", "--images_path",
+            ins["images"] + "/", "--annotations",
+            f"{ann}/single_caption_per_sample_val.json"])
+        require(data["clip_embedding"].shape == (n, 512) and
+                np.isfinite(data["clip_embedding"]).all(),
+                "clip: ViT-B/32 image-mode pickle")
+        steps["embed_images_vit_b32"] = dict(wall_s=wall,
+                                             images_per_s=n / wall)
+        vit_pkl = f"{tmp}/clip_text_vit.pkl"
+        _, wall = embed("ViT-B/32", vit_pkl, [
+            "--annotations", f"{ann}/train.json"])
+        steps["embed_text_vit_b32"] = dict(wall_s=wall,
+                                           captions_per_s=n_train / wall)
+        vit_ckpt, wall = train_on(vit_pkl, f"{tmp}/clip_train_vit",
+                                  ["--is_not_rn"])
+        steps["train_vit_b32"] = dict(wall_s=wall,
+                                      samples_per_s=n_train / wall)
+        predict_run("text_autoencoder", vit_ckpt, [
+            "--text_autoencoder", "--not_rn", "--clip_checkpoint",
+            ins["ckpts"]["ViT-B/32"]], "val_metrics_format.json")
+        towers = {name: tower_checks(name, ins["ckpts"][name], ins["images"],
+                                     test, ins["bpe"])
+                  for name in CLIP_FILES}
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    return dict(steps=steps, predict=runs, towers=towers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2070,6 +2381,11 @@ def main() -> int:
         for name, run in predicted.items():
             served[f"predict_{name}"] = run
             log(json.dumps({"phase": "predict", "run": name, **run}))
+        clipped = clip_phase(tmp)
+        for name, run in clipped["predict"].items():
+            served[f"clip_predict_{name}"] = run
+        log(json.dumps({"phase": "clip", "card": torch.cuda.get_device_name(0),
+                        "nvidia_smi": smi, **clipped}))
     for k in kernels:
         k["launches_by_path"] = {
             phase: run["launches"][k["name"]]

@@ -4,7 +4,9 @@ train CLI, and `eval/prefix_tools` with its inspect CLI.
 
   * run_predictions (beam and greedy, the offset, record_filter) on a tiny
     GPT-2 with the JAX package's weights gives the JAX runner's captions
-    and the same JSON file.
+    and the same JSON file; the CLIP image and text sources give the JAX
+    package's embeddings (the predict CLI's --clip_checkpoint routes:
+    tests/test_torch_predict_clip.py).
   * tests/test_cli_main_e2e.py's train-then-predict through the port's
     CLIs with `--device cpu`: the JAX predict CLI and the port's, run on
     the same checkpoint, write the same predictions and scores (the
@@ -39,6 +41,7 @@ from capdec_tpu_torch.decode import BeamConfig, ToppConfig
 from capdec_tpu_torch.eval import predictions, prefix_tools
 from capdec_tpu_torch.models import caption_model, gpt2
 from capdec_tpu_torch.utils.tokenizer import ByteTokenizer
+from torch_clip_helpers import jax_stem_as_openai  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
 
@@ -136,17 +139,51 @@ def test_record_filter_drops_records_as_in_jax():
     assert sorted(r["image_id"] for r in got) == [1, 2, 4, 5]
 
 
-def test_run_predictions_refuses_a_mesh_and_clip_sources():
+def test_run_predictions_refuses_a_mesh_and_clip_sources(tmp_path,
+                                                         jax_stem_as_openai):
+    """The mesh is refused; the CLIP sources run: make_image_embed_fn
+    (a missing file is encoded as a zero image) and make_text_embed_fn against the
+    JAX package's on one tiny CLIP, within 1e-5 relative L2 (the JAX stem
+    padded as OpenAI's, F2)."""
+    from PIL import Image
+
+    from capdec_tpu.models import clip as jc
+    from capdec_tpu.utils import clip_tokenizer as jax_ct
+    from capdec_tpu_torch.models import clip
+    from capdec_tpu_torch.utils import clip_tokenizer
+    from torch_clip_helpers import rel, text_checkpoint, write_bpe
+
     _, tcfg, _, model = _models(0)
     with pytest.raises(NotImplementedError, match="parallelism"):
         predictions.run_predictions(
             [], predictions.make_pickle_embed_fn(np.zeros((1, 16))), model,
             tcfg, ByteTokenizer(), predictions.PredictConfig(mesh=object()),
             device="cpu")
-    for fn in (predictions.make_image_embed_fn,
-               predictions.make_text_embed_fn):
-        with pytest.raises(NotImplementedError, match="CLIP"):
-            fn(None, None, None)
+    bpe = write_bpe(tmp_path / "bpe.txt.gz")
+    vocab = clip_tokenizer.CLIPTokenizer(bpe).vocab_size
+    ckpt = text_checkpoint(tmp_path / "clip.pt", vocab)
+    params, jcfg = jc.load_openai_checkpoint(ckpt)
+    clip_model, cfg = clip.load_openai_checkpoint(ckpt)
+    rng = np.random.RandomState(0)
+    for i, (w, h) in enumerate([(70, 50), (40, 90), (64, 64)]):
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(
+            tmp_path / f"{i}.jpg")
+    records = [{"image_id": i, "caption": c} for i, c in enumerate(
+        ["a man on a horse", "cat " * 40, "missing image", "two dogs"])]
+    path_fn = lambda d: str(tmp_path / f"{min(d['image_id'], 9)}.jpg")
+    records[2]["image_id"] = 9
+    got = predictions.make_image_embed_fn(clip_model, cfg, path_fn,
+                                          device="cpu")(records)
+    want = jax_pred.make_image_embed_fn(params, jcfg, path_fn)(records)
+    assert got.shape == (4, 64) and rel(got, want) <= 1e-5
+    zero = clip_model.encode_image(torch.zeros(1, 64, 64, 3)).numpy()
+    assert rel(got[2:3], zero) <= 1e-5
+    got = predictions.make_text_embed_fn(
+        clip_model, cfg, clip_tokenizer.CLIPTokenizer(bpe),
+        device="cpu")(records)
+    want = jax_pred.make_text_embed_fn(params, jcfg,
+                                       jax_ct.CLIPTokenizer(bpe))(records)
+    assert got.shape == (4, 64) and rel(got, want) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +311,7 @@ def test_predict_cli_int8_kv_and_refusals(trained, monkeypatch):
             "cpu"]
     with pytest.raises(NotImplementedError, match="parallelism"):
         cli.main(base + ["--embeddings_pickle", data, "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        cli.main(base + ["--clip_checkpoint", "clip.pt"])
+    # --clip_checkpoint runs: tests/test_torch_predict_clip.py
 
 
 # ---------------------------------------------------------------------------
