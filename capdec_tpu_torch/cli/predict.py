@@ -14,8 +14,14 @@ CAPDEC_DATA_ROOT instead of the reference's hardcoded cluster paths.
 Embeddings come from `--embeddings_pickle`, or from the image files (or,
 with `--text_autoencoder` / dataset_mode 5, the captions) through the
 CLIP towers of `--clip_checkpoint`: RN50x4 or ViT-B/32 by `--is_rn`, or
-the checkpoint's own architecture under `--infer_model_config`. `--mesh`
-waits for parallelism (it raises).
+the checkpoint's own architecture under `--infer_model_config`.
+
+`--mesh N` shards every eval batch over N data-parallel processes, one
+per device, started by torchrun (one process alone is a world of 1); the
+captions are those of one process, and rank 0 writes the outputs:
+
+    torchrun --nproc_per_node 2 -m capdec_tpu_torch.cli.predict \
+        --checkpoint c.pt --embeddings_pickle e.pkl --mesh 2 --device cpu
 """
 from __future__ import annotations
 
@@ -87,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--score_gt', default='',
                    help='optional *_metrics_format.json to score predictions in-process')
     p.add_argument('--mesh', default='',
-                   help="shard eval batches over a device mesh (not ported "
-                        "yet, raises)")
+                   help="shard eval batches over a device mesh: 'dp' count "
+                        "(e.g. '4')")
     p.add_argument('--bf16', action='store_true', default=True)
     p.add_argument('--no_bf16', dest='bf16', action='store_false')
     p.add_argument('--int8_kv', action='store_true', default=False,
@@ -116,12 +122,15 @@ def main(argv=None):
     from ..utils.torch_setup import resolve_device
 
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            '--mesh is not ported yet (ROADMAP.md Queue 1, parallelism)')
     if not (args.embeddings_pickle or args.clip_checkpoint):
         sys.exit("--clip_checkpoint or --embeddings_pickle required")
-    device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from ..parallel import mesh as mesh_lib
+        mesh = mesh_lib.make_mesh(dp=int(args.mesh), tp=1,
+                                  device=args.device)
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh else resolve_device(args.device)
     print(f'beam search = {args.beam}', flush=True)
     if args.text_autoencoder:
         args.dataset_mode = 5
@@ -142,8 +151,9 @@ def main(argv=None):
     print(f'out_path = {out_path}, dataset_mode = {args.dataset_mode}', flush=True)
     out_dir = os.path.dirname(out_path) or "."
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'commandline_args.txt'), 'w') as f:
-        json.dump(vars(args), f, indent=2)
+    if main_rank:
+        with open(os.path.join(out_dir, 'commandline_args.txt'), 'w') as f:
+            json.dump(vars(args), f, indent=2)
 
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.infer_model_config:
@@ -228,12 +238,13 @@ def main(argv=None):
         text_autoencoder=args.text_autoencoder,
         ablation_dist=args.ablation_dist,
         ablation_image_dist=args.ablation_image_dist,
-        text_embed_fn=text_embed_fn, record_filter=record_filter)
+        text_embed_fn=text_embed_fn, record_filter=record_filter,
+        mesh=mesh)
     results = pred_lib.run_predictions(data, embed_fn, model, model_cfg,
                                        tokenizer, pcfg, out_path=out_path,
                                        bridger_fn=bridger_fn, device=device)
 
-    if args.score_gt:
+    if args.score_gt and main_rank:
         from ..eval import metrics
         with open(args.score_gt) as f:
             gt = json.load(f)

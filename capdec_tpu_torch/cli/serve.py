@@ -17,6 +17,14 @@ JAX CLI). Runs on the CUDA device unless `--device cpu` is given.
 
     python -m capdec_tpu_torch.cli.serve --checkpoint model.pt \
         --embeddings_pickle embeddings.pkl
+
+`--mesh N` shards each batch over N data-parallel processes, one per
+device, started by torchrun (one process alone is a world of 1); rank 0
+serves and prints, the others decode their rows of each batch:
+
+    torchrun --nproc_per_node 2 -m capdec_tpu_torch.cli.serve \
+        --checkpoint model.pt --embeddings_pickle embeddings.pkl \
+        --mesh 2 --device cpu
 """
 from __future__ import annotations
 
@@ -57,8 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--beam_size', type=int, default=5)
     p.add_argument('--entry_length', type=int, default=67)
     p.add_argument('--mesh', default='',
-                   help="shard each serving batch over a device mesh "
-                        "(not ported yet)")
+                   help="shard each serving batch over a device mesh: "
+                        "'dp' count (e.g. '4'; batch_size must divide)")
     p.add_argument('--device', default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
@@ -112,7 +120,6 @@ def _watch_requests(watch_dir: str, poll_s: float = 0.2,
 
 
 def main(argv=None):
-    import numpy as np
     import torch
 
     from .. import serve as serve_lib
@@ -124,10 +131,12 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.embeddings_pickle and not args.watch:
         sys.exit('need --embeddings_pickle or --watch')
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            '--mesh is not ported yet (ROADMAP.md Queue 1, parallelism)')
-    device = resolve_device(args.device)
+        from ..parallel import mesh as mesh_lib
+        mesh = mesh_lib.make_mesh(dp=int(args.mesh), tp=1,
+                                  device=args.device)
+    device = mesh.device if mesh else resolve_device(args.device)
 
     sd = ckpt_lib.load_state_dict(args.checkpoint)
     prefix_dim = args.prefix_dim or [512, 640][args.is_rn]
@@ -151,9 +160,22 @@ def main(argv=None):
     cfg = serve_lib.ServeConfig(
         batch_size=args.batch_size, max_wait_s=args.max_wait_s,
         beam=args.beam, normalize_prefix=not args.dont_normalize_prefix,
-        beam_config=bc, topp_config=tc)
+        mesh=mesh, beam_config=bc, topp_config=tc)
     server = serve_lib.CaptionServer(model, model_cfg, tokenizer, cfg,
                                      device=device)
+    if mesh is not None and not mesh.is_main:
+        server.follow()  # until rank 0 closes
+        return
+    try:
+        _serve(args, server)
+    finally:
+        server.close()
+
+
+def _serve(args, server) -> None:
+    """Rank 0's (or the only process's) serving loop and its output."""
+    import numpy as np
+
     print('warming up...', file=sys.stderr, flush=True)
     server.warmup()
     print('serving', file=sys.stderr, flush=True)

@@ -9,8 +9,13 @@ Differences from the reference, by design:
   * dataset path presets (COCO/FLICKR) live in a registry overridable via
     CAPDEC_DATA_ROOT instead of hardcoded cluster paths
   * checkpoints are reference-compatible `.pt` state_dicts
-  * `--device` picks the device (the card unless told otherwise);
-    `--mesh` (multi-device training) raises until it is ported
+  * `--device` picks the device (the card unless told otherwise)
+  * `--mesh dp,tp` opts into data and Megatron tensor parallelism over
+    dp * tp processes, one per device, started by torchrun (one process
+    alone is a world of 1); rank 0 writes the outputs:
+
+    torchrun --nproc_per_node 4 -m capdec_tpu_torch.cli.train \
+        --data c.pkl --out_dir o --mesh 2,2 --device cpu
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
                         'in out_dir; unlike --pretrain_weights, the LR '
                         'schedule and data order continue where they left '
                         'off')
-    p.add_argument('--mesh', default='', help="device mesh as 'dp,tp'; not ported yet (raises)")
+    p.add_argument('--mesh', default='', help="device mesh as 'dp,tp' (e.g. '4,2'); empty = single device")
     p.add_argument('--steps_per_dispatch', type=int, default=1,
                    help='optimizer steps per call (identical to single '
                         'steps)')
@@ -131,11 +136,12 @@ def main(argv=None):
     from ..utils.torch_setup import resolve_device
 
     args = apply_presets(build_parser().parse_args(argv))
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh (multi-device training) is not ported yet (ROADMAP.md "
-            "Queue 1, parallelism)")
-    device = resolve_device(args.device)
+        from ..parallel import mesh as mesh_lib
+        dp, tp = (int(x) for x in args.mesh.split(','))
+        mesh = mesh_lib.make_mesh(dp=dp, tp=tp, device=args.device)
+    device = mesh.device if mesh else resolve_device(args.device)
     prefix_dim = 640 if not args.is_not_rn else 512
 
     tokenizer = load_tokenizer()
@@ -178,10 +184,10 @@ def main(argv=None):
         dont_norm=args.dont_norm, modality_offset=offset)
 
     os.makedirs(args.out_dir, exist_ok=True)
-    snapshot = dict(vars(args))
-    with open(f'{args.out_dir}/train_commandline_args.txt', 'w') as f:
-        json.dump(snapshot, f, indent=2)
-    print(f'args saved to file {args.out_dir}/train_commandline_args.txt', flush=True)
+    if mesh is None or mesh.is_main:
+        with open(f'{args.out_dir}/train_commandline_args.txt', 'w') as f:
+            json.dump(dict(vars(args)), f, indent=2)
+        print(f'args saved to file {args.out_dir}/train_commandline_args.txt', flush=True)
 
     loop_cfg = loop_lib.TrainLoopConfig(
         epochs=args.epochs, batch_size=args.bs, lr=args.lr,
@@ -190,7 +196,8 @@ def main(argv=None):
         steps_per_dispatch=args.steps_per_dispatch,
         max_steps=args.max_steps or None)
     return loop_lib.train(model_cfg, loop_cfg, dataset, noise_cfg,
-                          val_ds=val_ds, params=model, device=device)
+                          val_ds=val_ds, params=model, mesh=mesh,
+                          device=device)
 
 
 if __name__ == '__main__':

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -346,6 +347,8 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
         init_cache = gpt2.init_gen_cache_rowmajor
     else:
         init_cache = gpt2.init_gen_cache
+    # a tp rank's blocks hold n_head / tp heads: its cache is that wide
+    init_cache = functools.partial(init_cache, width=gpt2.kv_width(model))
     gen_cache = init_cache(cfg, N * R,
                            buckets[-1] if bc.full_alloc else buckets[0],
                            device=dev)

@@ -32,6 +32,7 @@ and `fused_interpret` have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -136,6 +137,8 @@ def _greedy_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     else:
         init_cache = (gpt2.init_gen_cache_int8 if tc.kv_cache_int8
                       else gpt2.init_gen_cache)
+    # a tp rank's blocks hold n_head / tp heads: its cache is that wide
+    init_cache = functools.partial(init_cache, width=gpt2.kv_width(model))
     E_pad = -(-E // SLOT_ALIGN) * SLOT_ALIGN
     buckets = staging.stage_buckets(E_pad, tc.cache_stages, SLOT_ALIGN)
     chunks = tc.fused_slot_chunks if fused else 0

@@ -17,8 +17,12 @@ Reference-parity behaviours:
   * per-batch latency stats (replacing the CUDA-event Timer)
 
 Embedding sources: image files or caption text through the port's CLIP
-towers, or a precomputed pickle. Multi-device eval waits for parallelism
-(ROADMAP.md Queue 1) and raises.
+towers, or a precomputed pickle.
+
+Under a mesh (`PredictConfig.mesh`, parallel/mesh.py) every rank walks
+the same records and maps each whole batch; each dp rank decodes its
+rows, the rows' captions are gathered back, and rank 0 writes the JSON.
+A last batch that does not divide by dp runs unsharded on every rank.
 """
 from __future__ import annotations
 
@@ -30,10 +34,11 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
-from ..decode import (BeamConfig, ToppConfig, beam_search, beam_top_texts,
+from ..decode import (BeamConfig, ToppConfig, beam_search, beam_top_select,
                       greedy_topp_search, topp_texts)
 from ..decode.beam import cast_params_for_decode
 from ..models import caption_model
+from ..parallel import mesh as mesh_lib
 from ..utils.meter import Timer
 from ..utils.torch_setup import resolve_device
 
@@ -55,7 +60,8 @@ class PredictConfig:
     ablation_dist_ready_at: int = 900
     ablation_image_dist: bool = False
     text_embed_fn: Optional[Callable] = None  # for ablation_image_dist
-    # multi-device eval is not ported yet; must stay None
+    # optional parallel.mesh.Mesh: image batches shard over the dp axis
+    # (eval fan-out is embarrassingly parallel)
     mesh: Optional[Any] = None
     # Drop records failing this predicate (e.g. missing image files: the
     # reference skips them entirely, predictions_runner.py:206-209).
@@ -80,13 +86,16 @@ def run_predictions(records: List[dict],
     encode side (image files, caption text, or precomputed embeddings), so
     the runner is testable without CLIP weights. Steps per batch: the L2 norm, the offset, the
     bridger hook, `map_prefix`, then beam search (the rank-0 beam) or
-    greedy/top-p."""
+    greedy/top-p. Under `cfg.mesh` every rank calls this with the same
+    records and returns the same results; only rank 0 writes
+    `out_path`."""
     from . import ablation
 
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded eval is not ported yet (ROADMAP.md Queue 1, "
-            "parallelism)")
+    mesh = cfg.mesh
+    if mesh is not None:
+        device = mesh.device
+        if not mesh.is_main:
+            out_path = None
     device = resolve_device(device)
     model = model.to(device).eval()
     # the decoder's weights in the compute dtype, cast once
@@ -116,16 +125,28 @@ def run_predictions(records: List[dict],
                 prefix = np.asarray(bridger_fn(prefix), np.float32)
             prefix_embeds = caption_model.map_prefix(
                 model, model_cfg, torch.from_numpy(prefix).to(device))
+            rows = prefix_embeds
+            sharded = mesh is not None and len(chunk) % mesh.dp == 0
+            if sharded:
+                rows = mesh_lib.shard_batch(prefix_embeds, mesh)
+            elif mesh is not None and mesh.is_main:
+                # no silent caps: a ragged final batch runs unsharded
+                print(f"[mesh] ragged batch of {len(chunk)} not "
+                      f"divisible by dp={mesh.shape['dp']}; running "
+                      f"unsharded", flush=True)
             if cfg.beam:
                 toks, lens, _, order = beam_search(
-                    gpt, model_cfg.gpt2, prefix_embeds, cfg.beam_config)
+                    gpt, model_cfg.gpt2, rows, cfg.beam_config)
                 # rank-0 beam only (reference takes generate_beam(...)[0],
                 # predictions_runner.py:229-232), selected on the device
-                texts = beam_top_texts(tokenizer, toks, lens, order)
+                toks, lens = beam_top_select(toks, lens, order)
             else:
                 toks, lens = greedy_topp_search(
-                    gpt, model_cfg.gpt2, prefix_embeds, cfg.topp_config)
-                texts = topp_texts(tokenizer, toks, lens)
+                    gpt, model_cfg.gpt2, rows, cfg.topp_config)
+            if sharded:
+                toks = mesh_lib.gather_batch(toks, mesh)
+                lens = mesh_lib.gather_batch(lens, mesh)
+            texts = topp_texts(tokenizer, toks, lens)
         if cfg.ablation_dist:
             pe = prefix_embeds.float().cpu().numpy()
             for j, d in enumerate(chunk):

@@ -17,7 +17,7 @@ against `tokens` with ignore_index=0 (padded positions hold token 0).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -106,7 +106,21 @@ def loss_fn(logits: torch.Tensor, tokens: torch.Tensor,
 def loss_forward(model: ClipCaptionModel, cfg: CaptionModelConfig,
                  tokens: torch.Tensor, prefix: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """forward + loss_fn fused: the LM head runs only over the scored slice.
+    """forward + loss_fn fused: the masked-mean loss of `loss_sums`."""
+    s, v = loss_sums(model, cfg, tokens, prefix, mask)
+    return s / v.clamp_min(1.0)
+
+
+def loss_sums(model: ClipCaptionModel, cfg: CaptionModelConfig,
+              tokens: torch.Tensor, prefix: torch.Tensor,
+              mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked nll, valid-token count) of the batch, with
+    gradients through the sum: the loss is their quotient. A dp rank
+    divides its sum by the count summed over dp, so that the ranks'
+    gradients add up to the global masked mean's.
+
+    The LM head runs only over the scored slice.
 
     The loss scores only the T positions K-1..K+T-2, so the hidden states
     are sliced before ln_f and the tied head (half the 50k-wide product
@@ -115,7 +129,8 @@ def loss_forward(model: ClipCaptionModel, cfg: CaptionModelConfig,
     math as `loss_fn(forward(...))`. With `cfg.ce_chunk_rows` = C < B the
     rows run in chunks of C (the last one ragged when C does not divide
     B) under torch.utils.checkpoint: one chunk's logits exist at a time,
-    in the forward and in the backward."""
+    in the forward and in the backward. `loss_forward` returns
+    sum / max(count, 1)."""
     K = cfg.prefix_length
     hidden = gpt2.forward_hidden(model.gpt, cfg.gpt2,
                                  _embeds(model, cfg, tokens, prefix), mask)
@@ -138,7 +153,7 @@ def loss_forward(model: ClipCaptionModel, cfg: CaptionModelConfig,
             s, v = s + cs, v + cv
     else:
         s, v = nll_sums(scored, tokens)
-    return s / v.clamp_min(1.0)
+    return s, v.detach()
 
 
 def trainable_mask(model: ClipCaptionModel,

@@ -28,6 +28,13 @@ the block `prefill` shares. Two functions carry the beam-decode path:
     the beam engine's `rowmajor_cache=False`) takes the plain attention
     math and the slot write K13 or its plain version; so does ancestry
     attention, which reads each beam's slots from the rows that hold them.
+
+A tp rank's model (parallel/mesh.shard_params, Megatron) holds n_head /
+tp whole heads of every block and its slice of the MLP's hidden width:
+the blocks take their K/V width from their own weights (`kv_width`), the
+cache constructors take it as `width`, and the two c_projs sum their
+partial products over tp before the bias (parallel/tp.py). Embeddings,
+layernorms and the tied head stay whole, so K1 runs at full D.
 """
 from __future__ import annotations
 
@@ -112,6 +119,8 @@ class Block(nn.Module):
         self.attn = Attention(cfg, device, dtype)
         self.ln_2 = nn.LayerNorm(D, eps=eps, device=device, dtype=dtype)
         self.mlp = MLP(cfg, device, dtype)
+        # a tp rank's block (parallel/mesh.shard_params): its TPGroup
+        self.tp = None
 
 
 class Transformer(nn.Module):
@@ -217,10 +226,34 @@ def embed_tokens(model: GPT2LMHeadModel, tokens: torch.Tensor
     return model.transformer.wte.weight[tokens]
 
 
+def _dense_in(x: torch.Tensor, layer: Conv1D, cdt: torch.dtype,
+              tp) -> torch.Tensor:
+    """`_dense` of a layer whose output a tp rank splits (c_attn, c_fc):
+    the replicated input enters through `copy_in`."""
+    return _dense(x if tp is None else tp.copy_in(x), layer, cdt)
+
+
+def _dense_out(x: torch.Tensor, layer: Conv1D, cdt: torch.dtype,
+               tp) -> torch.Tensor:
+    """`_dense` of a layer whose input a tp rank splits (the c_projs): the
+    partial products are summed over tp before the bias, which is added
+    once."""
+    if tp is None:
+        return _dense(x, layer, cdt)
+    y = torch.matmul(x.to(cdt), layer.weight.to(cdt)).float()
+    return tp.reduce_out(y) + layer.bias.float()
+
+
+def kv_width(model: GPT2LMHeadModel) -> int:
+    """The K/V width of the model's blocks: n_embd, or n_embd / tp on a
+    tp rank (its `c_attn` holds its heads' q, k and v columns)."""
+    return model.transformer.h[0].attn.c_attn.weight.shape[1] // 3
+
+
 def _block_mlp(x: torch.Tensor, blk: Block, cdt) -> torch.Tensor:
     h = _layer_norm(x, blk.ln_2)
-    h = gelu_new(_dense(h, blk.mlp.c_fc, cdt)).to(cdt)
-    h = _dense(h, blk.mlp.c_proj, cdt)
+    h = gelu_new(_dense_in(h, blk.mlp.c_fc, cdt, blk.tp)).to(cdt)
+    h = _dense_out(h, blk.mlp.c_proj, cdt, blk.tp)
     return x + h.to(x.dtype)
 
 
@@ -229,18 +262,20 @@ def _block(x: torch.Tensor, blk: Block, bias: torch.Tensor,
                                      torch.Tensor]:
     """One transformer block on the full sequence x [B, T, D] with the
     additive f32 attention bias (broadcastable to [B, H, T, T]); returns
-    (y, k, v), k/v [B, T, D] in the compute dtype (JAX `_block`,
-    gpt2.py:158-204)."""
-    B, T, D = x.shape
-    H, hd = cfg.n_head, cfg.head_dim
+    (y, k, v), k/v [B, T, W] in the compute dtype (JAX `_block`,
+    gpt2.py:158-204). W is the block's K/V width: D, or D / tp on a tp
+    rank, which holds n_head / tp whole heads."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
     cdt = cfg.compute_dtype
     h = _layer_norm(x, blk.ln_1)
-    qkv = _dense(h, blk.attn.c_attn, cdt).to(cdt)
-    q, k, v = qkv.split(D, dim=-1)
-    heads = lambda a: a.reshape(B, T, H, hd).transpose(1, 2)
+    qkv = _dense_in(h, blk.attn.c_attn, cdt, blk.tp).to(cdt)
+    W = qkv.shape[-1] // 3
+    q, k, v = qkv.split(W, dim=-1)
+    heads = lambda a: a.reshape(B, T, W // hd, hd).transpose(1, 2)
     attn = _attention(heads(q), heads(k), heads(v), bias)
-    attn = attn.transpose(1, 2).reshape(B, T, D).to(cdt)
-    attn = _dense(attn, blk.attn.c_proj, cdt)
+    attn = attn.transpose(1, 2).reshape(B, T, W).to(cdt)
+    attn = _dense_out(attn, blk.attn.c_proj, cdt, blk.tp)
     return _block_mlp(x + attn.to(x.dtype), blk, cdt), k, v
 
 
@@ -321,20 +356,21 @@ def prefill(model: GPT2LMHeadModel, cfg: GPT2Config,
 
 def init_gen_cache(cfg: GPT2Config, batch: int, max_new: int,
                    dtype: Optional[torch.dtype] = None,
-                   device=None) -> Cache:
+                   device=None, width: Optional[int] = None) -> Cache:
     """Seq-major generated cache [L, B, E, D] (greedy/top-p decode, which
-    never moves rows)."""
+    never moves rows). D is `width` when given: a tp rank's
+    `kv_width(model)`, as for every cache constructor here."""
     dtype = dtype or cfg.compute_dtype
-    shape = (cfg.n_layer, batch, max_new, cfg.n_embd)
+    shape = (cfg.n_layer, batch, max_new, width or cfg.n_embd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_gen_cache_int8(cfg: GPT2Config, batch: int, max_new: int,
-                        device=None) -> Cache:
+                        device=None, width: Optional[int] = None) -> Cache:
     """Seq-major int8 generated cache (greedy/top-p): levels k/v int8
     [L, B, E, D] plus per-slot absmax scales ks/vs f32 [L, B, 1, E]."""
-    shape = (cfg.n_layer, batch, max_new, cfg.n_embd)
+    shape = (cfg.n_layer, batch, max_new, width or cfg.n_embd)
     sshape = (cfg.n_layer, batch, 1, max_new)
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -363,24 +399,26 @@ def repeat_prefix_cache(prefix_cache: Cache, repeats: int) -> Cache:
 
 def init_gen_cache_rowmajor(cfg: GPT2Config, batch: int, max_new: int,
                             dtype: Optional[torch.dtype] = None,
-                            device=None) -> Cache:
+                            device=None, width: Optional[int] = None
+                            ) -> Cache:
     """Row-major generated cache [B, L, E, D]: each beam row's K/V over
     all layers is one contiguous block, so a fork copy moves whole
     (row, layer) slot ranges."""
     dtype = dtype or cfg.compute_dtype
-    shape = (batch, cfg.n_layer, max_new, cfg.n_embd)
+    shape = (batch, cfg.n_layer, max_new, width or cfg.n_embd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_gen_cache_rowmajor_int8(cfg: GPT2Config, batch: int, max_new: int,
-                                 device=None) -> Cache:
+                                 device=None, width: Optional[int] = None
+                                 ) -> Cache:
     """Row-major int8 generated cache: levels k/v int8 [B, L, E, D] plus
     per-slot absmax scales ks/vs f32 [B, L, 1, E] (value = level * scale).
     Written by cache_reorder.write_gen_slot_chunk_q, read by
     decode_attention.beam_decode_attention_rowmajor_q: half the bytes of
     the bf16 cache."""
-    shape = (batch, cfg.n_layer, max_new, cfg.n_embd)
+    shape = (batch, cfg.n_layer, max_new, width or cfg.n_embd)
     sshape = (batch, cfg.n_layer, 1, max_new)
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -492,7 +530,7 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     the attention is the plain math with that gather
     (decode_attention._attention_plain).
     """
-    B, D = token_embed.shape
+    B = token_embed.shape[0]
     L, N, K, _ = prefix_cache["k"].shape
     R = B // N
     cdt = cfg.compute_dtype
@@ -512,11 +550,11 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     ks, vs = [], []
     for layer, blk in enumerate(t.h):
         h = _layer_norm(x, blk.ln_1)
-        qkv = _dense(h, blk.attn.c_attn, cdt).to(cdt)
-        q, k_new, v_new = qkv.split(D, dim=-1)
+        qkv = _dense_in(h, blk.attn.c_attn, cdt, blk.tp).to(cdt)
+        q, k_new, v_new = qkv.split(qkv.shape[-1] // 3, dim=-1)
         out = attend(q, k_new, v_new, pk, pv, *att_caches, step, layer,
                      beams_per_image=R, head_dim=cfg.head_dim, **kw)
-        out = _dense(out.to(cdt), blk.attn.c_proj, cdt)
+        out = _dense_out(out.to(cdt), blk.attn.c_proj, cdt, blk.tp)
         x = _block_mlp(x + out.to(x.dtype), blk, cdt)
         ks.append(k_new)
         vs.append(v_new)

@@ -21,6 +21,12 @@ The decode engine is the beam engine with its BeamConfig knobs (the int8
 KV cache and the slot-bounded kernels included), or with `beam=False`
 greedy/top-p decoding with its ToppConfig knobs. The server runs on the
 CUDA device unless it is given `device="cpu"`.
+
+Under a mesh (`ServeConfig.mesh`, parallel/mesh.py) every rank holds the
+model; rank 0 runs the serving loop and, for each padded batch,
+broadcasts its [B, D] embeddings and n; every rank decodes its B / dp
+rows, and the rows' top tokens and lengths are gathered back for rank 0
+to detokenize. The other ranks run `follow()` until rank 0's `close()`.
 """
 from __future__ import annotations
 
@@ -33,15 +39,20 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .decode import (BeamConfig, ToppConfig, beam_search, beam_top_select,
                      greedy_topp_search)
 from .decode.beam import cast_params_for_decode
 from .models import caption_model
+from .parallel import mesh as mesh_lib
 from .utils.torch_setup import resolve_device
 
 # Latency samples kept for the percentile report (the latest ones).
 LATENCY_WINDOW = 100_000
+
+# The commands rank 0 broadcasts to the follower ranks of a mesh.
+_SHUTDOWN, _DECODE = 0, 1
 
 
 @dataclasses.dataclass
@@ -54,7 +65,9 @@ class ServeConfig:
     # Request-queue capacity: producers (the `requests` feeder thread and
     # `submit()`) block once this many requests are waiting. 0 = unbounded.
     max_queue: int = 4096
-    # Multi-device serving is not ported yet; must stay None.
+    # Optional parallel.mesh.Mesh: every fixed-shape batch shards over the
+    # dp axis (batch_size must divide by dp; the batch shape never
+    # changes, so there is no ragged fallback).
     mesh: Optional[Any] = None
     beam_config: BeamConfig = dataclasses.field(default_factory=BeamConfig)
     topp_config: ToppConfig = dataclasses.field(default_factory=ToppConfig)
@@ -82,10 +95,14 @@ class CaptionServer:
                  model_cfg: caption_model.CaptionModelConfig,
                  tokenizer, cfg: ServeConfig = ServeConfig(),
                  device=None):
-        if cfg.mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported yet "
-                "(ROADMAP.md Queue 1, parallelism)")
+        self._mesh = cfg.mesh
+        if self._mesh is not None:
+            dp = self._mesh.shape[mesh_lib.DP_AXIS]
+            if cfg.batch_size % dp:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} must be divisible by "
+                    f"the mesh dp axis ({dp})")
+            device = self._mesh.device
         self._device = resolve_device(device)
         self._model = model.to(self._device).eval()
         # the decoder's weights in the compute dtype, cast once
@@ -109,16 +126,60 @@ class CaptionServer:
 
     def _decode(self, x: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """Caption tokens [N, E] and lengths [N] of the padded batch: the
-        rank-0 beams, selected on the device, or the greedy rows."""
-        prefix = caption_model.map_prefix(
-            self._model, self._model_cfg,
-            torch.from_numpy(x).to(self._device))
+        rank-0 beams, selected on the device, or the greedy rows. Under a
+        mesh, rank 0 hands the batch to the followers first."""
+        x = torch.from_numpy(x).to(self._device)
+        if self._mesh is not None:
+            self._broadcast_header(_DECODE, len(x))
+            dist.broadcast(x, src=0)
+        return self._decode_rows(x)
+
+    def _decode_rows(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """_decode of the padded batch on the device: this dp rank's rows,
+        gathered back over dp under a mesh."""
+        mesh = self._mesh
+        rows = x if mesh is None else mesh_lib.shard_batch(x, mesh)
+        prefix = caption_model.map_prefix(self._model, self._model_cfg,
+                                          rows)
         if not self._cfg.beam:
-            return greedy_topp_search(self._gpt, self._model_cfg.gpt2,
-                                      prefix, self._cfg.topp_config)
-        toks, lens, _, order = beam_search(self._gpt, self._model_cfg.gpt2,
-                                           prefix, self._cfg.beam_config)
-        return beam_top_select(toks, lens, order)
+            toks, lens = greedy_topp_search(self._gpt, self._model_cfg.gpt2,
+                                            prefix, self._cfg.topp_config)
+        else:
+            toks, lens, _, order = beam_search(
+                self._gpt, self._model_cfg.gpt2, prefix,
+                self._cfg.beam_config)
+            toks, lens = beam_top_select(toks, lens, order)
+        if mesh is None:
+            return toks, lens
+        return (mesh_lib.gather_batch(toks, mesh),
+                mesh_lib.gather_batch(lens, mesh))
+
+    def _broadcast_header(self, command: int, n: int) -> torch.Tensor:
+        """Rank 0's (command, n) to every rank; the followers' receive."""
+        header = torch.tensor([command, n], dtype=torch.int64,
+                              device=self._device)
+        dist.broadcast(header, src=0)
+        return header
+
+    def follow(self) -> None:
+        """A follower rank's loop under a mesh: decode its rows of each
+        batch rank 0 broadcasts, until rank 0's `close()`."""
+        if self._mesh is None or self._mesh.is_main:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a mesh")
+        D = self._model_cfg.prefix_size
+        while int(self._broadcast_header(_SHUTDOWN, 0)[0]) == _DECODE:
+            x = torch.empty(self._cfg.batch_size, D, dtype=torch.float32,
+                            device=self._device)
+            dist.broadcast(x, src=0)
+            self._decode_rows(x)
+
+    def close(self) -> None:
+        """Rank 0 under a mesh: end the followers' loops (nothing to do
+        without a mesh)."""
+        if self._mesh is not None and self._mesh.is_main:
+            self._broadcast_header(_SHUTDOWN, 0)
 
     def _launch(self, embeds: np.ndarray,
                 pool: Optional[ThreadPoolExecutor] = None

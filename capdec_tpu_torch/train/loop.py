@@ -23,6 +23,7 @@ import torch
 
 from ..data import dataset as data_lib
 from ..models import caption_model
+from ..parallel import mesh as mesh_lib
 from ..utils import checkpoint as ckpt_lib
 from ..utils import meter as meter_lib
 from ..utils.torch_setup import resolve_device
@@ -68,34 +69,68 @@ def train(model_cfg: caption_model.CaptionModelConfig,
           noise_cfg: step_lib.NoiseConfig,
           val_ds: Optional[data_lib.CaptionDataset] = None,
           params: Optional[caption_model.ClipCaptionModel] = None,
-          mesh: Optional[Any] = None,
+          mesh: Optional[mesh_lib.Mesh] = None,
           device=None) -> Dict[str, Any]:
     """Run training; returns {"params": the model, "loss_per_epoch"}.
 
     `params` (a ClipCaptionModel) is moved to the device and trained in
     place; without it the model is drawn from `loop_cfg.seed`. The run
-    is on the card unless `device` names another."""
+    is on the card unless `device` names another.
+
+    Under a `mesh` (parallel/mesh.py; every rank runs this with the same
+    arguments) the model is drawn or given whole on every rank and keeps
+    its tp slices, each step takes the global batch and trains on its dp
+    rows (batch_size divisible by dp), and the losses are the global
+    batch's, as at world 1. Rank 0 alone writes the logs, the loss
+    sidecar and the checkpoints, which hold the full reference layout
+    (gathered over tp), so they load at world 1 and resume under any
+    mesh shape."""
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP.md Queue 1, "
-            "parallelism)")
+        if loop_cfg.batch_size % mesh.dp:
+            raise ValueError(f"batch_size {loop_cfg.batch_size} must be "
+                             f"divisible by the mesh dp axis ({mesh.dp})")
+        device = mesh.device
     device = resolve_device(device)
+    main = mesh is None or mesh.is_main
     os.makedirs(loop_cfg.out_dir, exist_ok=True)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(loop_cfg.seed)
         params = caption_model.init_params(model_cfg, gen, device=device)
     model = params.to(device)
+    specs = None
+    if mesh is not None:
+        specs = mesh_lib.caption_model_param_specs(model)
+        mesh_lib.shard_params(model, mesh, specs)
+
+    def save_weights(path):
+        """The model as a reference-layout `.pt` (gathered over tp)."""
+        if mesh is None:
+            ckpt_lib.save_caption_checkpoint(model, model_cfg, path)
+            return
+        sd = mesh_lib.gather_params(model, mesh, specs)
+        if main:
+            ckpt_lib.save_state_dict(sd, path)
+
+    def save_state():
+        resume_lib.save_train_state(state, loop_cfg.out_dir, mesh=mesh,
+                                    specs=specs)
+
+    def log(*args):
+        if main:
+            print(*args, flush=True)
 
     steps = data_lib.steps_per_epoch(ds, loop_cfg.batch_size)
     total_steps = loop_cfg.epochs * steps
+    # requires_grad is set before the optimizer is made: a frozen GPT-2
+    # is neither summed over dp nor updated
     opt, sched = optim_lib.make_optimizer(
         caption_model.set_trainable(model, model_cfg), loop_cfg.lr,
         loop_cfg.warmup_steps, total_steps)
     state = step_lib.init_train_state(model, opt, sched)
-    train_step = step_lib.make_train_step(model_cfg, noise_cfg)
+    train_step = step_lib.make_train_step(model_cfg, noise_cfg, mesh)
     eval_step = step_lib.make_eval_step(model_cfg)
     K = max(1, loop_cfg.steps_per_dispatch)
-    multi_step = (step_lib.make_train_multi_step(model_cfg, noise_cfg)
+    multi_step = (step_lib.make_train_multi_step(model_cfg, noise_cfg, mesh)
                   if K > 1 else None)
 
     # Per-step losses of the in-flight epoch are checkpointed beside the
@@ -105,6 +140,8 @@ def train(model_cfg: caption_model.CaptionModelConfig,
     sidecar_path = os.path.join(loop_cfg.out_dir, "epoch_losses_latest.npz")
 
     def save_sidecar(epoch, pending):
+        if not main:
+            return
         vals = (torch.cat(pending).float().cpu().numpy()
                 if pending else np.zeros((0,), np.float32))
         tmp = sidecar_path + ".tmp.npz"
@@ -117,7 +154,8 @@ def train(model_cfg: caption_model.CaptionModelConfig,
     if loop_cfg.resume:
         state_path = resume_lib.latest_state_path(loop_cfg.out_dir)
         if state_path is not None:
-            state = resume_lib.restore_train_state(state_path, state)
+            state = resume_lib.restore_train_state(state_path, state,
+                                                   mesh=mesh, specs=specs)
             start_step = state["step"]
             loss_json = os.path.join(loop_cfg.out_dir, "loss_per_epoch.json")
             if os.path.exists(loss_json):
@@ -130,16 +168,16 @@ def train(model_cfg: caption_model.CaptionModelConfig,
                 if (int(sc["epoch"]) == start_step // steps
                         and len(sc["losses"]) == start_step % steps):
                     resume_losses = np.asarray(sc["losses"], np.float32)
-            print(f">>> Resuming from {state_path} at step {start_step}",
-                  flush=True)
+            log(f">>> Resuming from {state_path} at step {start_step}")
 
     metrics = meter_lib.MetricsLogger(
-        os.path.join(loop_cfg.out_dir, "metrics.jsonl"), print_every=1)
+        os.path.join(loop_cfg.out_dir, "metrics.jsonl") if main else None,
+        print_every=1)
     meter = meter_lib.ThroughputMeter()
 
     global_step = start_step
     for epoch in range(start_step // steps, loop_cfg.epochs):
-        print(f">>> Training epoch {epoch} / {loop_cfg.epochs}", flush=True)
+        log(f">>> Training epoch {epoch} / {loop_cfg.epochs}")
         # losses stay on the device until a log point or the epoch end
         pending_losses = []
         nb = 0
@@ -171,7 +209,7 @@ def train(model_cfg: caption_model.CaptionModelConfig,
             nb += k
             bs0 = batches[0]["tokens"].shape
             meter.update(int(bs0[0]) * k, int(bs0[0] * bs0[1]) * k)
-            if global_step % loop_cfg.log_every < k:
+            if main and global_step % loop_cfg.log_every < k:
                 metrics.log(step=global_step, epoch=epoch,
                             loss=float(pending_losses[-1][-1]),
                             lr=optim_lib.linear_warmup_lr_py(
@@ -179,14 +217,12 @@ def train(model_cfg: caption_model.CaptionModelConfig,
                                 total_steps, global_step),
                             **meter.rates())
             if global_step % loop_cfg.latest_every_steps < k:
-                ckpt_lib.save_caption_checkpoint(
-                    model, model_cfg,
-                    ckpt_lib.latest_checkpoint_path(loop_cfg.out_dir,
-                                                    loop_cfg.prefix))
+                save_weights(ckpt_lib.latest_checkpoint_path(
+                    loop_cfg.out_dir, loop_cfg.prefix))
                 if loop_cfg.save_state:
                     # the full train state beside the weights-only `.pt`:
                     # a mid-epoch crash keeps the AdamW moments and step
-                    resume_lib.save_train_state(state, loop_cfg.out_dir)
+                    save_state()
                     save_sidecar(epoch, pending_losses)
             if loop_cfg.max_steps and global_step >= loop_cfg.max_steps:
                 stop_now = True
@@ -210,24 +246,22 @@ def train(model_cfg: caption_model.CaptionModelConfig,
                     break
         if stop_now:
             if loop_cfg.save_state:
-                resume_lib.save_train_state(state, loop_cfg.out_dir)
+                save_state()
                 save_sidecar(epoch, pending_losses)
             metrics.close()
-            print(f">>> Stopped at max_steps={global_step}", flush=True)
+            log(f">>> Stopped at max_steps={global_step}")
             return {"params": model, "loss_per_epoch":
                     {"train": loss_train, "val": loss_val}}
         acc = float(torch.cat(pending_losses).sum()) if pending_losses \
             else 0.0
         loss_train.append(acc / max(1, nb))
-        print("loss_per_epoch_train: ", loss_train, flush=True)
+        log("loss_per_epoch_train: ", loss_train)
 
         if epoch % loop_cfg.save_every == 0 or epoch == loop_cfg.epochs - 1:
-            ckpt_lib.save_caption_checkpoint(
-                model, model_cfg,
-                ckpt_lib.epoch_checkpoint_path(loop_cfg.out_dir,
-                                               loop_cfg.prefix, epoch))
+            save_weights(ckpt_lib.epoch_checkpoint_path(
+                loop_cfg.out_dir, loop_cfg.prefix, epoch))
         if loop_cfg.save_state:
-            resume_lib.save_train_state(state, loop_cfg.out_dir)
+            save_state()
             save_sidecar(epoch + 1, [])  # the next epoch starts fresh
 
         if val_ds is not None:
@@ -238,11 +272,12 @@ def train(model_cfg: caption_model.CaptionModelConfig,
                 vacc += float(eval_step(model, batch))
                 vn += 1
             loss_val.append(vacc / max(1, vn))
-            print("loss_per_epoch_val: ", loss_val, flush=True)
+            log("loss_per_epoch_val: ", loss_val)
 
-        with open(os.path.join(loop_cfg.out_dir, "loss_per_epoch.json"),
-                  "w") as f:
-            json.dump({"train": loss_train, "val": loss_val}, f)
+        if main:
+            with open(os.path.join(loop_cfg.out_dir, "loss_per_epoch.json"),
+                      "w") as f:
+                json.dump({"train": loss_train, "val": loss_val}, f)
 
     metrics.close()
     return {"params": model, "loss_per_epoch":

@@ -16,7 +16,10 @@ from __future__ import annotations
 from typing import Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
+
+from ..parallel.tp import TPGroup
 
 
 def linear_warmup_lr_py(lr: float, warmup_steps: int, total_steps: int,
@@ -55,26 +58,40 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
     return opt, sched
 
 
-def grad_clip_norm(params: List[torch.nn.Parameter],
-                   max_norm: float) -> torch.Tensor:
+def grad_clip_norm(params: List[torch.nn.Parameter], max_norm: float,
+                   tp: Optional[TPGroup] = None) -> torch.Tensor:
     """optax's clip_by_global_norm on the gradients, in place: g if the
     global norm is below max_norm, else (g / norm) * max_norm. (torch's
     clip_grad_norm_ adds 1e-6 to the norm: another function.) Returns
-    the norm; no host sync."""
+    the norm; no host sync. On a tp rank the norm is the whole model's:
+    the squares of the parameters split over tp (`tp_split`) are summed
+    over the tp group, and the replicated ones counted once."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+    if tp is None:
+        norm = torch.stack([g.float().pow(2).sum()
+                            for g in grads]).sum().sqrt()
+    else:
+        def sq(split):
+            return sum((p.grad.float().pow(2).sum() for p in params
+                        if p.grad is not None
+                        and getattr(p, "tp_split", False) == split),
+                       torch.zeros((), device=grads[0].device))
+        split_sq = sq(True)
+        dist.all_reduce(split_sq, group=tp.group)
+        norm = (sq(False) + split_sq).sqrt()
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
     return norm
 
 
-def apply_updates(opt: torch.optim.Optimizer, sched: LambdaLR) -> None:
+def apply_updates(opt: torch.optim.Optimizer, sched: LambdaLR,
+                  tp: Optional[TPGroup] = None) -> None:
     """One optimizer update from the gradients the backward left: clip
-    (if the group asks), AdamW at the scheduled lr, advance the schedule,
-    drop the gradients."""
+    (if the group asks; over the whole model on a tp rank), AdamW at the
+    scheduled lr, advance the schedule, drop the gradients."""
     for group in opt.param_groups:
         if group.get("grad_clip_norm"):
-            grad_clip_norm(group["params"], group["grad_clip_norm"])
+            grad_clip_norm(group["params"], group["grad_clip_norm"], tp)
     opt.step()
     sched.step()
     opt.zero_grad(set_to_none=True)

@@ -16,6 +16,7 @@ import torch
 
 from ..models import caption_model
 from ..ops import noise as noise_ops
+from ..parallel import mesh as mesh_lib
 from . import optim as optim_lib
 
 
@@ -45,8 +46,53 @@ def _batch(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
                                       device=device).float()}
 
 
+def loss_and_grads(state, cfg: caption_model.CaptionModelConfig,
+                   noise_cfg: NoiseConfig, batch: Mapping[str, Any],
+                   seed: int, draws=None,
+                   mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    """The step's noise, forward and backward, leaving the gradients of
+    the global batch's loss on the trainable parameters; returns that
+    loss, detached (see make_train_step).
+
+    Under a mesh every rank is given the global batch: it draws the
+    global batch's noise (so the draws do not depend on the mesh), keeps
+    its dp rank's rows, divides its nll sum by the valid-token count
+    summed over dp, and sums the gradients over dp. The ranks' losses
+    then add up to the global masked mean, whatever tokens each rank
+    holds; the returned loss is that sum."""
+    model = state["model"]
+    b = _batch(batch, _device(model))
+    offset = noise_cfg.modality_offset
+    if offset is not None:
+        offset = torch.as_tensor(offset, device=b["prefix"].device,
+                                 dtype=torch.float32)
+    gen = None
+    if draws is None and noise_cfg.variance != 0.0:
+        gen = torch.Generator(device=b["prefix"].device)
+        gen.manual_seed(noise_seed(seed, state["step"]))
+    prefix = noise_ops.noise_injection(
+        b["prefix"], variance=noise_cfg.variance,
+        modality_offset=offset, uniform_noise=noise_cfg.uniform_noise,
+        dont_norm=noise_cfg.dont_norm, generator=gen, **(draws or {}))
+    if mesh is None:
+        # the fused loss: the LM head runs only over the scored slice
+        loss = caption_model.loss_forward(model, cfg, b["tokens"], prefix,
+                                          b["mask"])
+        loss.backward()
+        return loss.detach()
+    rows = mesh_lib.shard_batch({**b, "prefix": prefix}, mesh)
+    s, v = caption_model.loss_sums(model, cfg, rows["tokens"],
+                                   rows["prefix"], rows["mask"])
+    loss = s / mesh_lib.dp_sum(v, mesh).clamp_min(1.0)
+    loss.backward()
+    mesh_lib.all_reduce_grads(
+        (p for p in model.parameters() if p.requires_grad), mesh)
+    return mesh_lib.dp_sum(loss, mesh)
+
+
 def make_train_step(cfg: caption_model.CaptionModelConfig,
-                    noise_cfg: NoiseConfig) -> Callable:
+                    noise_cfg: NoiseConfig,
+                    mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """Returns step(state, batch, seed, draws=None) -> (state, loss).
 
     batch is {tokens [B, T], mask [B, K+T], prefix [B, D]} (numpy or
@@ -54,40 +100,30 @@ def make_train_step(cfg: caption_model.CaptionModelConfig,
     a 0-d tensor on the device (no host sync). The noise comes from a
     generator seeded with noise_seed(seed, state["step"]), or from
     `draws` ({"normal": ..., "uniform": ...}, see ops/noise.py) when
-    given."""
+    given. Under a `mesh` (parallel/mesh.py) the batch and the draws are
+    the global batch's on every rank, B divisible by dp, and the model
+    is this rank's (shard_params); the loss is the global batch's."""
+    tp = None if mesh is None else mesh.tp_handle
+
     def step_fn(state, batch, seed: int, draws=None):
-        model = state["model"]
-        b = _batch(batch, _device(model))
-        offset = noise_cfg.modality_offset
-        if offset is not None:
-            offset = torch.as_tensor(offset, device=b["prefix"].device,
-                                     dtype=torch.float32)
-        gen = None
-        if draws is None and noise_cfg.variance != 0.0:
-            gen = torch.Generator(device=b["prefix"].device)
-            gen.manual_seed(noise_seed(seed, state["step"]))
-        prefix = noise_ops.noise_injection(
-            b["prefix"], variance=noise_cfg.variance,
-            modality_offset=offset, uniform_noise=noise_cfg.uniform_noise,
-            dont_norm=noise_cfg.dont_norm, generator=gen, **(draws or {}))
-        # the fused loss: the LM head runs only over the scored slice
-        loss = caption_model.loss_forward(model, cfg, b["tokens"], prefix,
-                                          b["mask"])
-        loss.backward()
-        optim_lib.apply_updates(state["optimizer"], state["scheduler"])
+        loss = loss_and_grads(state, cfg, noise_cfg, batch, seed, draws,
+                              mesh)
+        optim_lib.apply_updates(state["optimizer"], state["scheduler"], tp)
         state["step"] += 1
-        return state, loss.detach()
+        return state, loss
 
     return step_fn
 
 
 def make_train_multi_step(cfg: caption_model.CaptionModelConfig,
-                          noise_cfg: NoiseConfig) -> Callable:
+                          noise_cfg: NoiseConfig,
+                          mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """K sequential optimizer steps in one call: multi(state, batches,
     seed) -> (state, losses [K]) where every entry of `batches` is
     stacked [K, ...]. K single steps in a loop, identical by construction
-    (each step's noise is seeded by the running step counter)."""
-    single = make_train_step(cfg, noise_cfg)
+    (each step's noise is seeded by the running step counter). Under a
+    mesh each step keeps its dp rows (axis 1 of the stack)."""
+    single = make_train_step(cfg, noise_cfg, mesh)
 
     def multi(state, batches, seed: int):
         losses = []

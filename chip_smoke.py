@@ -94,7 +94,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the same way). Each tower's f32 output on a batch of 4, card against
      CPU, within 1e-4 relative L2; RN50x4's activations after each stage
      finite; images/s and captions/s of each CLI call and of each tower
-     beside the card's name and power limit.
+     beside the card's name and power limit. Then the mesh phase
+     (mesh): a world-1 NCCL process group in this process and a (dp 1,
+     tp 1) mesh (parallel/mesh.py); 3 steps of (j) at full width through
+     train.loop.train with the mesh and without it (plain, mesh, mesh,
+     plain), whose losses and mapper weights must be bit-equal; predict
+     --mesh 1 (beam and --int8_kv, 128 records) and CaptionServer under
+     the mesh (128 requests), whose captions and launch counts must
+     equal the runs without it; torch_entry.entry()'s flagship loss
+     finite; K2, K3 and K4 at a tp=2 rank's shapes (D 384, 6 heads, N 64
+     x R 5) against their plain versions (the `tp2` key of their rows);
+     the world-1 overhead per train step and the captions/s beside the
+     card's name and power limit. The process group is destroyed after.
   6. A JSON line of the kernels, then {"ok": true, "device": ...} last.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -1280,11 +1291,12 @@ def model_config(compute_dtype=torch.bfloat16, mapping_type="transformer",
 
 
 def build_server(gen, model=None, beam=True, beam_size=MAIN["R"], cfg=None,
-                 tokenizer=None, **knobs):
+                 tokenizer=None, mesh=None, **knobs):
     """The main path's server: BeamConfig(**knobs), or with beam=False
     greedy/top-p decoding with ToppConfig(**knobs). `model` reuses weights
-    made before (of config `cfg`, default the main path's). Returns
-    (server, model, cfg, the decode config)."""
+    made before (of config `cfg`, default the main path's); `mesh` shards
+    its batches over dp. Returns (server, model, cfg, the decode
+    config)."""
     from capdec_tpu_torch import serve
     from capdec_tpu_torch.models import caption_model
     from capdec_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -1294,11 +1306,12 @@ def build_server(gen, model=None, beam=True, beam_size=MAIN["R"], cfg=None,
     E = MAIN["entry_length"]
     if beam:
         dc = serve.BeamConfig(beam_size=beam_size, entry_length=E, **knobs)
-        sc = serve.ServeConfig(batch_size=MAIN["N"], beam_config=dc)
+        sc = serve.ServeConfig(batch_size=MAIN["N"], beam_config=dc,
+                               mesh=mesh)
     else:
         dc = serve.ToppConfig(entry_length=E, **knobs)
         sc = serve.ServeConfig(batch_size=MAIN["N"], beam=False,
-                               topp_config=dc)
+                               topp_config=dc, mesh=mesh)
     server = serve.CaptionServer(model, cfg, tokenizer or ByteTokenizer(),
                                  sc, device=DEVICE)
     return server, model, cfg, dc
@@ -1395,7 +1408,7 @@ def launch_set(path, what: str) -> dict:
     return launches
 
 
-def serve_path(server, embeds, path):
+def serve_path(server, embeds, path, keep_captions=False):
     zero_counters()
     t0 = time.perf_counter()
     got = dict(server.serve((i, embeds[i]) for i in range(len(embeds))))
@@ -1409,7 +1422,8 @@ def serve_path(server, embeds, path):
     return dict(served=len(got), wall_s=wall,
                 captions_per_s=len(got) / wall, latency_p50_s=pct["p50"],
                 latency_p95_s=pct["p95"], latency_p99_s=pct["p99"],
-                batches=server.stats["batches"], launches=launches)
+                batches=server.stats["batches"], launches=launches,
+                **({"captions": got} if keep_captions else {}))
 
 
 def launches_per_step(server, embeds) -> dict:
@@ -1848,20 +1862,12 @@ PREDICT_RUNS = (("beam", [], BEAM_PATH), ("int8", ["--int8_kv"], INT8_PATH),
                 ("greedy", ["--no_beam"], ("lm_head_topk",)))
 
 
-def predict_runs(ckpt: str, embeds, tmp: str) -> dict:
-    """`capdec_tpu_torch.cli.predict.main` on the card from `ckpt` with
-    --infer_model_config, --embeddings_pickle (MAIN["requests"] records)
-    and --score_gt at batch 64: beam, --int8_kv and --no_beam, each with
-    its launch set and a caption per record (captions/s over the whole
-    CLI call: loading, config inference and scoring included). The beam
-    run's first 64 captions must equal, lowercased, what CaptionServer
-    gives the same 64 embeddings at batch 64: one engine on one batch."""
+def predict_inputs(embeds, tmp: str) -> dict:
+    """The predict CLI's inputs for MAIN["requests"] records: the
+    dataset_mode-0 registry under tmp/data, a GT file and the embeddings
+    pickle."""
     import os
     import pickle
-    from capdec_tpu_torch.cli import predict
-    from capdec_tpu_torch.models import caption_model
-    from capdec_tpu_torch.utils import checkpoint
-    from capdec_tpu_torch.utils.tokenizer import load_tokenizer
     n = MAIN["requests"]
     rng = np.random.RandomState(SEED + 1)
     records = [{"image_id": i, "clip_embedding": i,
@@ -1881,40 +1887,66 @@ def predict_runs(ckpt: str, embeds, tmp: str) -> dict:
     pkl = f"{tmp}/predict_embeddings.pkl"
     with open(pkl, "wb") as f:
         pickle.dump({"clip_embedding": embeds[:n], "captions": records}, f)
-    runs = {}
+    return dict(root=root, gt=gt, pkl=pkl)
+
+
+def predict_once(ckpt: str, inputs: dict, out: str, flags, path,
+                 what: str) -> dict:
+    """One predict CLI call on the card (its launch set asserted and
+    returned with the captions written and the scores)."""
+    import os
+    from capdec_tpu_torch.cli import predict
+    n = MAIN["requests"]
     old_root = os.environ.get("CAPDEC_DATA_ROOT")
-    os.environ["CAPDEC_DATA_ROOT"] = root
+    os.environ["CAPDEC_DATA_ROOT"] = inputs["root"]
     try:
-        for name, flags, path in PREDICT_RUNS:
-            out = f"{tmp}/predict_{name}.json"
-            zero_counters()
-            t0 = time.perf_counter()
-            results = predict.main([
-                "--checkpoint", ckpt, "--infer_model_config",
-                "--embeddings_pickle", pkl, "--score_gt", gt,
-                "--batch_size", str(MAIN["N"]), "--out", out,
-                "--dataset_mode", "0", *flags])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = launch_set(path, f"predict {name}")
-            with open(out) as f:
-                written = json.load(f)
-            require(written == results and
-                    [r["image_id"] for r in written] == list(range(n)),
-                    f"predict {name}: {len(written)} captions written")
-            name_of = os.path.basename(ckpt).split(".")[0]
-            with open(f"{tmp}/{name_of}_scores.json") as f:
-                scores = json.load(f)
-            runs[name] = dict(captions=len(written), wall_s=wall,
-                              captions_per_s=len(written) / wall,
-                              launches=launches,
-                              scores={k: scores[k] for k in (
-                                  "Bleu_4", "METEOR", "ROUGE_L", "CIDEr")})
+        zero_counters()
+        t0 = time.perf_counter()
+        results = predict.main([
+            "--checkpoint", ckpt, "--infer_model_config",
+            "--embeddings_pickle", inputs["pkl"], "--score_gt", inputs["gt"],
+            "--batch_size", str(MAIN["N"]), "--out", out,
+            "--dataset_mode", "0", *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_set(path, what)
     finally:
         if old_root is None:
             os.environ.pop("CAPDEC_DATA_ROOT", None)
         else:
             os.environ["CAPDEC_DATA_ROOT"] = old_root
+    with open(out) as f:
+        written = json.load(f)
+    require(written == results and
+            [r["image_id"] for r in written] == list(range(n)),
+            f"{what}: {len(written)} captions written")
+    name_of = os.path.basename(ckpt).split(".")[0]
+    with open(f"{os.path.dirname(out)}/{name_of}_scores.json") as f:
+        scores = json.load(f)
+    return dict(captions=len(written), wall_s=wall,
+                captions_per_s=len(written) / wall, launches=launches,
+                scores={k: scores[k] for k in ("Bleu_4", "METEOR",
+                                               "ROUGE_L", "CIDEr")},
+                written=written)
+
+
+def predict_runs(ckpt: str, embeds, tmp: str) -> dict:
+    """`capdec_tpu_torch.cli.predict.main` on the card from `ckpt` with
+    --infer_model_config, --embeddings_pickle (MAIN["requests"] records)
+    and --score_gt at batch 64: beam, --int8_kv and --no_beam, each with
+    its launch set and a caption per record (captions/s over the whole
+    CLI call: loading, config inference and scoring included). The beam
+    run's first 64 captions must equal, lowercased, what CaptionServer
+    gives the same 64 embeddings at batch 64: one engine on one batch."""
+    from capdec_tpu_torch.models import caption_model
+    from capdec_tpu_torch.utils import checkpoint
+    from capdec_tpu_torch.utils.tokenizer import load_tokenizer
+    inputs = predict_inputs(embeds, tmp)
+    runs = {}
+    for name, flags, path in PREDICT_RUNS:
+        runs[name] = predict_once(ckpt, inputs, f"{tmp}/predict_{name}.json",
+                                  flags, path, f"predict {name}")
+        del runs[name]["written"]
     sd = checkpoint.load_state_dict(ckpt)
     cfg = caption_model.config_from_torch_state_dict(
         sd, compute_dtype=torch.bfloat16)
@@ -1931,6 +1963,218 @@ def predict_runs(ckpt: str, embeds, tmp: str) -> dict:
     del server
     torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# The mesh phase: the dp x tp path at world 1 on NCCL, against the same
+# runs without a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+# a tp=2 rank of GPT-2 124M: 6 of the 12 heads, K/V 384 wide
+TP2 = dict(D=MAIN["D"] // 2, H=MAIN["H"] // 2)
+
+
+def check_tp_rank_kernels(gen) -> dict:
+    """K2, K3 and K4 at a tp=2 rank's shapes (D 384, 6 heads of 64, N 64 x
+    R 5) against their plain versions, as check_decode_attention and
+    check_cache_kernels do at full width: K2 in bf16 with NaN in the slots
+    it must not read, within 2e-2; K3 and K4 bit for bit. Times beside the
+    plain versions, SDPA (K2), index_copy_ (K3) and the bounds."""
+    from capdec_tpu_torch.ops import cache_reorder as cr
+    from capdec_tpu_torch.ops import decode_attention as da
+    N, R, L, K, E = (MAIN[k] for k in ("N", "R", "L", "K", "E"))
+    D, H = TP2["D"], TP2["H"]
+    B, hd, layer = N * R, D // H, L // 2
+    rand = lambda *s: torch.randn(*s, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    q, kn, vn = rand(B, 3 * D).split(D, dim=-1)
+    pk, pv = rand(L, N, K, D), rand(L, N, K, D)
+    gk, gv = rand(B, L, E, D), rand(B, L, E, D)
+    err = 0.0
+    for step in (1, 17, MAIN["entry_length"] - 1):
+        sk, sv = gk.clone(), gv.clone()
+        sk[:, :, step:] = float("nan")  # stale slots must never be read
+        sv[:, :, step:] = float("nan")
+        for e_cap in (16, E):
+            args = (q, kn, vn, pk, pv, sk, sv, step, layer)
+            kw = dict(beams_per_image=R, head_dim=hd, e_cap=e_cap)
+            out = da.beam_decode_attention_rowmajor(*args, **kw)
+            ref = da.beam_decode_attention_rowmajor_plain(*args, **kw)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(out).all()) and
+                    torch.allclose(out, ref, atol=2e-2, rtol=2e-2),
+                    f"K2 at a tp=2 rank's shapes, step {step} e_cap "
+                    f"{e_cap}: max abs err {max_err(out, ref)}")
+            err = max(err, max_err(out, ref))
+    step = MAIN["entry_length"] - 1
+    kw = dict(beams_per_image=R, head_dim=hd, e_cap=E)
+    steps = attention_step_times(
+        lambda s, l: da.beam_decode_attention_rowmajor(
+            q, kn, vn, pk, pv, sk, sv, s, l, **kw),
+        q, kn, vn, pk, pv, sk, sv, R, H)
+    k2 = dict(max_abs_err=err, plain_ms=time_ms(
+        lambda: da.beam_decode_attention_rowmajor_plain(
+            q, kn, vn, pk, pv, sk, sv, step, layer, **kw)),
+        **steps[step], shape=f"N={N} R={R} K={K} step={step} e_cap={E} "
+                             f"D={D} H={H} bf16 (a tp=2 rank)")
+
+    src = _lane_src(torch.Generator().manual_seed(SEED), N, R).to(DEVICE)
+    forked = src != torch.arange(B, device=DEVICE)
+    nk, nv = rand(B, L, D), rand(B, L, D)
+    a = cr.write_gen_slot_chunk(gk.clone(), gv.clone(), nk, nv, 30)
+    b = cr.write_gen_slot_chunk_plain(gk.clone(), gv.clone(), nk, nv, 30)
+    torch.cuda.synchronize()
+    require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
+            "K3 at a tp=2 rank's shapes differs from its plain version")
+    k3 = dict(max_abs_err=0.0, **slot_write_times(
+        gen, cr.write_gen_slot_chunk, cr.write_gen_slot_chunk_plain, gk, gv,
+        (B, L, D)), shape=f"B={B} L={L} E={E} D={D} bf16 (a tp=2 rank)")
+    count = MAIN["entry_length"] - 1
+    a = cr.copy_forked_rows_bounded(gk.clone(), gv.clone(), src, count)
+    b = cr.copy_forked_rows_bounded_plain(gk.clone(), gv.clone(), src,
+                                          count)
+    torch.cuda.synchronize()
+    require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]) and
+            torch.equal(a["k"][~forked], gk[~forked]),
+            "K4 at a tp=2 rank's shapes differs from its plain version")
+    forks = int(forked.sum())
+    sources = int(src[forked].unique().numel())
+    b4, by4 = bound_ms(2 * (sources + forks) * L * count * D * 2, 0,
+                       torch.bfloat16)
+    k4 = dict(max_abs_err=0.0,
+              ms=time_ms(lambda: cr.copy_forked_rows_bounded(gk, gv, src,
+                                                             count)),
+              plain_ms=time_ms(lambda: cr.copy_forked_rows_bounded_plain(
+                  gk, gv, src, count)),
+              bound_ms=b4, bound_by=by4, library_ms=None,
+              shape=f"B={B} forks={forks} L={L} count={count} D={D} bf16 "
+                    f"(a tp=2 rank)")
+    return {"beam_decode_attention_rowmajor": k2,
+            "write_gen_slot_chunk": k3, "copy_forked_rows_bounded": k4}
+
+
+def mesh_train_run(mesh, ds, out_dir) -> dict:
+    """MESH_TRAIN_STEPS steps of (j) at full width through
+    train.loop.train, under `mesh` or without one, from the seed's
+    weights: the logged losses, the mapper's weights after, and the last
+    logged step rate (steps 2..MESH_TRAIN_STEPS)."""
+    from capdec_tpu_torch.models import caption_model
+    from capdec_tpu_torch.train import loop, step
+    cfg = model_config(only_prefix=True)
+    model = caption_model.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    loop.train(cfg, loop.TrainLoopConfig(
+        epochs=1, batch_size=TRAIN["batch"], lr=TRAIN["lr"], warmup_steps=0,
+        out_dir=out_dir, prefix="mesh", log_every=1, seed=SEED,
+        save_state=False, max_steps=MESH_TRAIN_STEPS), ds,
+        step.NoiseConfig(variance=TRAIN["variance"]), params=model,
+        mesh=mesh, device=DEVICE)
+    with open(f"{out_dir}/metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    mapper = {n: p.detach().clone()
+              for n, p in model.clip_project.named_parameters()}
+    del model
+    return dict(losses=[m["loss"] for m in logged], mapper=mapper,
+                ms_per_step=1e3 / logged[-1]["steps_per_sec"])
+
+
+def mesh_phase(gen, ds, ckpt: str, embeds, tmp: str) -> dict:
+    """The parallel path at world 1 on the card: a world-1 NCCL process
+    group in this process (destroyed at the end), a (dp 1, tp 1) mesh,
+    and each run against the same run without it.
+      * (j) for MESH_TRAIN_STEPS steps at full width: the losses and the
+        mapper's weights bit-equal (one rank's all-reduce and a division
+        by the summed count are exact), in the order plain, mesh, mesh,
+        plain for the per-step overhead;
+      * the predict CLI with `--mesh 1` on MAIN["requests"] records, beam
+        and --int8_kv: the captions equal, and the launch counts of K1-K4
+        and of K1, K5-K7 equal;
+      * CaptionServer under the mesh on MAIN["requests"] requests: the
+        captions and launch counts equal;
+      * torch_entry.entry(): the flagship loss finite;
+      * K2, K3 and K4 at a tp=2 rank's shapes (check_tp_rank_kernels).
+    Returns the numbers and the runs' launch counts."""
+    import torch.distributed as dist
+    import torch_entry
+    from capdec_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(dp=1, tp=1, device=DEVICE)
+    try:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"mesh: backend {dist.get_backend()}, world "
+                f"{dist.get_world_size()}")
+        zero_counters()
+        train = [mesh_train_run(m, ds, f"{tmp}/mesh_train_{i}")
+                 for i, m in enumerate((None, mesh, mesh, None))]
+        require(not any(fn.launches for fn in counters().values()),
+                "mesh: training launched decode kernels")
+        for plain, meshed in ((train[0], train[1]), (train[3], train[2])):
+            require(plain["losses"] == meshed["losses"] and
+                    len(plain["losses"]) == MESH_TRAIN_STEPS and
+                    np.isfinite(plain["losses"]).all(),
+                    f"mesh train: losses {plain['losses']} vs "
+                    f"{meshed['losses']}")
+            for n, p in plain["mapper"].items():
+                require(torch.equal(p, meshed["mapper"][n]),
+                        f"mesh train: mapper {n} differs")
+        plain_ms = [train[i]["ms_per_step"] for i in (0, 3)]
+        mesh_ms = [train[i]["ms_per_step"] for i in (1, 2)]
+        del train
+
+        inputs = predict_inputs(embeds, f"{tmp}/mesh_predict")
+        runs = {}
+        for name, flags, path in PREDICT_RUNS[:2]:
+            got = {}
+            for tag, extra in (("plain", []), ("mesh", ["--mesh", "1"])):
+                got[tag] = predict_once(
+                    ckpt, inputs, f"{tmp}/mesh_predict/{name}_{tag}.json",
+                    [*flags, *extra], path, f"mesh predict {name} {tag}")
+            require(got["plain"].pop("written") == got["mesh"].pop("written"),
+                    f"mesh predict {name}: captions differ")
+            require(got["plain"]["launches"] == got["mesh"]["launches"],
+                    f"mesh predict {name}: launches {got['plain']['launches']}"
+                    f" vs {got['mesh']['launches']}")
+            runs[name] = got
+
+        from capdec_tpu_torch.models import caption_model
+        from capdec_tpu_torch.utils import checkpoint
+        sd = checkpoint.load_state_dict(ckpt)
+        cfg = caption_model.config_from_torch_state_dict(
+            sd, compute_dtype=torch.bfloat16)
+        model = caption_model.params_from_torch_state_dict(sd, cfg, DEVICE)
+        served = {}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            server = build_server(None, model=model, cfg=cfg, mesh=m)[0]
+            server.warmup()
+            served[tag] = serve_path(server, embeds, BEAM_PATH,
+                                     keep_captions=True)
+            server.close()
+            del server
+        require(served["plain"].pop("captions") ==
+                served["mesh"].pop("captions"),
+                "mesh serve: captions differ")
+        require(served["plain"]["launches"] == served["mesh"]["launches"],
+                "mesh serve: launch counts differ")
+        del model
+
+        fn, args = torch_entry.entry()
+        entry_loss = float(fn(*args))
+        require(np.isfinite(entry_loss), f"entry: loss {entry_loss}")
+        del fn, args
+        torch.cuda.empty_cache()
+        tp2 = check_tp_rank_kernels(gen)
+    finally:
+        dist.destroy_process_group()
+    return dict(
+        backend="nccl", world=1, train_steps=MESH_TRAIN_STEPS,
+        train_bit_equal=True, train_ms_per_step_plain=plain_ms,
+        train_ms_per_step_mesh=mesh_ms,
+        train_overhead_ms_per_step=float(np.mean(mesh_ms)
+                                         - np.mean(plain_ms)),
+        predict=runs, serve=served,
+        serve_captions_per_s={t: r["captions_per_s"]
+                              for t, r in served.items()},
+        entry_loss=entry_loss, tp2=tp2)
 
 
 # ---------------------------------------------------------------------------
@@ -2381,6 +2625,18 @@ def main() -> int:
         for name, run in predicted.items():
             served[f"predict_{name}"] = run
             log(json.dumps({"phase": "predict", "run": name, **run}))
+        meshed = mesh_phase(gen, ds, f"{tmp}/train_j/timed/smoke-000.pt",
+                            embeds, tmp)
+        for name, runs in meshed["predict"].items():
+            for tag, run in runs.items():
+                served[f"mesh_predict_{name}_{tag}"] = run
+        for tag, run in meshed["serve"].items():
+            served[f"mesh_serve_{tag}"] = run
+        for k in kernels:
+            if k["name"] in meshed["tp2"]:
+                k["tp2"] = meshed["tp2"][k["name"]]
+        log(json.dumps({"phase": "mesh", "card": torch.cuda.get_device_name(0),
+                        "nvidia_smi": smi, **meshed}))
         clipped = clip_phase(tmp)
         for name, run in clipped["predict"].items():
             served[f"clip_predict_{name}"] = run
@@ -2397,7 +2653,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cublas_ms", "max_abs_err_f32", "launches_by_path", "bf16_prefix",
             "greedy_r1", "rotated_ms", "library_rotated_ms", "floor_ms",
-            "tensor_form_ms", "steps", "r33", "ptxas", "shape")
+            "tensor_form_ms", "steps", "r33", "tp2", "ptxas", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

@@ -13,6 +13,7 @@ with stopping on and off. Tokens, lengths and beam order must be
 identical; scores agree within 1e-4.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -200,7 +201,8 @@ def test_serve_keeps_running_past_exhaust_and_honors_shutdown(models):
 def test_server_refuses_unported_modes_and_a_missing_card(models,
                                                           monkeypatch):
     _, _, tcfg, model = models
-    # greedy/top-p serving is ported; mesh-sharded serving is not
+    # greedy/top-p serving is ported; a batch that does not divide over
+    # a mesh's dp axis is refused (the JAX package's ValueError)
     greedy = serve.CaptionServer(
         model, tcfg, ByteTokenizer(),
         serve.ServeConfig(batch_size=2, beam=False,
@@ -209,9 +211,12 @@ def test_server_refuses_unported_modes_and_a_missing_card(models,
     texts = greedy.caption(np.random.RandomState(3).randn(2, 32).astype(
         np.float32))
     assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    dp4 = types.SimpleNamespace(shape={"dp": 4, "tp": 1},
+                                device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="divisible by the mesh dp axis"):
         serve.CaptionServer(model, tcfg, ByteTokenizer(),
-                            serve.ServeConfig(mesh=4), device="cpu")
+                            serve.ServeConfig(batch_size=6, mesh=dp4),
+                            device="cpu")
     # no card and no explicit device: raise, never fall back to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

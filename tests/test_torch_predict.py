@@ -141,7 +141,9 @@ def test_record_filter_drops_records_as_in_jax():
 
 def test_run_predictions_refuses_a_mesh_and_clip_sources(tmp_path,
                                                          jax_stem_as_openai):
-    """The mesh is refused; the CLIP sources run: make_image_embed_fn
+    """A world-1 mesh gives the captions of no mesh (a mesh of several
+    ranks: tests/test_torch_parallel_decode.py); the CLIP sources run:
+    make_image_embed_fn
     (a missing file is encoded as a zero image) and make_text_embed_fn against the
     JAX package's on one tiny CLIP, within 1e-5 relative L2 (the JAX stem
     padded as OpenAI's, F2)."""
@@ -150,15 +152,25 @@ def test_run_predictions_refuses_a_mesh_and_clip_sources(tmp_path,
     from capdec_tpu.models import clip as jc
     from capdec_tpu.utils import clip_tokenizer as jax_ct
     from capdec_tpu_torch.models import clip
+    from capdec_tpu_torch.parallel import mesh as mesh_lib
     from capdec_tpu_torch.utils import clip_tokenizer
     from torch_clip_helpers import rel, text_checkpoint, write_bpe
 
     _, tcfg, _, model = _models(0)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        predictions.run_predictions(
-            [], predictions.make_pickle_embed_fn(np.zeros((1, 16))), model,
-            tcfg, ByteTokenizer(), predictions.PredictConfig(mesh=object()),
-            device="cpu")
+    records = [{"image_id": i, "clip_embedding": i} for i in range(3)]
+    embed = predictions.make_pickle_embed_fn(
+        np.random.RandomState(0).randn(3, 16).astype(np.float32))
+    bc = BeamConfig(beam_size=3, entry_length=6)
+    run = lambda mesh: predictions.run_predictions(
+        records, embed, model, tcfg, ByteTokenizer(),
+        predictions.PredictConfig(batch_size=2, beam_config=bc, mesh=mesh),
+        device="cpu")
+    want = run(None)
+    try:
+        got = run(mesh_lib.make_mesh(dp=1, device="cpu"))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert got == want and len(want) == 3
     bpe = write_bpe(tmp_path / "bpe.txt.gz")
     vocab = clip_tokenizer.CLIPTokenizer(bpe).vocab_size
     ckpt = text_checkpoint(tmp_path / "clip.pt", vocab)
@@ -309,7 +321,8 @@ def test_predict_cli_int8_kv_and_refusals(trained, monkeypatch):
     assert len(preds) == 8 and scores["num_images"] == 8
     base = ["--checkpoint", str(tmp / "ckpt" / "tiny-000.pt"), "--device",
             "cpu"]
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    # a mesh larger than the world (one process here) is refused
+    with pytest.raises(ValueError, match="device count 1"):
         cli.main(base + ["--embeddings_pickle", data, "--mesh", "2"])
     # --clip_checkpoint runs: tests/test_torch_predict_clip.py
 

@@ -10,7 +10,8 @@ package, on the CPU in f32.
     the JAX package loads in the port, with equal parameters.
   * `python -m capdec_tpu_torch.cli.train --device cpu` on the corpus of
     tests/test_cli_main_e2e.py gives the JAX CLI's loss_per_epoch from the
-    same `--pretrain_weights`; `--mesh` raises, `transformer_decoder`
+    same `--pretrain_weights`; a `--mesh` larger than the world is
+    refused, `transformer_decoder`
     trains and its checkpoint's config is inferred, an unknown mapper is
     refused.
 """
@@ -195,7 +196,8 @@ def test_train_cli_matches_the_jax_cli(tmp_path, monkeypatch):
         assert os.path.isfile(os.path.join(out, name)), name
     with open(os.path.join(out, "train_commandline_args.txt")) as f:
         assert json.load(f)["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh larger than the world (one process here) is refused
+    with pytest.raises(ValueError, match="device count 1"):
         cli.main(flags + ["--out_dir", out, "--device", "cpu", "--mesh=2,1"])
     # every mapper type trains: the encoder-decoder's epoch checkpoint
     # loads with an inferred config of its type; an unknown type is refused
