@@ -106,14 +106,48 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      x R 5) against their plain versions (the `tp2` key of their rows);
      the world-1 overhead per train step and the captions/s beside the
      card's name and power limit. The process group is destroyed after.
+     Then the recipes phase (recipes), on the clip phase's artifacts:
+     (a) examples/torch_inference_demo.py on one test JPEG at full width
+     (RN50x4, GPT-2 124M, the 8-layer mapper, bf16): the beam launches
+     K1-K4 only, greedy K1 only; in f32 its beam and greedy decodes
+     through the kernels equal those through the plain versions; K1 at
+     B 5, R 5 and B 1, R 1 and K2-K4 at N 1 against their plain versions
+     (the `demo` key of their rows); beam 0 equals the predict CLI's
+     caption of that image at --batch_size 1; (b)
+     scripts/torch_zoo_parity.sh on the same full-width stand-ins with the
+     gates off: PARITY OK, 128 predictions, float CIDEr and Bleu_4, K1-K4
+     only (its python processes count their launches through a
+     sitecustomize first on PYTHONPATH); (c)
+     scripts/torch_serve_throughput.py at --n 2048 --batch 512 (2560 beam
+     rows, a 3.4 GB bf16 K cache) for beam (K1-K4), --int8 (K1, K5-K7)
+     and --no_beam (K1): captions/s, p50/p99 latency, launches and the
+     busy share; at batch 512 in f32 (entry_length cut to 24 for the
+     plain path's time; the cache still spans more than 2^31 bytes) the
+     kernel path's tokens equal the plain path's on every image but
+     rounding ties of the plain path itself (images it decodes otherwise
+     in batches of 64: f32 products round by shape), where they must
+     equal the plain path's in batches of 64, and the int8 share is at
+     least 0.98; K1 at B 2560, R 5 and B 512, R 1 and K2-K4 at N 512
+     timed against their plain versions, bounds and library calls (the
+     `n512` key of their rows); (d) scripts/torch_int8_quality_probe.py
+     at its defaults (K1-K7): every decode stops at '.' before its cap
+     at least once; flips and deltas reported; on its trained model
+     (V 256, D 128, 2 heads, a 4-slot prefix) the f32 exact beam through
+     the kernels equals the plain path, the int8 beam's share with its
+     plain version is at least 0.98, and K1 at B 320, R 5 is held against
+     its plain version (the `probe` key of its row).
   6. A JSON line of the kernels, then {"ok": true, "device": ...} last.
 Without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib.util
 import itertools
 import json
+import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -364,21 +398,19 @@ def lm_head_instance(mangled: str) -> str:
     return m.group(1) + arg
 
 
-def check_lm_head(gen, ptxas):
-    """K1 at both served shapes: the beam paths' B = 320 rows, R = 5 and
-    greedy's B = 64, R = 1 (under "greedy_r1"), each with its own bound;
-    beside the kernel, the cuBLAS product alone (`torch.matmul` of h and
-    w^T in bf16, the logits written) as a yardstick of the product's rate
-    (no one PyTorch call computes K1: `library_ms` is null)."""
+def lm_head_times(gen, shapes, V=MAIN["V"], D=MAIN["D"]) -> dict:
+    """K1 against its plain version at each of `shapes` ({key: (B rows,
+    R)}) over a vocab of V rows of width D, in bf16 and f32: the top-R
+    indices equal, the values and logsumexp within 2e-3 (bf16) and 1e-4
+    (f32); the all-ties case; the bf16 time beside the plain version's,
+    the bound and the cuBLAS product alone (`torch.matmul` of h and w^T
+    in bf16, the logits written) as a yardstick of the product's rate."""
     from capdec_tpu_torch.ops import _build, lm_head
-    V, D = MAIN["V"], MAIN["D"]
     # Operands on a coarse grid (h in quarters, w in eighths, |.| <= 1):
     # every partial sum is exact in f32, so any summation order gives the
     # same logits and the top-R indices (with their many exact ties) must
     # match the plain version's exactly.
     w = torch.randint(-4, 5, (V, D), generator=gen, device=DEVICE) / 8
-    shapes = {"beam": (MAIN["N"] * MAIN["R"], MAIN["R"]),
-              "greedy_r1": (MAIN["N"], 1)}
     out = {}
     for key, (B, R) in shapes.items():
         h = torch.randint(-4, 5, (B, D), generator=gen, device=DEVICE) / 4
@@ -407,11 +439,22 @@ def check_lm_head(gen, ptxas):
             max_abs_err=err, max_abs_err_f32=res[torch.float32][0],
             ms=time_ms(lambda: lm_head.lm_head_topk(hd, wd, R)),
             plain_ms=time_ms(lambda: lm_head.lm_head_topk_plain(hd, wd, R)),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
             cublas_ms=time_ms(lambda: torch.matmul(hd, wd.t())),
             plan=lm_head.lm_head_plan(B, V, D, R, 2,
                                       _build.sm_count(hd.device)),
             shape=f"B={B} V={V} D={D} R={R} bf16")
+    return out
+
+
+def check_lm_head(gen, ptxas):
+    """K1 at both served shapes of the batch-64 paths (lm_head_times): the
+    beam paths' B = 320 rows, R = 5 and greedy's B = 64, R = 1 (under
+    "greedy_r1"), each with its own bound; its instances must build
+    without spills (no one PyTorch call computes K1: `library_ms` is
+    null)."""
+    out = lm_head_times(gen, {"beam": (MAIN["N"] * MAIN["R"], MAIN["R"]),
+                              "greedy_r1": (MAIN["N"], 1)})
     k1 = {lm_head_instance(name): rep for name, rep in ptxas.items()
           if "lm_head_" in name}
     require(not ptxas or "lm_head_wgmma<128>" in k1,
@@ -422,7 +465,7 @@ def check_lm_head(gen, ptxas):
     return dict(name="lm_head_topk", route="cuda",
                 source="capdec_tpu_torch/csrc/lm_head.cu",
                 replaces="capdec_tpu/ops/lm_head.py:259", **out["beam"],
-                library_ms=None, greedy_r1=out["greedy_r1"], ptxas=k1)
+                greedy_r1=out["greedy_r1"], ptxas=k1)
 
 
 def check_decode_attention(gen):
@@ -1398,7 +1441,13 @@ def zero_counters() -> None:
 def launch_set(path, what: str) -> dict:
     """The launch counts since zero_counters(): every kernel of `path`
     launched, no other."""
-    launches = {name: fn.launches for name, fn in counters().items()}
+    return require_launch_set(
+        {name: fn.launches for name, fn in counters().items()}, path, what)
+
+
+def require_launch_set(launches: dict, path, what: str) -> dict:
+    """`launches` (every kernel's count) holds every kernel of `path`
+    launched and no other."""
     for name, n in launches.items():
         if name in path:
             require(n > 0, f"{what}: kernel {name} was never launched")
@@ -1519,6 +1568,64 @@ def token_identity(model, cfg, beam, dc, bf16_gpt, embeds, same_as=None):
     bf16 = _decode(beam, bf16_gpt, cfg.gpt2, prefix, dc)
     out["bf16_f32_token_share"] = _share(beam, kern, bf16)
     return out
+
+
+def _image_differs(a, b):
+    """[N] bool: the images whose beam_search results a and b differ in
+    tokens, lengths or beam order."""
+    return ((a[0] != b[0]).flatten(1).any(1) | (a[1] != b[1]).any(1) |
+            (a[3] != b[3]).any(1))
+
+
+def token_identity_at_batch(model, cfg, dc, bf16_gpt, embeds, chunk):
+    """token_identity over a whole batch (512 images): f32 through the
+    kernels and through the plain versions, at the batch's shapes. f32
+    products round differently at other shapes (cuBLAS picks its
+    algorithm by the rows), so over hundreds of images a near-tie of two
+    beams can fall either way: an image on which the kernel path differs
+    from the plain path must be one on which the plain path differs from
+    itself when it decodes in batches of `chunk` (a rounding tie, counted
+    and reported), and there the kernel path's tokens, lengths and beam
+    order must equal those of the plain path in batches of `chunk`; every
+    other image's must equal the plain path's at the whole batch, and all
+    scores must be within 1e-4."""
+    prefix = mapped_prefix(model, cfg, embeds)
+    cfg32 = dataclasses.replace(cfg.gpt2, compute_dtype=torch.float32)
+    kern = _decode(True, model.gpt, cfg32, prefix, dc)
+    plain = _decode(True, model.gpt, cfg32, prefix, dc.plain())
+    torch.cuda.synchronize()
+    differ = _image_differs(kern, plain)
+    ties = []
+    if bool(differ.any()):
+        for i in range(0, len(embeds), chunk):
+            if not bool(differ[i:i + chunk].any()):
+                continue
+            part = _decode(True, model.gpt, cfg32, prefix[i:i + chunk],
+                           dc.plain())
+            self_differ = _image_differs(part, [x[i:i + chunk]
+                                                for x in plain])
+            kern_differ = _image_differs(part, [x[i:i + chunk]
+                                                for x in kern])
+            for j in differ[i:i + chunk].nonzero().flatten().tolist():
+                require(bool(self_differ[j]),
+                        f"f32 at batch {len(embeds)}: image {i + j} "
+                        "differs between the kernels and the plain path, "
+                        "and the plain path decodes it alike in batches "
+                        f"of {chunk}")
+                require(not bool(kern_differ[j]),
+                        f"f32 at batch {len(embeds)}: image {i + j} "
+                        "differs between the kernels and the plain path "
+                        f"both at the whole batch and in batches of {chunk}")
+                ties.append(i + j)
+    err = max_err(kern[2], plain[2])
+    require(err <= 1e-4, f"f32 scores differ by {err}")
+    bf16 = _decode(True, bf16_gpt, cfg.gpt2, prefix, dc)
+    return dict(images=len(embeds),
+                f32_identical_images=len(embeds) - len(ties),
+                rounding_tie_images=ties,
+                f32_top_beam_share=top_beam_share(kern, plain),
+                f32_score_max_abs_err=err,
+                bf16_f32_token_share=top_beam_share(kern, bf16))
 
 
 def int8_agreement(model, cfg, beam, dc, dc8, bf16_gpt, embeds):
@@ -1866,7 +1973,6 @@ def predict_inputs(embeds, tmp: str) -> dict:
     """The predict CLI's inputs for MAIN["requests"] records: the
     dataset_mode-0 registry under tmp/data, a GT file and the embeddings
     pickle."""
-    import os
     import pickle
     n = MAIN["requests"]
     rng = np.random.RandomState(SEED + 1)
@@ -1894,7 +2000,6 @@ def predict_once(ckpt: str, inputs: dict, out: str, flags, path,
                  what: str) -> dict:
     """One predict CLI call on the card (its launch set asserted and
     returned with the captions written and the scores)."""
-    import os
     from capdec_tpu_torch.cli import predict
     n = MAIN["requests"]
     old_root = os.environ.get("CAPDEC_DATA_ROOT")
@@ -1975,16 +2080,16 @@ MESH_TRAIN_STEPS = 3
 TP2 = dict(D=MAIN["D"] // 2, H=MAIN["H"] // 2)
 
 
-def check_tp_rank_kernels(gen) -> dict:
-    """K2, K3 and K4 at a tp=2 rank's shapes (D 384, 6 heads of 64, N 64 x
-    R 5) against their plain versions, as check_decode_attention and
-    check_cache_kernels do at full width: K2 in bf16 with NaN in the slots
-    it must not read, within 2e-2; K3 and K4 bit for bit. Times beside the
-    plain versions, SDPA (K2), index_copy_ (K3) and the bounds."""
+def check_kv_kernels(gen, N, D, H, label) -> dict:
+    """K2, K3 and K4 at other shapes than phase 2's (N images x R 5, K/V
+    width D over H heads of 64; `label` names the case) against their
+    plain versions, as check_decode_attention and check_cache_kernels do
+    at the main path's: K2 in bf16 with NaN in the slots it must not read,
+    within 2e-2; K3 and K4 bit for bit. Times beside the plain versions,
+    SDPA (K2), index_copy_ (K3) and the bounds."""
     from capdec_tpu_torch.ops import cache_reorder as cr
     from capdec_tpu_torch.ops import decode_attention as da
-    N, R, L, K, E = (MAIN[k] for k in ("N", "R", "L", "K", "E"))
-    D, H = TP2["D"], TP2["H"]
+    R, L, K, E = (MAIN[k] for k in ("R", "L", "K", "E"))
     B, hd, layer = N * R, D // H, L // 2
     rand = lambda *s: torch.randn(*s, generator=gen, device=DEVICE).to(
         torch.bfloat16)
@@ -2004,7 +2109,7 @@ def check_tp_rank_kernels(gen) -> dict:
             torch.cuda.synchronize()
             require(bool(torch.isfinite(out).all()) and
                     torch.allclose(out, ref, atol=2e-2, rtol=2e-2),
-                    f"K2 at a tp=2 rank's shapes, step {step} e_cap "
+                    f"K2 at {label}, step {step} e_cap "
                     f"{e_cap}: max abs err {max_err(out, ref)}")
             err = max(err, max_err(out, ref))
     step = MAIN["entry_length"] - 1
@@ -2017,7 +2122,7 @@ def check_tp_rank_kernels(gen) -> dict:
         lambda: da.beam_decode_attention_rowmajor_plain(
             q, kn, vn, pk, pv, sk, sv, step, layer, **kw)),
         **steps[step], shape=f"N={N} R={R} K={K} step={step} e_cap={E} "
-                             f"D={D} H={H} bf16 (a tp=2 rank)")
+                             f"D={D} H={H} bf16 ({label})")
 
     src = _lane_src(torch.Generator().manual_seed(SEED), N, R).to(DEVICE)
     forked = src != torch.arange(B, device=DEVICE)
@@ -2026,10 +2131,10 @@ def check_tp_rank_kernels(gen) -> dict:
     b = cr.write_gen_slot_chunk_plain(gk.clone(), gv.clone(), nk, nv, 30)
     torch.cuda.synchronize()
     require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
-            "K3 at a tp=2 rank's shapes differs from its plain version")
+            f"K3 at {label} differs from its plain version")
     k3 = dict(max_abs_err=0.0, **slot_write_times(
         gen, cr.write_gen_slot_chunk, cr.write_gen_slot_chunk_plain, gk, gv,
-        (B, L, D)), shape=f"B={B} L={L} E={E} D={D} bf16 (a tp=2 rank)")
+        (B, L, D)), shape=f"B={B} L={L} E={E} D={D} bf16 ({label})")
     count = MAIN["entry_length"] - 1
     a = cr.copy_forked_rows_bounded(gk.clone(), gv.clone(), src, count)
     b = cr.copy_forked_rows_bounded_plain(gk.clone(), gv.clone(), src,
@@ -2037,7 +2142,7 @@ def check_tp_rank_kernels(gen) -> dict:
     torch.cuda.synchronize()
     require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]) and
             torch.equal(a["k"][~forked], gk[~forked]),
-            "K4 at a tp=2 rank's shapes differs from its plain version")
+            f"K4 at {label} differs from its plain version")
     forks = int(forked.sum())
     sources = int(src[forked].unique().numel())
     b4, by4 = bound_ms(2 * (sources + forks) * L * count * D * 2, 0,
@@ -2049,7 +2154,7 @@ def check_tp_rank_kernels(gen) -> dict:
                   gk, gv, src, count)),
               bound_ms=b4, bound_by=by4, library_ms=None,
               shape=f"B={B} forks={forks} L={L} count={count} D={D} bf16 "
-                    f"(a tp=2 rank)")
+                    f"({label})")
     return {"beam_decode_attention_rowmajor": k2,
             "write_gen_slot_chunk": k3, "copy_forked_rows_bounded": k4}
 
@@ -2093,7 +2198,7 @@ def mesh_phase(gen, ds, ckpt: str, embeds, tmp: str) -> dict:
       * CaptionServer under the mesh on MAIN["requests"] requests: the
         captions and launch counts equal;
       * torch_entry.entry(): the flagship loss finite;
-      * K2, K3 and K4 at a tp=2 rank's shapes (check_tp_rank_kernels).
+      * K2, K3 and K4 at a tp=2 rank's shapes (check_kv_kernels).
     Returns the numbers and the runs' launch counts."""
     import torch.distributed as dist
     import torch_entry
@@ -2162,7 +2267,8 @@ def mesh_phase(gen, ds, ckpt: str, embeds, tmp: str) -> dict:
         require(np.isfinite(entry_loss), f"entry: loss {entry_loss}")
         del fn, args
         torch.cuda.empty_cache()
-        tp2 = check_tp_rank_kernels(gen)
+        tp2 = check_kv_kernels(gen, MAIN["N"], TP2["D"], TP2["H"],
+                               "a tp=2 rank")
     finally:
         dist.destroy_process_group()
     return dict(
@@ -2213,7 +2319,6 @@ def clip_inputs(tmp: str, rng) -> dict:
     tokens) and the fp16 OpenAI-layout checkpoints of both CLIPs from the
     port's random init at seed 0."""
     import gzip
-    import os
     from PIL import Image
     from capdec_tpu_torch.models import clip
     vocab = WORDS + GENDER_WORDS
@@ -2268,6 +2373,21 @@ def clip_inputs(tmp: str, rng) -> dict:
     torch.cuda.empty_cache()
     return dict(bpe=bpe, karpathy=karpathy, root=f"{tmp}/data",
                 images=images_dir, ckpts=ckpts)
+
+
+@contextlib.contextmanager
+def env_vars(**kw):
+    """os.environ updated with kw inside the block, restored after."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def timed_cli(main, argv):
@@ -2334,7 +2454,7 @@ def tower_checks(name, ckpt, images_dir, records, bpe) -> dict:
                 card_cpu_rel_l2=rel, max_abs_activation=stages)
 
 
-def clip_phase(tmp: str) -> dict:
+def clip_phase(tmp: str):
     """The Quickstart chain on the card from caption text and image files
     to scored captions, at full width: parse_corpus karpathy;
     embeddings_generator text mode with RN50x4 and gender balancing; the
@@ -2344,18 +2464,17 @@ def clip_phase(tmp: str) -> dict:
     same from a pickle embeddings_generator wrote in image mode (the same
     captions). Then ViT-B/32: embeddings_generator image mode, a 512-wide
     checkpoint trained the same way, and predict --text_autoencoder on
-    ViT-B/32's text tower. Every tower card against CPU in f32."""
-    import os
+    ViT-B/32's text tower. Every tower card against CPU in f32. Returns
+    the phase's results and its artifacts for the recipes phase: the
+    inputs (clip_inputs), the RN50x4 caption checkpoint and the test
+    records."""
     import pickle
     from capdec_tpu_torch.cli import embeddings_generator, parse_corpus
     from capdec_tpu_torch.cli import predict, train
     ins = clip_inputs(tmp, np.random.RandomState(SEED + 2))
     root, ann = ins["root"], f"{ins['root']}/coco/annotations"
-    old = {k: os.environ.get(k) for k in ("CAPDEC_DATA_ROOT",
-                                          "CAPDEC_CLIP_BPE_PATH")}
-    os.environ.update(CAPDEC_DATA_ROOT=root, CAPDEC_CLIP_BPE_PATH=ins["bpe"])
     steps, runs = {}, {}
-    try:
+    with env_vars(CAPDEC_DATA_ROOT=root, CAPDEC_CLIP_BPE_PATH=ins["bpe"]):
         _, wall = timed_cli(parse_corpus.main, [
             "karpathy", "--karpathy_json", ins["karpathy"], "--out_dir", ann])
         with open(f"{ann}/train.json") as f:
@@ -2460,14 +2579,337 @@ def clip_phase(tmp: str) -> dict:
         towers = {name: tower_checks(name, ins["ckpts"][name], ins["images"],
                                      test, ins["bpe"])
                   for name in CLIP_FILES}
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     torch.cuda.empty_cache()
-    return dict(steps=steps, predict=runs, towers=towers)
+    return (dict(steps=steps, predict=runs, towers=towers),
+            dict(ins=ins, rn_ckpt=rn_ckpt, test=test))
+
+
+
+# ---------------------------------------------------------------------------
+# The recipes phase: the entry points above the library (the single-image
+# demo, the zoo-parity chain, serving at batch 512, the int8 quality probe)
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent
+# serving at batch 512 (scripts/torch_serve_throughput.py's defaults); the
+# f32 kernel-vs-plain checks there decode 23 steps (entry_length 24, cut
+# from 67 for the plain path's time): the f32 cache [2560, 12, 24, 768]
+# still spans 2.26e9 bytes, past 2^31
+RECIPES = dict(serve_n=2048, serve_batch=512, identity_entry_length=24)
+GREEDY_PATH = ("lm_head_topk",)
+PROBE_PATH = BEAM_PATH + INT8_PATH[1:]  # K1-K7: the exact and int8 beams
+
+# sitecustomize.py for the zoo chain's python processes (its directory
+# first on PYTHONPATH): at exit each appends its kernel launch counts to
+# $CAPDEC_SMOKE_LAUNCHES; it first runs any sitecustomize it shadows
+LAUNCH_SITECUSTOMIZE = """import atexit, json, os, sys
+import importlib.machinery, importlib.util
+
+KERNELS = {kernels!r}
+
+
+def dump():
+    counts = {{}}
+    for name, module in KERNELS.items():
+        mod = sys.modules.get(module)
+        counts[name] = getattr(mod, name).launches if mod else 0
+    with open(os.environ["CAPDEC_SMOKE_LAUNCHES"], "a") as f:
+        f.write(json.dumps(counts) + "\\n")
+
+
+here = os.path.dirname(os.path.abspath(__file__))
+shadowed = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p) != here])
+if shadowed is not None:
+    shadowed.loader.exec_module(importlib.util.module_from_spec(shadowed))
+atexit.register(dump)
+"""
+
+
+def repo_module(rel: str):
+    """A script or example of the checkout (ROOT/rel) as a module."""
+    spec = importlib.util.spec_from_file_location(pathlib.Path(rel).stem,
+                                                  ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def demo_run(gen, arts: dict, tmp: str) -> dict:
+    """(a) examples/torch_inference_demo.py on the first test JPEG at full
+    width (RN50x4, the clip phase's caption checkpoint: GPT-2 124M, the
+    8-layer mapper, bf16): the beam launches K1-K4 only, greedy K1 only;
+    the demo's beam and greedy decodes of that image in f32 through the
+    kernels equal those through the plain versions (token_identity, N 1);
+    K1 at B 5, R 5 and B 1, R 1 and K2-K4 at N 1 against their plain
+    versions (the `demo` key of their rows); beam 0 equals the predict
+    CLI's caption of that image alone at --batch_size 1 (K1-K4)."""
+    from capdec_tpu_torch.cli import predict
+    from capdec_tpu_torch.decode import BeamConfig, ToppConfig
+    demo = repo_module("examples/torch_inference_demo.py")
+    ins, record = arts["ins"], arts["test"][0]
+    ckpt = ins["ckpts"]["RN50x4"]
+    image = f"{ins['images']}/COCO_val2014_{record['image_id']:012d}.jpg"
+    args = demo.build_parser().parse_args([
+        "--image", image, "--checkpoint", arts["rn_ckpt"],
+        "--clip_checkpoint", ckpt])
+    t0 = time.perf_counter()
+    m = demo.load(args)
+    prefix = demo.prefix_embeds(m, image)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    zero_counters()
+    t0 = time.perf_counter()
+    beams = demo.beam_captions(m, prefix, args.beam_size)
+    beam_s = time.perf_counter() - t0
+    beam_launches = launch_set(BEAM_PATH, "demo beam")
+    zero_counters()
+    t0 = time.perf_counter()
+    greedy = demo.greedy_caption(m, prefix)
+    greedy_s = time.perf_counter() - t0
+    greedy_launches = launch_set(GREEDY_PATH, "demo greedy")
+    require(len(beams) == args.beam_size and
+            all(isinstance(b, str) for b in (*beams, greedy)),
+            f"demo: {len(beams)} beams")
+    embed = demo.image_embedding(m, image)
+    identity = {what: token_identity(m["model"], m["model_cfg"], beam, dc,
+                                     m["gpt"], embed)
+                for what, beam, dc in (
+                    ("beam", True, BeamConfig(beam_size=args.beam_size)),
+                    ("greedy", False, ToppConfig()))}
+    del m, prefix
+    torch.cuda.empty_cache()
+    kernels = check_kv_kernels(gen, 1, MAIN["D"], MAIN["H"], "demo, N 1")
+    kernels["lm_head_topk"] = lm_head_times(
+        gen, {"beam": (args.beam_size, args.beam_size), "greedy_r1": (1, 1)})
+    root = f"{tmp}/demo_root"
+    os.makedirs(f"{root}/coco/annotations")
+    os.symlink(ins["images"], f"{root}/coco/val2014")
+    with open(f"{root}/coco/annotations/single_caption_per_sample_val.json",
+              "w") as f:
+        json.dump([record], f)
+    zero_counters()
+    with env_vars(CAPDEC_DATA_ROOT=root):
+        results, wall = timed_cli(predict.main, [
+            "--checkpoint", arts["rn_ckpt"], "--clip_checkpoint", ckpt,
+            "--batch_size", "1", "--out", f"{tmp}/demo_predict.json"])
+    predict_launches = launch_set(BEAM_PATH, "demo's predict at batch 1")
+    require(len(results) == 1 and results[0]["caption"] == beams[0].lower(),
+            f"demo: beam 0 {beams[0]!r} vs predict's "
+            f"{results[0]['caption']!r}")
+    torch.cuda.empty_cache()
+    return dict(image=os.path.basename(image), load_s=load_s, beams=beams,
+                greedy=greedy, beam_s=beam_s, greedy_s=greedy_s,
+                predict_wall_s=wall, equal_to_predict=True,
+                token_identity=identity, kernels=kernels,
+                launches={"beam": beam_launches, "greedy": greedy_launches,
+                          "predict": predict_launches})
+
+
+def zoo_chain(arts: dict, tmp: str) -> dict:
+    """(b) scripts/torch_zoo_parity.sh, unmodified, on the full-width
+    stand-ins: the clip phase's RN50x4 caption checkpoint as the zoo
+    checkpoint, its Karpathy JSON and 128 test JPEGs, its RN50x4 .pt and
+    a GPT-2-sized byte vocab (scripts/torch_make_zoo_dryrun_fixtures.py),
+    gates off (MIN_CIDER=-1 MIN_B4=-1). It must print PARITY OK and write
+    128 predictions and float CIDEr and Bleu_4;
+    its python processes (each counting through LAUNCH_SITECUSTOMIZE)
+    launch K1-K4 only."""
+    ins = arts["ins"]
+    site = f"{tmp}/zoo_site"
+    os.makedirs(site)
+    kernels = {name: fn.__module__ for name, fn in counters().items()}
+    with open(f"{site}/sitecustomize.py", "w") as f:
+        f.write(LAUNCH_SITECUSTOMIZE.format(kernels=kernels))
+    repo_module("scripts/torch_make_zoo_dryrun_fixtures.py").byte_vocab(
+        f"{tmp}/zoo_gpt2_vocab", MAIN["V"])
+    out, counts = f"{tmp}/zoo_out", f"{tmp}/zoo_launches.jsonl"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DEVICE", "EXTRA_PREDICT_FLAGS")}
+    env.update(PYTHONPATH=os.pathsep.join(
+                   [site, *filter(None, [os.environ.get("PYTHONPATH")])]),
+               ZOO_CKPT=arts["rn_ckpt"], KARPATHY_JSON=ins["karpathy"],
+               COCO_IMAGES=os.path.dirname(ins["images"]),
+               CLIP_CKPT=ins["ckpts"]["RN50x4"],
+               GPT2_DIR=f"{tmp}/zoo_gpt2_vocab",
+               CAPDEC_DATA_ROOT=f"{tmp}/zoo_data", OUT=out,
+               MIN_CIDER="-1", MIN_B4="-1", CAPDEC_SMOKE_LAUNCHES=counts)
+    t0 = time.perf_counter()
+    res = subprocess.run(["bash", str(ROOT / "scripts" / "torch_zoo_parity.sh")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    require(res.returncode == 0, f"zoo chain exited {res.returncode}:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    require("PARITY OK" in lines, f"zoo chain: {lines[-3:]}")
+    with open(f"{out}/zoo_predictions.json") as f:
+        preds = json.load(f)
+    n = CLIP_RUN["test_images"]
+    require(len(preds) == n and
+            all(isinstance(p["caption"], str) for p in preds),
+            f"zoo chain: {len(preds)} predictions")
+    stem = os.path.basename(arts["rn_ckpt"]).split(".")[0]
+    with open(f"{out}/{stem}_scores.json") as f:
+        scores = json.load(f)
+    require(all(isinstance(scores[k], float) for k in ("CIDEr", "Bleu_4")),
+            f"zoo chain scores: {scores}")
+    launches = {name: 0 for name in kernels}
+    with open(counts) as f:
+        procs = [json.loads(line) for line in f]
+    for proc in procs:
+        for name, c in proc.items():
+            launches[name] += c
+    require_launch_set(launches, BEAM_PATH, "zoo chain")
+    return dict(wall_s=wall, processes=len(procs), predictions=len(preds),
+                captions_per_s=len(preds) / wall, scores=scores,
+                gate_line=next(x for x in lines if x.startswith("zoo parity")),
+                launches=launches)
+
+
+def device_ms_of(fn) -> float:
+    """The summed device time of every CUDA kernel fn() launches (one
+    profiled call)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == cuda) / 1e3
+
+
+def serve512() -> dict:
+    """(c) scripts/torch_serve_throughput.py at --n 2048 --batch 512 on the
+    flagship's random weights: beam (K1-K4), --int8 (K1, K5-K7) and
+    --no_beam (K1). captions/s, p50/p99 latency, the launches by kernel,
+    and the busy share: one batch's device time (profiled apart) times
+    the batches over the run's wall time."""
+    mod = repo_module("scripts/torch_serve_throughput.py")
+    runs = {}
+    for mode, flags, path in (("beam", [], BEAM_PATH),
+                              ("int8", ["--int8"], INT8_PATH),
+                              ("no_beam", ["--no_beam"], GREEDY_PATH)):
+        args = mod.build_parser().parse_args([
+            "--n", str(RECIPES["serve_n"]), "--batch",
+            str(RECIPES["serve_batch"]), *flags])
+        server, cfg = mod.build_server(args)
+        zero_counters()
+        out = mod.serve_requests(server, cfg, args)
+        launches = launch_set(path, f"serving at batch 512 ({mode})")
+        require(out["served"] == args.n and
+                out["batches"] == -(-args.n // args.batch),
+                f"serving at batch 512 ({mode}): {out}")
+        embeds = np.random.RandomState(SEED + 5).randn(
+            args.batch, cfg.prefix_size).astype(np.float32)
+        dev = device_ms_of(lambda: server.caption(embeds))
+        runs[mode] = dict(out, captions_per_s=out["serve_captions_per_sec"],
+                          device_ms_per_batch=dev,
+                          wall_ms_per_batch=out["wall_s"] / out["batches"]
+                          * 1e3,
+                          busy_share=dev * out["batches"] /
+                          (out["wall_s"] * 1e3), launches=launches)
+        del server
+        torch.cuda.empty_cache()
+    return runs
+
+
+def serve512_checks(gen) -> dict:
+    """At batch 512 (2560 beam rows) in f32: the kernel path's tokens
+    equal the plain path's but for rounding ties of the plain path itself
+    (token_identity_at_batch) and the int8 path's top-beam
+    token share with its plain version is at least 0.98 (int8_agreement),
+    on the serving script's weights and first batch of requests,
+    entry_length cut to RECIPES["identity_entry_length"]; then K1 at B
+    2560, R 5 and B 512, R 1, and K2-K4 at N 512 x R 5 against their
+    plain versions, bounds and library calls (the `n512` key)."""
+    from capdec_tpu_torch.decode import BeamConfig
+    from capdec_tpu_torch.decode.beam import cast_params_for_decode
+    from capdec_tpu_torch.models import caption_model
+    mod = repo_module("scripts/torch_serve_throughput.py")
+    N = RECIPES["serve_batch"]
+    cfg = mod.model_config()
+    model = caption_model.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    embeds = np.random.RandomState(0).randn(N, cfg.prefix_size).astype(
+        np.float32)
+    dc = BeamConfig(beam_size=MAIN["R"],
+                    entry_length=RECIPES["identity_entry_length"],
+                    stop_token=-1)
+    dc8 = dataclasses.replace(dc, kv_cache_int8=True, fused_attention=True)
+    bf16_gpt = cast_params_for_decode(model.gpt, cfg.gpt2)
+    out = dict(token_identity=token_identity_at_batch(
+                   model, cfg, dc, bf16_gpt, embeds, MAIN["N"]),
+               int8_agreement=int8_agreement(model, cfg, True, dc, dc8,
+                                             bf16_gpt, embeds),
+               entry_length=dc.entry_length)
+    del model, bf16_gpt
+    torch.cuda.empty_cache()
+    out["n512"] = check_kv_kernels(gen, N, MAIN["D"], MAIN["H"],
+                                   "batch 512")
+    torch.cuda.empty_cache()
+    out["n512"]["lm_head_topk"] = lm_head_times(
+        gen, {"beam": (N * MAIN["R"], MAIN["R"]), "greedy_r1": (N, 1)})
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_probe(gen) -> dict:
+    """(d) scripts/torch_int8_quality_probe.py at its defaults on the card
+    (4 epochs of 512 samples, 64 decoded): the exact beam launches K1-K4,
+    the int8 beam K1, K5-K7; each decode stops at '.' before its cap at
+    least once. Flips and deltas are reported, with no threshold. Then,
+    on the trained model and the eval embeddings, at the probe's shapes
+    (V 256, D 128 over 2 heads, a 4-slot prefix, 2 layers): the exact
+    beam in f32 through the kernels equals the plain path
+    (token_identity), the int8 beam's top-beam token share with its
+    plain version is at least 0.98 (int8_agreement), and K1 at B 320,
+    R 5 against its plain version (the `probe` key of its row)."""
+    from capdec_tpu_torch.decode import BeamConfig
+    from capdec_tpu_torch.decode.beam import cast_params_for_decode
+    probe = repo_module("scripts/torch_int8_quality_probe.py")
+    zero_counters()
+    t0 = time.perf_counter()
+    out = probe.run(device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_set(PROBE_PATH, "int8 probe")
+    require(all(out["stopped"][v] > 0 for v in probe.VARIANTS),
+            f"int8 probe: no decode stopped at '.': {out['stopped']}")
+    scores = {k: {v: out["scores"][v][k] for v in probe.VARIANTS}
+              for k in probe.METRICS}
+    model, cfg, embeds = out["model"], out["cfg"], out["embeds"]
+    dc, dc8 = (BeamConfig(**probe.BASE, **probe.VARIANTS[v])
+               for v in ("exact", "int8"))
+    gpt = cast_params_for_decode(model.gpt, cfg.gpt2)
+    checks = dict(
+        token_identity=token_identity(model, cfg, True, dc, gpt, embeds),
+        int8_agreement=int8_agreement(model, cfg, True, dc, dc8, gpt,
+                                      embeds))
+    kernels = {"lm_head_topk": lm_head_times(
+        gen, {"beam": (len(embeds) * dc.beam_size, dc.beam_size)},
+        V=cfg.gpt2.vocab_size, D=cfg.gpt2.n_embd)}
+    return dict(wall_s=wall, captions_per_s=2 * out["eval_n"] / wall,
+                train_loss=out["train_loss"], eval_n=out["eval_n"],
+                flips=out["flips"], stopped=out["stopped"], scores=scores,
+                deltas=out["deltas"], launches=launches, **checks,
+                kernels=kernels)
+
+
+def recipes_phase(gen, arts: dict, tmp: str) -> dict:
+    """The recipes phase, (a)-(d), after the clip phase on its
+    artifacts."""
+    out = {}
+    for part, run in (("demo", lambda: demo_run(gen, arts, tmp)),
+                      ("zoo", lambda: zoo_chain(arts, tmp)),
+                      ("serve512", serve512),
+                      ("serve512_checks", lambda: serve512_checks(gen)),
+                      ("int8_probe", lambda: int8_probe(gen))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        log(json.dumps({"phase": f"recipes_{part}",
+                        "phase_s": time.perf_counter() - t0, **out[part]}))
+    return out
 
 
 def main() -> int:
@@ -2637,11 +3079,31 @@ def main() -> int:
                 k["tp2"] = meshed["tp2"][k["name"]]
         log(json.dumps({"phase": "mesh", "card": torch.cuda.get_device_name(0),
                         "nvidia_smi": smi, **meshed}))
-        clipped = clip_phase(tmp)
+        clipped, artifacts = clip_phase(tmp)
         for name, run in clipped["predict"].items():
             served[f"clip_predict_{name}"] = run
         log(json.dumps({"phase": "clip", "card": torch.cuda.get_device_name(0),
                         "nvidia_smi": smi, **clipped}))
+        recipes = recipes_phase(gen, artifacts, tmp)
+        demo = recipes["demo"]
+        for tag, wall in (("beam", demo["beam_s"]),
+                          ("greedy", demo["greedy_s"]),
+                          ("predict", demo["predict_wall_s"])):
+            served[f"recipes_demo_{tag}"] = dict(
+                launches=demo["launches"][tag], captions_per_s=1 / wall)
+        served["recipes_zoo"] = recipes["zoo"]
+        for mode, run in recipes["serve512"].items():
+            served[f"serve512_{mode}"] = run
+        served["int8_probe"] = recipes["int8_probe"]
+        for key, times in (("demo", demo["kernels"]),
+                           ("n512", recipes["serve512_checks"]["n512"]),
+                           ("probe", recipes["int8_probe"]["kernels"])):
+            for k in kernels:
+                if k["name"] in times:
+                    k[key] = times[k["name"]]
+        log(json.dumps({"phase": "recipes",
+                        "card": torch.cuda.get_device_name(0),
+                        "nvidia_smi": smi}))
     for k in kernels:
         k["launches_by_path"] = {
             phase: run["launches"][k["name"]]
@@ -2653,7 +3115,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cublas_ms", "max_abs_err_f32", "launches_by_path", "bf16_prefix",
             "greedy_r1", "rotated_ms", "library_rotated_ms", "floor_ms",
-            "tensor_form_ms", "steps", "r33", "tp2", "ptxas", "shape")
+            "tensor_form_ms", "steps", "r33", "tp2", "demo", "n512", "probe",
+            "ptxas", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

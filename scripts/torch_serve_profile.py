@@ -4,12 +4,13 @@ NVIDIA GPU.
 
     python3 scripts/torch_serve_profile.py [--int8_kv] [--chunks 8]
         [--greedy [--chunk_slot_write]] [--no_lanes] [--seqmajor]
-        [--pallas_slot_write] [--ancestry]
+        [--pallas_slot_write] [--ancestry] [--batch 64]
 
 Builds chip_smoke.py's main-path server (seeded full-width GPT-2 124M +
-8-layer TransformerMapper, bf16, batch 64, entry_length 67; beam 5, or
+8-layer TransformerMapper, bf16, batch 64 or `--batch N`, entry_length
+67; beam 5, or
 with `--greedy` greedy decoding, the default ToppConfig), warms it up,
-then decodes one batch of 64 requests under torch.profiler. The flags
+then decodes one batch of requests under torch.profiler. The flags
 pick the path: `--int8_kv` the int8 generated KV cache (beam: staged
 growth; greedy: with `--chunks`, the fused chunked int8 route);
 `--chunks N` the slot-bounded kernels in N-slot tiles
@@ -25,10 +26,10 @@ profiler), the device time summed over its kernels, the device busy share
 (device time / unprofiled wall), the number of kernel launches and decode
 steps, the top device-time consumers, and every hand-written kernel's
 device time (capdec_device_ms). Then, without the profiler, it
-serves 128 requests twice each way in the order A B B A: A = `serve()`
-(the batch in flight decodes on the worker thread), B = back-to-back
-synchronous `caption()` calls of 64, and prints each run's captions/s.
-With `--int8_kv` it also serves 256 requests through `serve()` on the
+serves two batches of requests twice each way in the order A B B A: A =
+`serve()` (the batch in flight decodes on the worker thread), B =
+back-to-back synchronous `caption()` calls of a batch, and prints each
+run's captions/s. With `--int8_kv` it also serves four batches through `serve()` on the
 same path without int8 (A) and with it (B), in the order A B B A, for a
 comparison of the two inside one process.
 """
@@ -64,6 +65,9 @@ def main(argv=None) -> int:
                    help="beam: the slot write K14 in place of K3")
     p.add_argument("--ancestry", action="store_true",
                    help="beam: ancestry attention (the cache never moves)")
+    p.add_argument("--batch", type=int, default=64,
+                   help="the server's batch (and a profiled batch's "
+                        "requests)")
     args = p.parse_args(argv)
     knobs = {}
     if args.no_lanes:
@@ -92,6 +96,7 @@ def main(argv=None) -> int:
     from capdec_tpu_torch.utils.torch_setup import setup_torch
 
     setup_torch()
+    chip_smoke.MAIN["N"] = args.batch
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     beam = not args.greedy
     server, model, *_ = chip_smoke.build_server(gen, beam=beam, **path)

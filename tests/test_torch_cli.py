@@ -5,14 +5,18 @@ and the port's independence from it.
     in the port strictly and captions exactly as the JAX server does.
   * `python -m capdec_tpu_torch.cli.serve` on a tiny pickle prints the
     same captions as the JAX serving CLI (float32, CPU).
-  * No module of capdec_tpu_torch/, not chip_smoke.py and no
-    scripts/torch_*.py imports `jax`, `capdec_tpu` or the JAX training
-    stack (`optax`, `orbax`, `flax`).
+  * No module of capdec_tpu_torch/, not chip_smoke.py, no
+    scripts/torch_*.py, no examples/torch_*.py, no code cell of
+    examples/torch_*.ipynb and no Python heredoc of scripts/torch_*.sh
+    imports `jax`, `capdec_tpu` or the JAX training stack (`optax`,
+    `orbax`, `flax`); the shell scripts run only the port's modules and
+    scripts.
 """
 import ast
 import json
 import pathlib
 import pickle
+import re
 
 import jax
 import numpy as np
@@ -117,13 +121,30 @@ def test_serve_cli_prints_the_jax_clis_captions(saved, tmp_path, capsys,
         cli.main(flags + ["--device", "cpu", "--mesh=2"])
 
 
-def _imported_modules(path: pathlib.Path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _imported_modules(code: str, filename: str):
+    tree = ast.parse(code, filename=filename)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+
+
+FORBIDDEN = ("jax", "jaxlib", "capdec_tpu", "optax", "orbax", "flax")
+
+
+def _notebook_code(path: pathlib.Path) -> str:
+    nb = json.loads(path.read_text())
+    return "\n".join("".join(c["source"]) for c in nb["cells"]
+                     if c["cell_type"] == "code")
+
+
+def _shell_heredocs(text: str):
+    """The Python programs a shell script feeds `python - <<TAG`, with
+    each shell expansion ($X, ${X}) as the number the shell would put
+    there for a gate, or a path inside a string."""
+    for m in re.finditer(r"python3? - <<'?(\w+)'?\n(.*?)\n\1\n", text, re.S):
+        yield re.sub(r"\$\{\w+\}|\$\w+", "0", m.group(2))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -132,9 +153,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
     assert len(scripts) >= 2
     files += scripts
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert examples
+    files += examples
     assert len(files) > 10 and all(f.exists() for f in files)
-    for f in files:
-        for mod in _imported_modules(f):
+    sources = [(f, f.read_text()) for f in files]
+    notebooks = sorted((ROOT / "examples").glob("torch_*.ipynb"))
+    assert notebooks
+    sources += [(f, _notebook_code(f)) for f in notebooks]
+    shells = sorted((ROOT / "scripts").glob("torch_*.sh"))
+    assert len(shells) >= 2
+    n_heredocs = 0
+    for f in shells:
+        text = f.read_text()
+        for code in _shell_heredocs(text):
+            sources.append((f, code))
+            n_heredocs += 1
+        # the modules and scripts the shell runs are the port's
+        for mod in re.findall(r"python3? -m (\S+)", text):
+            assert mod.split(".")[0] == "capdec_tpu_torch", (f, mod)
+        for path in re.findall(r"python3? \S*?([\w.]+\.py)\b", text):
+            assert path.startswith("torch_"), (f, path)
+    assert n_heredocs >= 3
+    for f, code in sources:
+        for mod in _imported_modules(code, str(f)):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "capdec_tpu", "optax",
-                               "orbax", "flax"), (f, mod)
+            assert top not in FORBIDDEN, (f, mod)
