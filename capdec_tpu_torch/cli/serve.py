@@ -131,9 +131,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.embeddings_pickle and not args.watch:
         sys.exit('need --embeddings_pickle or --watch')
-    mesh = None
+    mesh, started = None, False
     if args.mesh:
         from ..parallel import mesh as mesh_lib
+        started = not torch.distributed.is_initialized()
         mesh = mesh_lib.make_mesh(dp=int(args.mesh), tp=1,
                                   device=args.device)
     device = mesh.device if mesh else resolve_device(args.device)
@@ -163,13 +164,17 @@ def main(argv=None):
         mesh=mesh, beam_config=bc, topp_config=tc)
     server = serve_lib.CaptionServer(model, model_cfg, tokenizer, cfg,
                                      device=device)
-    if mesh is not None and not mesh.is_main:
-        server.follow()  # until rank 0 closes
-        return
     try:
-        _serve(args, server)
+        if mesh is not None and not mesh.is_main:
+            server.follow()  # until rank 0 closes
+        else:
+            try:
+                _serve(args, server)
+            finally:
+                server.close()
     finally:
-        server.close()
+        if started:  # no collective thread of ours outlives the process
+            torch.distributed.destroy_process_group()
 
 
 def _serve(args, server) -> None:

@@ -5,12 +5,27 @@
 // dtype: rows move as 16-byte words (the wrappers require
 // D·itemsize % 16 == 0).
 //
-// K3 write_gen_slot replaces
+// K3 write_gen_slot (write_gen_slot_views<W, true>) replaces
 // capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk (:355, pallas_call
-// in _write_chunk_impl :318): new_k/new_v [B, L, D] go to slot `step`.
-// Bound: bytes, 2·B·L·D·itemsize read and as many written. One block per
-// (row, layer) copies its D values; only the written slot is touched (the
-// TPU kernel's aligned 8-slot chunk was a tiling workaround).
+// in _write_chunk_impl :318): the step's K/V of every layer go to slot
+// `step` of the row-major caches [B, L, E, D]. Bound: bytes,
+// 2·B·L·D·itemsize read and as many written; only the written slot is
+// touched (the TPU kernel's aligned 8-slot chunk was a tiling workaround).
+// It is K13's kernel with the row-major slot row ((b·L + l)·E + step), and
+// reads what K13 reads (below): decode_step hands both the k and v thirds
+// of each layer's [B, 3D] qkv output, so no torch.stack runs before the
+// write (a [B, L, D] tensor is read as its L strided [B, D] views). Its
+// parent ran one 128-thread block a (row, layer), a thread taking one word
+// of the K row and one of the V row, from [B, L, D] tensors that
+// decode_step stacked first (two more launches). From the views in one
+// launch the step's write takes a third of the parent's stacks and write.
+// The kernel alone is faster than the parent's at B 320 but 0.1-0.6 µs
+// (1-7%) slower at one image, a tp=2 rank and B 2560; in
+// scripts/torch_cache_kernel_sweep.py neither scalar sources in place of
+// the struct, plain loads, a smaller struct nor another grid (a loop over
+// the items, a warp a (layer, row), the parent's block a (row, layer),
+// 1-8 warps a block) closed the gap, and the counters that would show why
+// are not readable on the card's machine.
 //
 // K14 replaces capdec_tpu/ops/cache_reorder.py::write_gen_slot (:452,
 // pallas_call :480), which computes what K3 computes: slot `step` of the
@@ -22,7 +37,7 @@
 // launch count, so a run shows which of the two routes wrote the slot.
 // Bound: K3's.
 //
-// K13 write_gen_slot_seqmajor replaces
+// K13 write_gen_slot_seqmajor (write_gen_slot_views<W, false>) replaces
 // capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk_seqmajor (:380,
 // body _write_chunk_impl :275, pallas_call :318 with row_axis 1): slot
 // `step` of the seq-major caches [L, B, E, D] of greedy/top-p decode takes
@@ -30,34 +45,56 @@
 // as many written. On the TPU the decode scan stacked each layer's K/V
 // into [L, B, D] for free; the port's layers run in a Python loop, and a
 // stack there is two more launches and 2·L·B·D·itemsize more bytes each
-// way. So K13 reads the K/V where the layers leave them: L strided [B, D]
-// views (the k and v thirds of each layer's [B, 3D] qkv output), whose 2·L
-// base pointers and row strides come by value in a __grid_constant__
-// parameter struct (a device table would cost a copy a step). At 4.7 MB a
-// launch the fixed cost is a large share of the time, so the grid is cut
-// for the bytes and not by (row, layer): one warp takes one (layer, row,
-// K|V) item 2·(l·B + b) + (0 K | 1 V), whose row is row16 16-byte words;
-// a lane issues all of its W words' non-coherent loads (ld.global.nc)
-// before any store, W the least of 1, 2, 4 or 8 with 32·W >= row16 (the
-// row in passes of 32·W words beyond that). At D 768 bf16 (96 words, W 4,
-// three live) the served call is 1536 warps with no idle lane, in blocks
-// of four warps, one wave. The wrapper's plan
-// (ops/cache_reorder.py::seqmajor_write_plan) chooses warps, W and the
-// grid; the C entry refuses a plan that is not its own layout's. On the
-// H100 (scripts/torch_slot_write_ablate.py) the call takes the launch's
-// floor (the empty kernel on the same grid), then the loads' round trip,
-// then the stores, whichever way the grid is cut (a warp a K|V row, a
-// (layer, row) or 32 words; blocks of 1-8 warps); reading the sources
-// from the struct costs about 0.15 µs against scalar parameters.
+// way. So the kernel reads the K/V where the layers leave them: L strided
+// [B, D] views (the k and v thirds of each layer's [B, 3D] qkv output),
+// whose 2·L base pointers and row strides come by value in a
+// __grid_constant__ parameter struct (a device table would cost a copy a
+// step). The grid is cut for the bytes and not by (row, layer): one warp
+// takes one (row, K|V) item j = 2·b + (0 K | 1 V) of layer blockIdx.y (the
+// grid's y axis, so that a warp reads its layer's entries of the struct
+// without waiting for a parameter), whose row is row16 16-byte words; a
+// lane issues all of its W words' non-coherent loads (ld.global.nc) before
+// any store, W the least of 1, 2, 4 or 8 with 32·W >= row16 (the row in
+// passes of 32·W words beyond that). At D 768 bf16 (96 words, W 4, three
+// live) path (d)'s call is 1536 warps with no idle lane, in blocks of four
+// warps, one wave. The wrapper's plan (ops/cache_reorder.py::
+// slot_write_plan) chooses warps, W and the grid; the C entry refuses a
+// plan that is not its own layout's. On the H100 the call takes the
+// launch's floor (the empty kernel on the same grid), then the loads'
+// round trip, then the stores, whichever way the grid is cut
+// (scripts/torch_cache_kernel_sweep.py: a warp a K|V row looping over the
+// items, a warp a (layer, row), a block a (layer, row); blocks of 1-8
+// warps); the layer on the grid's y axis was the fastest of these.
 //
 // K4 copy_forked_rows_bounded replaces
 // capdec_tpu/ops/cache_reorder.py::copy_forked_rows_bounded (:210,
 // pallas_call :237): row b <- row src[b] over slots < count, only where
-// src[b] != b. Bound: bytes, 2·forks·L·count·D·itemsize each way, which
-// depends on how many beams forked this step. One block per (row, layer):
-// a row that kept its lane exits at once, so surviving beams move nothing.
-// The lane assignment guarantees a written row is never a source
-// (decode/beam.py _assign_lanes), so blocks may run in any order in place.
+// src[b] != b. Bound: bytes, each source row's slots < count read once and
+// each forked row's written once (2·(sources + forks)·L·count·D·itemsize),
+// which depends on how the beams forked this step. The lane assignment
+// guarantees a written row is never a source (decode/beam.py
+// _assign_lanes), so items may run in any order in place, and a source is
+// read-only for the kernel's life (ld.global.nc). A (row, layer) K or V
+// slab is count·row16 contiguous 16-byte words. The grid is cut by bytes:
+// one warp takes one item (row, layer, K|V, tile of 32·W words of the
+// slab), tile fastest; a lane issues its W loads before any store, and an
+// item of a row that kept its lane exits at once. Forks are read
+// fork-major: each fork's items read its source's tile, and the forks of
+// one source (an image's lanes, neighbouring rows) run close enough that
+// the second read comes from the L2 (scripts/torch_cache_kernel_sweep.py
+// on the H100: at B 320 the 734.8 MB the bound counts move in 0.2530 ms,
+// 2.90 TB/s, where reading each source once per fork from HBM would take
+// 3.69 TB/s, above the HBM's rate). A source-major order (a warp an
+// image's 5 rows, each distinct source's tile loaded once and stored to
+// each of its forks) was slower at every shape timed, one image to B 2560
+// (0.2555 ms at B 320), and needs a scan and a grouping of the rows; the
+// fork-major one takes any src. W = 4 (kForkWords) was the best of 1, 2,
+// 4 and 8 at one image, a tp=2 rank and B 2560 and within 0.1% of W 2 at
+// B 320. Its parent ran one
+// 256-thread block a (row, layer): it could not fill the card at one image
+// (60 blocks, 36 with work, on 132 SMs), each thread with one word in
+// flight (a store to k came before the next load from v, which may
+// alias).
 //
 // K5 write_gen_slot_q replaces
 // capdec_tpu/ops/cache_reorder.py::write_gen_slot_chunk_q (:413, body
@@ -97,22 +134,27 @@
 
 namespace capdec {
 
-// K13's sources, by value: layer l's K rows start at k[l], row b at
-// k[l] + b·k_row16[l] 16-byte words (likewise v).
-constexpr int kSeqMaxLayers = 64;
-constexpr int kSeqMaxWarps = 8;
-struct SeqmajorSources {
-  const uint4* k[kSeqMaxLayers];
-  const uint4* v[kSeqMaxLayers];
-  int k_row16[kSeqMaxLayers];
-  int v_row16[kSeqMaxLayers];
+// The sources of K3, K13 and K14, by value: layer l's K rows start at
+// k[l], row b at k[l] + b·k_row16[l] 16-byte words (likewise v).
+constexpr int kSlotMaxLayers = 64;
+constexpr int kSlotMaxWarps = 8;
+struct LayerSources {
+  const uint4* k[kSlotMaxLayers];
+  const uint4* v[kSlotMaxLayers];
+  int k_row16[kSlotMaxLayers];
+  int v_row16[kSlotMaxLayers];
 };
 
 // The words a lane holds for a row of row16 16-byte words: the least of
 // 1, 2, 4, 8 with 32·W >= row16, else 8 (the row in passes).
-constexpr int seq_words(long row16) {
+constexpr int slot_words(long row16) {
   return row16 <= 32 ? 1 : row16 <= 64 ? 2 : row16 <= 128 ? 4 : 8;
 }
+
+// K4: the warps of a block, and the 16-byte words a lane holds
+// (ops/cache_reorder.py FORK_W).
+constexpr int kForkWarps = 4;
+constexpr int kForkWords = 4;
 
 namespace {
 
@@ -140,66 +182,62 @@ __device__ __forceinline__ unsigned level_fma(float x, float s, float inv) {
   return __float_as_uint(fminf(fmaxf(y, -127.f), 127.f) + kMagic) & 0xffu;
 }
 
-__global__ void write_gen_slot(uint4* __restrict__ k, uint4* __restrict__ v,
-                               const uint4* __restrict__ nk,
-                               const uint4* __restrict__ nv, int E, int step,
-                               long row16) {
-  const size_t bl = blockIdx.x;  // (row, layer) pair
-  uint4* kd = k + (bl * E + step) * row16;
-  uint4* vd = v + (bl * E + step) * row16;
-  const uint4* ks = nk + bl * row16;
-  const uint4* vs = nv + bl * row16;
-  for (long i = threadIdx.x; i < row16; i += blockDim.x) {
-    kd[i] = ks[i];
-    vd[i] = vs[i];
+// K3/K14 (kRowMajor: caches [B, L, E, D]) and K13 ([L, B, E, D]): warp
+// j of layer blockIdx.y takes row j >> 1 of that layer's K (j even) or V.
+template <int W, bool kRowMajor>
+__global__ void __launch_bounds__(kSlotMaxWarps * 32)
+write_gen_slot_views(uint4* __restrict__ k, uint4* __restrict__ v,
+                     const __grid_constant__ LayerSources src, int L, int B,
+                     int E, int step, int row16) {
+  const int l = blockIdx.y;
+  const int j = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (j >= 2 * B) return;
+  const int b = j >> 1, lane = threadIdx.x & 31;
+  const bool is_v = j & 1;
+  const uint4* s = is_v ? src.v[l] + (size_t)b * src.v_row16[l]
+                        : src.k[l] + (size_t)b * src.k_row16[l];
+  const size_t slot_row = kRowMajor ? (size_t)b * L + l : (size_t)l * B + b;
+  uint4* d = (is_v ? v : k) + (slot_row * E + step) * row16;
+  for (int base = lane; base < row16; base += 32 * W) {
+    uint4 w[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      if (base + 32 * c < row16) w[c] = __ldg(s + base + 32 * c);
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      if (base + 32 * c < row16) d[base + 32 * c] = w[c];
   }
 }
 
-template <int W>
-__global__ void __launch_bounds__(kSeqMaxWarps * 32)
-write_gen_slot_seqmajor(uint4* __restrict__ k, uint4* __restrict__ v,
-                        const __grid_constant__ SeqmajorSources src, int B,
-                        int E, int step, int row16, int items) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * (blockDim.x >> 5);
-  for (int it = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-       it < items; it += warps) {
-    const int row = it >> 1;  // l·B + b
-    const int l = row / B, b = row - l * B;
-    const bool is_v = it & 1;
-    const uint4* s = is_v ? src.v[l] + (size_t)b * src.v_row16[l]
-                          : src.k[l] + (size_t)b * src.k_row16[l];
-    uint4* d = (is_v ? v : k) + ((size_t)row * E + step) * row16;
-    for (int base = lane; base < row16; base += 32 * W) {
-      uint4 w[W];
-#pragma unroll
-      for (int c = 0; c < W; ++c)
-        if (base + 32 * c < row16) w[c] = __ldg(s + base + 32 * c);
-#pragma unroll
-      for (int c = 0; c < W; ++c)
-        if (base + 32 * c < row16) d[base + 32 * c] = w[c];
-    }
-  }
-}
-
-// The floor of a launch on K13's grid: a kernel that does nothing,
-// timed beside K13 (chip_smoke.py, scripts/torch_slot_write_steps.py).
+// The floor of a launch on a grid: a kernel that does nothing, timed
+// beside K3, K4 and K13 (chip_smoke.py, scripts/torch_slot_write_steps.py,
+// scripts/torch_fork_copy_steps.py).
 __global__ void empty_grid() {}
 
-__global__ void copy_forked_rows_bounded(uint4* k, uint4* v,
-                                         const int64_t* __restrict__ src,
-                                         int L, int E, int count,
-                                         long row16) {
-  const int b = blockIdx.x, l = blockIdx.y;
+// K4 on items * 32 lanes; slab16 = count·row16 words, tiles of 32·W.
+template <int W>
+__global__ void __launch_bounds__(kForkWarps * 32)
+copy_forked_rows_bounded(uint4* __restrict__ k, uint4* __restrict__ v,
+                         const int64_t* __restrict__ src, int L, int E,
+                         long row16, long slab16, long tiles, long items) {
+  const long it = (long)blockIdx.x * kForkWarps + (threadIdx.x >> 5);
+  if (it >= items) return;
+  const long tile = it % tiles, rest = it / tiles;
+  const long b = (rest >> 1) / L;
   const int64_t s = src[b];
-  if (s == b) return;
-  const size_t dst = ((size_t)b * L + l) * E * row16;
-  const size_t from = ((size_t)s * L + l) * E * row16;
-  const size_t n = (size_t)count * row16;
-  for (size_t i = threadIdx.x; i < n; i += blockDim.x) {
-    k[dst + i] = k[from + i];
-    v[dst + i] = v[from + i];
-  }
+  if (s == b) return;  // the row kept its lane: nothing moves
+  const long w0 = tile * 32 * W + (threadIdx.x & 31);  // the lane's word
+  const long slab = ((rest >> 1) % L) * E * row16 + w0;
+  uint4* cache = (rest & 1) ? v : k;
+  const uint4* from = cache + s * L * E * row16 + slab;
+  uint4* to = cache + b * L * E * row16 + slab;
+  uint4 w[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c)
+    if (w0 + 32 * c < slab16) w[c] = __ldg(from + 32 * c);
+#pragma unroll
+  for (int c = 0; c < W; ++c)
+    if (w0 + 32 * c < slab16) to[32 * c] = w[c];
 }
 
 // K5: the threads of a block, and the 8-value units a lane holds: U = 4
@@ -328,55 +366,65 @@ __global__ void copy_forked_rows(uint4* k, uint4* v,
   }
 }
 
-}  // namespace
-}  // namespace capdec
-
-extern "C" int capdec_write_gen_slot(void* k, void* v, const void* nk,
-                                     const void* nv, int B, int L, int E,
-                                     int step, long row_bytes,
-                                     cudaStream_t stream) {
-  capdec::write_gen_slot<<<B * L, 128, 0, stream>>>(
-      static_cast<uint4*>(k), static_cast<uint4*>(v),
-      static_cast<const uint4*>(nk), static_cast<const uint4*>(nv), E, step,
-      row_bytes / 16);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K13 on the plan's grid: `blocks` blocks of `warps` warps, `words`
-// 16-byte words a lane (the plan must be this layout's).
-extern "C" int capdec_write_gen_slot_seqmajor(
-    void* k, void* v, const capdec::SeqmajorSources* src, int L, int B,
-    int E, int step, long row_bytes, int warps, int words, int blocks,
-    cudaStream_t stream) {
+// K3/K14 (kRowMajor) or K13 on the plan's grid: `blocks` blocks of `warps`
+// warps for each of the L layers (grid.y), `words` 16-byte words a lane
+// (the plan must be this layout's).
+template <bool kRowMajor>
+int launch_slot_write(void* k, void* v, const LayerSources* src, int L,
+                      int B, int E, int step, long row_bytes, int warps,
+                      int words, int blocks, cudaStream_t stream) {
   const long row16 = row_bytes / 16;
-  const long items = 2L * L * B;
-  if (L < 1 || L > capdec::kSeqMaxLayers || B < 1 || row_bytes % 16 ||
-      row16 < 1 || row16 > INT_MAX || items > INT_MAX || step < 0 ||
-      step >= E || warps < 1 || warps > capdec::kSeqMaxWarps ||
-      blocks < 1 || words != capdec::seq_words(row16))
+  if (L < 1 || L > kSlotMaxLayers || B < 1 || B > INT_MAX / 2 ||
+      row_bytes % 16 || row16 < 1 || row16 > INT_MAX || step < 0 ||
+      step >= E || warps < 1 || warps > kSlotMaxWarps ||
+      blocks != (2L * B + warps - 1) / warps || words != slot_words(row16))
     return static_cast<int>(cudaErrorInvalidValue);
   uint4* k4 = static_cast<uint4*>(k);
   uint4* v4 = static_cast<uint4*>(v);
-  const dim3 grid(blocks), block(32 * warps);
-  const int r = (int)row16, n = (int)items;
+  const dim3 grid(blocks, L), block(32 * warps);
+  const int r = (int)row16;
   switch (words) {
     case 1:
-      capdec::write_gen_slot_seqmajor<1><<<grid, block, 0, stream>>>(
-          k4, v4, *src, B, E, step, r, n);
+      write_gen_slot_views<1, kRowMajor><<<grid, block, 0, stream>>>(
+          k4, v4, *src, L, B, E, step, r);
       break;
     case 2:
-      capdec::write_gen_slot_seqmajor<2><<<grid, block, 0, stream>>>(
-          k4, v4, *src, B, E, step, r, n);
+      write_gen_slot_views<2, kRowMajor><<<grid, block, 0, stream>>>(
+          k4, v4, *src, L, B, E, step, r);
       break;
     case 4:
-      capdec::write_gen_slot_seqmajor<4><<<grid, block, 0, stream>>>(
-          k4, v4, *src, B, E, step, r, n);
+      write_gen_slot_views<4, kRowMajor><<<grid, block, 0, stream>>>(
+          k4, v4, *src, L, B, E, step, r);
       break;
     default:
-      capdec::write_gen_slot_seqmajor<8><<<grid, block, 0, stream>>>(
-          k4, v4, *src, B, E, step, r, n);
+      write_gen_slot_views<8, kRowMajor><<<grid, block, 0, stream>>>(
+          k4, v4, *src, L, B, E, step, r);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace capdec
+
+// K3 and K14: slot `step` of the row-major caches [B, L, E, D].
+extern "C" int capdec_write_gen_slot(void* k, void* v,
+                                     const capdec::LayerSources* src, int L,
+                                     int B, int E, int step, long row_bytes,
+                                     int warps, int words, int blocks,
+                                     cudaStream_t stream) {
+  return capdec::launch_slot_write<true>(k, v, src, L, B, E, step,
+                                         row_bytes, warps, words, blocks,
+                                         stream);
+}
+
+// K13: slot `step` of the seq-major caches [L, B, E, D].
+extern "C" int capdec_write_gen_slot_seqmajor(
+    void* k, void* v, const capdec::LayerSources* src, int L, int B, int E,
+    int step, long row_bytes, int warps, int words, int blocks,
+    cudaStream_t stream) {
+  return capdec::launch_slot_write<false>(k, v, src, L, B, E, step,
+                                          row_bytes, warps, words, blocks,
+                                          stream);
 }
 
 // The empty kernel on `blocks` blocks of `threads`.
@@ -386,14 +434,27 @@ extern "C" int capdec_empty_grid(int blocks, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4 on the plan's grid: `blocks` blocks of kForkWarps warps, one warp an
+// item of kForkWords words a lane.
 extern "C" int capdec_copy_forked_rows_bounded(void* k, void* v,
                                                const int64_t* src, int B,
                                                int L, int E, int count,
-                                               long row_bytes,
+                                               long row_bytes, int blocks,
                                                cudaStream_t stream) {
-  capdec::copy_forked_rows_bounded<<<dim3(B, L), 256, 0, stream>>>(
-      static_cast<uint4*>(k), static_cast<uint4*>(v), src, L, E, count,
-      row_bytes / 16);
+  constexpr int W = capdec::kForkWords;
+  const long row16 = row_bytes / 16;
+  if (B < 1 || L < 1 || count < 1 || count > E || row_bytes % 16 ||
+      row16 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long slab16 = (long)count * row16;
+  const long tiles = (slab16 + 32L * W - 1) / (32L * W);
+  const long items = 2L * B * L * tiles;
+  if ((items + capdec::kForkWarps - 1) / capdec::kForkWarps != blocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  capdec::copy_forked_rows_bounded<W>
+      <<<blocks, 32 * capdec::kForkWarps, 0, stream>>>(
+          static_cast<uint4*>(k), static_cast<uint4*>(v), src, L, E, row16,
+          slab16, tiles, items);
   return static_cast<int>(cudaGetLastError());
 }
 

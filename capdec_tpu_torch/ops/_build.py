@@ -33,16 +33,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 
-# K13's parameter struct (csrc/cache_reorder.cu SeqmajorSources), passed by
-# pointer and copied by value into the launch: each layer's K and V base
-# pointers and row strides in 16-byte words.
-SEQ_MAX_LAYERS = 64
+# The parameter struct of K3, K13 and K14 (csrc/cache_reorder.cu
+# LayerSources), passed by pointer and copied by value into the launch:
+# each layer's K and V base pointers and row strides in 16-byte words.
+SLOT_MAX_LAYERS = 64
 
 
-class SeqmajorSources(ctypes.Structure):
-    _fields_ = [("k", P * SEQ_MAX_LAYERS), ("v", P * SEQ_MAX_LAYERS),
-                ("k_row16", I * SEQ_MAX_LAYERS),
-                ("v_row16", I * SEQ_MAX_LAYERS)]
+class LayerSources(ctypes.Structure):
+    _fields_ = [("k", P * SLOT_MAX_LAYERS), ("v", P * SLOT_MAX_LAYERS),
+                ("k_row16", I * SLOT_MAX_LAYERS),
+                ("v_row16", I * SLOT_MAX_LAYERS)]
 
 
 # C entry -> argument types (pointers and the stream as c_void_p)
@@ -51,8 +51,9 @@ SIGNATURES = {
         [P, P, I, I, I, I, I, *[P] * 7, I, I, I, I, I, I, P],
     "capdec_beam_decode_attention_rowmajor":
         [P, P, P, L, *[P] * 5, *[I] * 14, P],
-    "capdec_write_gen_slot": [P, P, P, P, I, I, I, I, L, P],
-    "capdec_copy_forked_rows_bounded": [P, P, P, I, I, I, I, L, P],
+    "capdec_write_gen_slot":
+        [P, P, ctypes.POINTER(LayerSources), I, I, I, I, L, I, I, I, P],
+    "capdec_copy_forked_rows_bounded": [P, P, P, I, I, I, I, L, I, P],
     "capdec_write_gen_slot_q": [*[P] * 6, *[I] * 8, P],
     "capdec_beam_decode_attention_rowmajor_q":
         [P, P, P, L, *[P] * 7, *[I] * 14, P],
@@ -62,7 +63,7 @@ SIGNATURES = {
     "capdec_beam_decode_attention_chunked_q":
         [P, P, P, L, *[P] * 9, *[I] * 14, P],
     "capdec_write_gen_slot_seqmajor":
-        [P, P, ctypes.POINTER(SeqmajorSources), I, I, I, I, L, I, I, I, P],
+        [P, P, ctypes.POINTER(LayerSources), I, I, I, I, L, I, I, I, P],
     "capdec_empty_grid": [I, I, P],
     "capdec_gather_rows": [P, P, P, P, P, I, I, I, L, L, P],
     "capdec_beam_decode_attention": [P, P, P, L, *[P] * 5, *[I] * 14, P],

@@ -2,11 +2,11 @@
 capdec_tpu/ops/cache_reorder.py):
   * in place, as the JAX versions alias their buffers: K3
     `write_gen_slot_chunk` and K14 `write_gen_slot` (one slot of the
-    row-major cache [B, L, E, D]), K4 `copy_forked_rows_bounded`, K5
-    `write_gen_slot_chunk_q` (int8, with `absmax_int8_quant`), K7
-    `copy_forked_rows`, and K13 `write_gen_slot_chunk_seqmajor` (the
-    seq-major cache [L, B, E, D], from per-layer views of the step's
-    K/V);
+    row-major cache [B, L, E, D]) and K13 `write_gen_slot_chunk_seqmajor`
+    (the seq-major cache [L, B, E, D]), each from per-layer views of the
+    step's K/V; K4 `copy_forked_rows_bounded`, K5
+    `write_gen_slot_chunk_q` (int8, with `absmax_int8_quant`) and K7
+    `copy_forked_rows`;
   * out of place, into output caches that must not overlap the input: the
     row gathers K10 `reorder_rows_leading` (row-major), K11
     `reorder_cache_rows` and K12 `reorder_cache_rows_bounded` (seq-major,
@@ -72,63 +72,20 @@ def absmax_int8_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
-def write_gen_slot_chunk_plain(k: torch.Tensor, v: torch.Tensor,
-                               new_k: torch.Tensor, new_v: torch.Tensor,
-                               step: int) -> Dict[str, torch.Tensor]:
-    """Plain PyTorch version: cache[:, :, step] = new (in place)."""
-    k[:, :, step] = new_k
-    v[:, :, step] = new_v
+def _stacked(new, dim):
+    """new_k/new_v of a slot write as one tensor: a tensor as it is, a
+    sequence of L per-layer [B, D] tensors stacked on `dim` (1 for the
+    row-major [B, L, D], 0 for the seq-major [L, B, D])."""
+    return new if torch.is_tensor(new) else torch.stack(list(new), dim=dim)
+
+
+def write_gen_slot_chunk_plain(k: torch.Tensor, v: torch.Tensor, new_k,
+                               new_v, step: int) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version: cache[:, :, step] = new (in place), new_k/
+    new_v each [B, L, D] or a sequence of L [B, D] (stacked first)."""
+    k[:, :, step] = _stacked(new_k, 1)
+    v[:, :, step] = _stacked(new_v, 1)
     return {"k": k, "v": v}
-
-
-def _check_slot_write(k, v, new_k, new_v, step, name):
-    """Validate a byte-moving slot write (K3, K14) on CUDA tensors:
-    new_k/new_v are [k.shape[0], k.shape[1], D] of the cache's dtype.
-    Returns the bytes of one slot row."""
-    row_bytes = _check_cache(k, v, name)
-    A, C, E, D = k.shape
-    for n in (new_k, new_v):
-        if n.shape != (A, C, D) or n.dtype != k.dtype or \
-                n.device != k.device or not n.is_contiguous() or \
-                n.data_ptr() % 16:
-            raise ValueError(f"{name}: new_k/new_v must be contiguous "
-                             f"{[A, C, D]} of the cache's dtype")
-    if not 0 <= step < E:
-        raise ValueError(f"{name}: step {step} out of range for E={E}")
-    return row_bytes
-
-
-def _write_slot_rowmajor(k, v, new_k, new_v, step, name):
-    """Launch K3's kernel (the C entry of K3 and K14) on CUDA tensors."""
-    row_bytes = _check_slot_write(k, v, new_k, new_v, step, name)
-    B, L, E, D = k.shape
-    lib = _build.library()
-    _build.check(lib.capdec_write_gen_slot(
-        k.data_ptr(), v.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-        B, L, E, step, row_bytes, _build.stream(k.device)), name)
-    return {"k": k, "v": v}
-
-
-def write_gen_slot_chunk(k: torch.Tensor, v: torch.Tensor,
-                         new_k: torch.Tensor, new_v: torch.Tensor,
-                         step: int) -> Dict[str, torch.Tensor]:
-    """Write the step's K/V new_k/new_v [B, L, D] into slot `step` of the
-    row-major caches k/v [B, L, E, D], in place."""
-    if _build.on_cpu(k):
-        return write_gen_slot_chunk_plain(k, v, new_k, new_v, step)
-    out = _write_slot_rowmajor(k, v, new_k, new_v, step,
-                               "write_gen_slot_chunk")
-    write_gen_slot_chunk.launches += 1
-    return out
-
-
-write_gen_slot_chunk.launches = 0
-
-
-def _stacked(new):
-    """new_k/new_v of K13 as [L, B, D]: a tensor as it is, a sequence of
-    L [B, D] tensors stacked."""
-    return new if torch.is_tensor(new) else torch.stack(list(new))
 
 
 def write_gen_slot_chunk_seqmajor_plain(k: torch.Tensor, v: torch.Tensor,
@@ -137,23 +94,24 @@ def write_gen_slot_chunk_seqmajor_plain(k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version: slot `step` of k/v [L, B, E, D] takes
     new_k/new_v, each [L, B, D] or a sequence of L [B, D] (stacked first),
     in place."""
-    return write_gen_slot_chunk_plain(k, v, _stacked(new_k), _stacked(new_v),
-                                      step)
+    return write_gen_slot_chunk_plain(k, v, _stacked(new_k, 0),
+                                      _stacked(new_v, 0), step)
 
 
-# The launch plan of K13 (csrc/cache_reorder.cu write_gen_slot_seqmajor):
-# one warp a (layer, row, K|V) item, a lane holding `words` of the row's
-# 16-byte words (the least of SEQ_WORDS with 32 words >= the row's words;
-# a longer row goes in passes), in blocks of SEQ_WARPS warps, or of fewer
-# where SEQ_WARPS would leave SMs without a block.
-SEQ_WARPS = 4
-SEQ_WORDS = (1, 2, 4, 8)
+# The launch plan of K3, K13 and K14 (csrc/cache_reorder.cu
+# write_gen_slot_views): one warp a (layer, row, K|V) item, a lane holding
+# `words` of the row's 16-byte words (the least of SLOT_WORDS with 32 words
+# >= the row's words; a longer row goes in passes), in blocks of SLOT_WARPS
+# warps, or of fewer where SLOT_WARPS would leave SMs without a block; a
+# layer's 2 B items on `layer_blocks` blocks, the layers on the grid's y.
+SLOT_WARPS = 4
+SLOT_WORDS = (1, 2, 4, 8)
 
 
-def seqmajor_write_plan(L: int, B: int, D: int, itemsize: int,
-                        sms: int) -> dict:
-    """K13's launch for L layers of B rows of D values of `itemsize`
-    bytes on a card of `sms` SMs: `blocks` of `warps` warps (`threads`
+def slot_write_plan(L: int, B: int, D: int, itemsize: int, sms: int) -> dict:
+    """The slot write's launch for L layers of B rows of D values of
+    `itemsize` bytes on a card of `sms` SMs, either layout: `layer_blocks`
+    blocks for each layer (`blocks` in all) of `warps` warps (`threads`
     threads), `words` 16-byte words a lane in `passes` passes over a row,
     one warp for each of the 2 L B items. Raises for a shape the kernel
     does not take."""
@@ -161,30 +119,32 @@ def seqmajor_write_plan(L: int, B: int, D: int, itemsize: int,
     if row_bytes <= 0 or row_bytes % 16:
         raise ValueError(f"the kernel moves 16-byte words: D * itemsize % "
                          f"16 == 0, got {D} * {itemsize}")
-    if not 1 <= L <= _build.SEQ_MAX_LAYERS or B < 1:
+    if not 1 <= L <= _build.SLOT_MAX_LAYERS or B < 1:
         raise ValueError(f"the kernel takes 1 <= L <= "
-                         f"{_build.SEQ_MAX_LAYERS} layers and B >= 1 rows, "
+                         f"{_build.SLOT_MAX_LAYERS} layers and B >= 1 rows, "
                          f"got L={L}, B={B}")
     row16 = row_bytes // 16
-    words = next((w for w in SEQ_WORDS if 32 * w >= row16), SEQ_WORDS[-1])
-    items = 2 * L * B
-    warps = SEQ_WARPS
-    while warps > 1 and -(-items // warps) < sms:
+    words = next((w for w in SLOT_WORDS if 32 * w >= row16), SLOT_WORDS[-1])
+    warps = SLOT_WARPS
+    while warps > 1 and L * -(-2 * B // warps) < sms:
         warps //= 2
+    layer_blocks = -(-2 * B // warps)
     return dict(warps=warps, threads=32 * warps, words=words,
-                blocks=-(-items // warps), items=items, row16=row16,
+                layer_blocks=layer_blocks, blocks=L * layer_blocks,
+                items=2 * L * B, row16=row16,
                 passes=-(-row16 // (32 * words)))
 
 
-def _layer_views(new, k, v, name):
+def _layer_views(new, k, v, L, B, axis, name):
     """The base pointers and row strides (16-byte words) of the L [B, D]
-    views K13 reads for new_k or new_v: a sequence of L tensors, or a
-    tensor [L, B, D] read as its rows. Each view has the cache's dtype and
-    device, a contiguous last dimension, a 16-byte aligned base, a row
-    stride of at least D values and a multiple of 16 bytes (B > 1), and
-    does not overlap k or v."""
-    L, B, E, D = k.shape
-    views = new.unbind(0) if torch.is_tensor(new) else tuple(new)
+    views a slot write reads for new_k or new_v: a sequence of L tensors,
+    or a tensor read as its rows along `axis` (0 for [L, B, D], 1 for
+    [B, L, D]). Each view has the cache's dtype and device, a contiguous
+    last dimension, a 16-byte aligned base, a row stride of at least D
+    values and a multiple of 16 bytes (B > 1), and does not overlap k or
+    v."""
+    D = k.shape[3]
+    views = new.unbind(axis) if torch.is_tensor(new) else tuple(new)
     if len(views) != L:
         raise ValueError(f"{name}: new_k/new_v must hold {L} layers, got "
                          f"{len(views)}")
@@ -214,6 +174,51 @@ def _layer_views(new, k, v, name):
     return ptrs, rows
 
 
+def _write_slot_views(k, v, new_k, new_v, step, name, rowmajor):
+    """Launch the slot write on CUDA tensors: K3's C entry (K3 and K14)
+    for the row-major caches [B, L, E, D], K13's for the seq-major
+    [L, B, E, D]."""
+    row_bytes = _check_cache(k, v, name)
+    A, C, E, D = k.shape
+    L, B = (C, A) if rowmajor else (A, C)
+    if L > _build.SLOT_MAX_LAYERS:
+        raise ValueError(f"{name}: at most {_build.SLOT_MAX_LAYERS} layers, "
+                         f"got {L}")
+    if not 0 <= step < E:
+        raise ValueError(f"{name}: step {step} out of range for E={E}")
+    axis = 1 if rowmajor else 0
+    src = _build.LayerSources()
+    src.k[:L], src.k_row16[:L] = _layer_views(new_k, k, v, L, B, axis, name)
+    src.v[:L], src.v_row16[:L] = _layer_views(new_v, k, v, L, B, axis, name)
+    plan = slot_write_plan(L, B, D, k.element_size(),
+                           _build.sm_count(k.device))
+    lib = _build.library()
+    entry = (lib.capdec_write_gen_slot if rowmajor
+             else lib.capdec_write_gen_slot_seqmajor)
+    _build.check(entry(k.data_ptr(), v.data_ptr(), src, L, B, E, step,
+                       row_bytes, plan["warps"], plan["words"],
+                       plan["layer_blocks"], _build.stream(k.device)), name)
+    return {"k": k, "v": v}
+
+
+def write_gen_slot_chunk(k: torch.Tensor, v: torch.Tensor, new_k, new_v,
+                         step: int) -> Dict[str, torch.Tensor]:
+    """Write the step's K/V into slot `step` of the row-major caches k/v
+    [B, L, E, D], in place. Each of new_k/new_v is a sequence of L [B, D]
+    views (decode_step's per-layer thirds of its qkv outputs, read where
+    they lie) or a tensor [B, L, D] (the JAX signature), read as its L
+    strided [B, D] views; one launch either way."""
+    if _build.on_cpu(k):
+        return write_gen_slot_chunk_plain(k, v, new_k, new_v, step)
+    out = _write_slot_views(k, v, new_k, new_v, step,
+                            "write_gen_slot_chunk", rowmajor=True)
+    write_gen_slot_chunk.launches += 1
+    return out
+
+
+write_gen_slot_chunk.launches = 0
+
+
 def write_gen_slot_chunk_seqmajor(k: torch.Tensor, v: torch.Tensor,
                                   new_k, new_v, step: int
                                   ) -> Dict[str, torch.Tensor]:
@@ -224,26 +229,10 @@ def write_gen_slot_chunk_seqmajor(k: torch.Tensor, v: torch.Tensor,
     (the JAX signature), read as its L rows; one launch either way."""
     if _build.on_cpu(k):
         return write_gen_slot_chunk_seqmajor_plain(k, v, new_k, new_v, step)
-    name = "write_gen_slot_chunk_seqmajor"
-    row_bytes = _check_cache(k, v, name)
-    L, B, E, D = k.shape
-    if L > _build.SEQ_MAX_LAYERS:
-        raise ValueError(f"{name}: at most {_build.SEQ_MAX_LAYERS} layers, "
-                         f"got {L}")
-    if not 0 <= step < E:
-        raise ValueError(f"{name}: step {step} out of range for E={E}")
-    src = _build.SeqmajorSources()
-    src.k[:L], src.k_row16[:L] = _layer_views(new_k, k, v, name)
-    src.v[:L], src.v_row16[:L] = _layer_views(new_v, k, v, name)
-    plan = seqmajor_write_plan(L, B, D, k.element_size(),
-                               _build.sm_count(k.device))
-    lib = _build.library()
-    _build.check(lib.capdec_write_gen_slot_seqmajor(
-        k.data_ptr(), v.data_ptr(), src, L, B, E, step, row_bytes,
-        plan["warps"], plan["words"], plan["blocks"],
-        _build.stream(k.device)), name)
+    out = _write_slot_views(k, v, new_k, new_v, step,
+                            "write_gen_slot_chunk_seqmajor", rowmajor=False)
     write_gen_slot_chunk_seqmajor.launches += 1
-    return {"k": k, "v": v}
+    return out
 
 
 write_gen_slot_chunk_seqmajor.launches = 0
@@ -253,15 +242,16 @@ write_gen_slot_chunk_seqmajor.launches = 0
 write_gen_slot_plain = write_gen_slot_chunk_plain
 
 
-def write_gen_slot(k: torch.Tensor, v: torch.Tensor, new_k: torch.Tensor,
-                   new_v: torch.Tensor, step: int) -> Dict[str, torch.Tensor]:
+def write_gen_slot(k: torch.Tensor, v: torch.Tensor, new_k, new_v,
+                   step: int) -> Dict[str, torch.Tensor]:
     """`write_gen_slot_chunk` by the other route of the JAX engine
     (`BeamConfig.pallas_slot_write`): the same one-slot update of the
-    row-major caches k/v [B, L, E, D] by new_k/new_v [B, L, D], in place,
-    with a launch count of its own."""
+    row-major caches k/v [B, L, E, D] by new_k/new_v (L [B, D] views or
+    [B, L, D]), in place, with a launch count of its own."""
     if _build.on_cpu(k):
         return write_gen_slot_plain(k, v, new_k, new_v, step)
-    out = _write_slot_rowmajor(k, v, new_k, new_v, step, "write_gen_slot")
+    out = _write_slot_views(k, v, new_k, new_v, step, "write_gen_slot",
+                            rowmajor=True)
     write_gen_slot.launches += 1
     return out
 
@@ -362,6 +352,36 @@ def copy_forked_rows_bounded_plain(k: torch.Tensor, v: torch.Tensor,
     return {"k": k, "v": v}
 
 
+# The launch plan of K4 (csrc/cache_reorder.cu copy_forked_rows_bounded):
+# one warp an item (row, layer, K|V, tile of the slots < count) in blocks
+# of FORK_WARPS warps; a tile is 32 FORK_W 16-byte words, the kernel's
+# kForkWords (the best W on the H100 at the served shapes:
+# scripts/torch_cache_kernel_sweep.py).
+FORK_WARPS = 4
+FORK_W = 4
+
+
+def fork_copy_plan(B: int, L: int, count: int, row_bytes: int) -> dict:
+    """K4's launch for caches of B rows and L layers, slots < count of
+    `row_bytes` each: `tiles` tiles of 32 `words` 16-byte words over a
+    (row, layer) slab of `slab16` words, `items` warps (2 B L tiles) in
+    `blocks` blocks of `warps`. Raises for a shape the kernel does not
+    take."""
+    if row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"the kernel moves 16-byte words: a slot row of "
+                         f"{row_bytes} bytes is not a multiple of 16")
+    if B < 1 or L < 1 or count < 1:
+        raise ValueError(f"the kernel takes B, L and count >= 1, got B={B}, "
+                         f"L={L}, count={count}")
+    row16 = row_bytes // 16
+    slab16 = count * row16
+    tiles = -(-slab16 // (32 * FORK_W))
+    items = 2 * B * L * tiles
+    return dict(words=FORK_W, row16=row16, slab16=slab16, tiles=tiles,
+                items=items, warps=FORK_WARPS, threads=32 * FORK_WARPS,
+                blocks=-(-items // FORK_WARPS))
+
+
 def copy_forked_rows_bounded(k: torch.Tensor, v: torch.Tensor,
                              src: torch.Tensor, count: int
                              ) -> Dict[str, torch.Tensor]:
@@ -369,7 +389,7 @@ def copy_forked_rows_bounded(k: torch.Tensor, v: torch.Tensor,
     [B, L, E, D] takes row src[b]'s slots < count, only where
     src[b] != b. Requires the lane invariant (a row that is written is
     never a source). Slots >= count of a forked row keep stale bits; decode
-    attention never reads them."""
+    attention never reads them. No launch for count 0: nothing moves."""
     if _build.on_cpu(k):
         return copy_forked_rows_bounded_plain(k, v, src, count)
     row_bytes = _check_cache(k, v, "copy_forked_rows_bounded")
@@ -377,10 +397,14 @@ def copy_forked_rows_bounded(k: torch.Tensor, v: torch.Tensor,
     _check_src(src, k)
     if not 0 <= count <= E:
         raise ValueError(f"count {count} out of range for E={E}")
+    if count == 0:
+        return {"k": k, "v": v}
+    plan = fork_copy_plan(B, L, count, row_bytes)
     lib = _build.library()
     _build.check(lib.capdec_copy_forked_rows_bounded(
         k.data_ptr(), v.data_ptr(), src.data_ptr(), B, L, E, count,
-        row_bytes, _build.stream(k.device)), "copy_forked_rows_bounded")
+        row_bytes, plan["blocks"], _build.stream(k.device)),
+        "copy_forked_rows_bounded")
     copy_forked_rows_bounded.launches += 1
     return {"k": k, "v": v}
 

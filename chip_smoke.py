@@ -18,11 +18,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (the least time the card could take). The slot writes K3, K5, K13
      and K14 are timed over inputs and slots rotated through more than
      twice the L2, so that they read device memory as their bound
-     assumes (K5's and K13's four instances each must build without
-     spills); K13 is checked and timed from the per-layer views of qkv
-     buffers, as decode_step hands them over (and checked from [L, B, D]
-     tensors), beside the empty kernel on its grid, the floor of one
-     launch, and the library route (torch.stack, then index_copy_); K2, K6, K8,
+     assumes (K5's four instances, the eight of K3/K13/K14's kernel and
+     K4's one must build without spills); K3, K13 and K14 are
+     checked and timed from the per-layer views of qkv buffers, as
+     decode_step hands them over (and checked from stacked tensors),
+     beside the empty kernel on the grid, the floor of one launch, and
+     the library route (torch.stack, then index_copy_); K4 beside the
+     empty kernel on its grid, also checked on sources that cross
+     images; K2, K6, K8,
      K9 and K15 (one kernel, decode_attention_async.cu, whose 24
      instances must build without spills) and their SDPA yardstick at
      steps 1, 33 and 66, on one layer and rotated over the layers or
@@ -547,65 +550,167 @@ def _lane_src(gen, N, R):
     return src
 
 
-def check_cache_kernels(gen):
-    from capdec_tpu_torch.ops import cache_reorder as cr
-    N, R, L, E, D = (MAIN[k] for k in ("N", "R", "L", "E", "D"))
-    B = N * R
-    cpu_gen = torch.Generator().manual_seed(SEED)
-    src = _lane_src(cpu_gen, N, R).to(DEVICE)
-    forked = src != torch.arange(B, device=DEVICE)
-    step, count = 30 % E, MAIN["entry_length"] - 1
-    out = {}
-    for dtype in (torch.bfloat16, torch.float32):
+def rowmajor_write_checks(gen, fn, plain, what, B, L, E, D, steps,
+                          dtypes=(torch.bfloat16, torch.float32)):
+    """The row-major slot write `fn` (K3 or K14) bit-identical to `plain`
+    on caches [B, L, E, D], from the per-layer views of a qkv buffer, as
+    decode_step hands them over, and from [B, L, D] tensors (the JAX
+    form), at each of `steps` in each of `dtypes`; every other slot and
+    the sources untouched. Returns the bf16 caches."""
+    out = None
+    for dtype in dtypes:
         rand = lambda *s: torch.randn(*s, generator=gen,
                                       device=DEVICE).to(dtype)
         k0, v0 = rand(B, L, E, D), rand(B, L, E, D)
-        nk, nv = rand(B, L, D), rand(B, L, D)
-        # K3: bit-exact slot write
-        a = cr.write_gen_slot_chunk(k0.clone(), v0.clone(), nk, nv, step)
-        b = cr.write_gen_slot_chunk_plain(k0.clone(), v0.clone(), nk, nv,
-                                          step)
-        torch.cuda.synchronize()
-        require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
-                f"K3 {dtype}: slot write differs from the plain version")
-        # K4: bit-exact fork copy; unforked rows and slots >= count untouched
-        a = cr.copy_forked_rows_bounded(k0.clone(), v0.clone(), src, count)
-        b = cr.copy_forked_rows_bounded_plain(k0.clone(), v0.clone(), src,
-                                              count)
-        torch.cuda.synchronize()
-        require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
-                f"K4 {dtype}: fork copy differs from the plain version")
-        require(torch.equal(a["k"][~forked], k0[~forked]) and
-                torch.equal(a["k"][:, :, count:], k0[:, :, count:]),
-                f"K4 {dtype}: touched rows or slots outside its contract")
-        out[dtype] = (k0, v0, nk, nv)
-    k0, v0, _, _ = out[torch.bfloat16]
-    # timed over rotating new K/V sets and slots (no pass fits in L2)
+        (views,) = qkv_view_sets(gen, L, B, D, dtype, n=1)
+        held = [t.clone() for t in views[0] + views[1]]
+        stacked = tuple(torch.stack(side, dim=1) for side in views)
+        for step in steps:
+            other = torch.arange(E, device=DEVICE) != step
+            for form, (nk, nv) in (("views", views), ("tensors", stacked)):
+                a = fn(k0.clone(), v0.clone(), nk, nv, step)
+                b = plain(k0.clone(), v0.clone(), nk, nv, step)
+                torch.cuda.synchronize()
+                require(torch.equal(a["k"], b["k"]) and
+                        torch.equal(a["v"], b["v"]),
+                        f"{what} {dtype} {form} step {step}: slot write "
+                        "differs from the plain version")
+                require(torch.equal(a["k"][:, :, other], k0[:, :, other]) and
+                        torch.equal(a["v"][:, :, other], v0[:, :, other]),
+                        f"{what} {dtype} {form} step {step}: touched "
+                        "another slot")
+                del a, b
+        require(all(torch.equal(t, h) for t, h in
+                    zip(views[0] + views[1], held)),
+                f"{what} {dtype}: a source changed")
+        if dtype == torch.bfloat16:
+            out = (k0, v0)
+        del views, held, stacked
+    return out
+
+
+def rowmajor_write_times(gen, fn, plain, k, v) -> dict:
+    """Time a bf16 row-major slot write `fn` (K3, K14) as decode_step
+    issues it, from the per-layer views of qkv buffers rotated with the
+    slots past the L2; beside it the write after stacking each side
+    (`stacked_ms`, decode_step's route before the write took views), its
+    plain version, the library route (stack, then `index_copy_`), the
+    empty kernel on its grid (`floor_ms`), the bound (the new K/V read
+    once and written once) and, from [B, L, D] tensors, the write and
+    `index_copy_` alone (slot_write_times)."""
+    from capdec_tpu_torch.ops import _build, cache_reorder as cr
+    B, L, E, D = k.shape
+    sets = qkv_view_sets(gen, L, B, D)
+    plan = cr.slot_write_plan(L, B, D, 2, _build.sm_count(k.device))
+    tensors = slot_write_times(gen, fn, plain, k, v, (B, L, D))
+    b_ms, b_by = bound_ms(2 * 2 * B * L * D * 2, 0, torch.bfloat16)
+    return dict(
+        ms=time_ms(views_write_call(fn, k, v, sets)),
+        stacked_ms=time_ms(views_write_call(fn, k, v, sets, stack_dim=1)),
+        plain_ms=time_ms(views_write_call(plain, k, v, sets)),
+        library_ms=time_ms(views_write_call(stack_index_copy(E, dim=1), k, v,
+                                            sets)),
+        bound_ms=b_ms, bound_by=b_by,
+        floor_ms=time_ms(empty_grid_call(plan)),
+        tensor_form_ms=tensors["ms"],
+        library_tensor_ms=tensors["library_ms"], plan=plan, sets=len(sets))
+
+
+def fork_copy_checks(k, v, src, count, what) -> dict:
+    """K4 on the caches k/v [B, L, E, D] bit-identical to its plain
+    version, rows that keep their lane and slots >= count untouched.
+    Timed beside its plain version, the empty kernel on its grid and the
+    bound: each source row's slots < count read once, each forked row's
+    written once."""
+    from capdec_tpu_torch.ops import cache_reorder as cr
+    B, L, E, D = k.shape
+    forked = src != torch.arange(B, device=DEVICE)
+    a = cr.copy_forked_rows_bounded(k.clone(), v.clone(), src, count)
+    b = cr.copy_forked_rows_bounded_plain(k.clone(), v.clone(), src, count)
+    torch.cuda.synchronize()
+    require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
+            f"K4 {what}: fork copy differs from the plain version")
+    require(torch.equal(a["k"][~forked], k[~forked]) and
+            torch.equal(a["v"][:, :, count:], v[:, :, count:]),
+            f"K4 {what}: touched rows or slots outside its contract")
+    del a, b
+    forks = int(forked.sum())
+    sources = int(src[forked].unique().numel())
+    b4, by4 = bound_ms(2 * (sources + forks) * L * count * D *
+                       k.element_size(), 0, torch.bfloat16)
+    plan = cr.fork_copy_plan(B, L, count, D * k.element_size())
+    return dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: cr.copy_forked_rows_bounded(k, v, src, count)),
+        plain_ms=time_ms(
+            lambda: cr.copy_forked_rows_bounded_plain(k, v, src, count)),
+        bound_ms=b4, bound_by=by4, library_ms=None,
+        floor_ms=time_ms(empty_grid_call(plan)), plan=plan,
+        shape=f"B={B} forks={forks} sources={sources} L={L} count={count} "
+              f"D={D} {str(k.dtype)[6:]} ({what})")
+
+
+def _spread_src(gen, B):
+    """Fork sources that keep the lane invariant but cross images: a
+    random half of the rows keep their beam, each other row copies one of
+    them, anywhere in the batch."""
+    keep = torch.randperm(B, generator=gen)[:B // 2]
+    pick = torch.randint(len(keep), (B,), generator=gen)
+    src = keep[pick]
+    src[keep] = keep
+    return src
+
+
+def check_cache_kernels(gen, ptxas):
+    """K3 (rowmajor_write_checks' cases at steps 0, 7, 8, 66) and K4 at
+    the main path's shapes, bf16 and f32; K4 also on sources that cross
+    images; each kernel's instances built without spills."""
+    from capdec_tpu_torch.ops import cache_reorder as cr
+    N, R, L, E, D = (MAIN[k] for k in ("N", "R", "L", "E", "D"))
+    B = N * R
+    regs3 = {t: rep for t, rep in instances(
+        ptxas, "write_gen_slot_views", slot_write_instance, 8).items()
+        if t.endswith("row>")}
+    regs4 = instances(ptxas, "copy_forked_rows_bounded", fork_copy_instance,
+                      1)
+    k0, v0 = rowmajor_write_checks(
+        gen, cr.write_gen_slot_chunk, cr.write_gen_slot_chunk_plain, "K3", B,
+        L, E, D, (0, 7, 8, MAIN["entry_length"] - 1))
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    src = _lane_src(cpu_gen, N, R).to(DEVICE)
+    count = MAIN["entry_length"] - 1
+    k4_f32 = fork_copy_checks(k0.float(), v0.float(), src, count, "f32")
+    spread = _spread_src(cpu_gen, B).to(DEVICE)
+    a = cr.copy_forked_rows_bounded(k0.clone(), v0.clone(), spread, count)
+    b = cr.copy_forked_rows_bounded_plain(k0.clone(), v0.clone(), spread,
+                                          count)
+    torch.cuda.synchronize()
+    require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
+            "K4: fork copy across images differs from the plain version")
+    del a, b
     k3 = dict(
         name="write_gen_slot_chunk", route="cuda",
         source="capdec_tpu_torch/csrc/cache_reorder.cu",
         replaces="capdec_tpu/ops/cache_reorder.py:355",
         max_abs_err=0.0, max_abs_err_f32=0.0,
-        **slot_write_times(gen, cr.write_gen_slot_chunk,
-                           cr.write_gen_slot_chunk_plain, k0, v0, (B, L, D)),
-        shape=f"B={B} L={L} E={E} D={D} bf16, inputs rotated over "
-              f">{L2_FLUSH_BYTES >> 20} MiB and the {E} slots")
-    # each source row is read once, each forked row written once
-    forks = int(forked.sum())
-    sources = int(src[forked].unique().numel())
-    b4, by4 = bound_ms(2 * (sources + forks) * L * count * D * 2, 0,
-                       torch.bfloat16)
-    k4 = dict(
-        name="copy_forked_rows_bounded", route="cuda",
-        source="capdec_tpu_torch/csrc/cache_reorder.cu",
-        replaces="capdec_tpu/ops/cache_reorder.py:210",
-        max_abs_err=0.0, max_abs_err_f32=0.0,
-        ms=time_ms(lambda: cr.copy_forked_rows_bounded(k0, v0, src, count)),
-        plain_ms=time_ms(
-            lambda: cr.copy_forked_rows_bounded_plain(k0, v0, src, count)),
-        bound_ms=b4, bound_by=by4, library_ms=None,
-        shape=f"B={B} forks={forks} sources={sources} L={L} count={count} "
-              f"D={D} bf16")
+        **rowmajor_write_times(gen, cr.write_gen_slot_chunk,
+                               cr.write_gen_slot_chunk_plain, k0, v0),
+        ptxas=regs3,
+        library_note="torch.stack of each side on dim 1, then index_copy_ "
+                     "on dim 2 of k and v (library_tensor_ms: index_copy_ "
+                     "from [B, L, D] tensors)",
+        shape=f"B={B} L={L} E={E} D={D} bf16, from the per-layer views of "
+              f"[B, 3D] qkv buffers rotated over >{L2_FLUSH_BYTES >> 20} MiB"
+              f" and the {E} slots; stacked_ms: both sides stacked first; "
+              "floor: the empty kernel on its grid; tensor_form_ms: from "
+              "[B, L, D] tensors")
+    k4 = dict(name="copy_forked_rows_bounded", route="cuda",
+              source="capdec_tpu_torch/csrc/cache_reorder.cu",
+              replaces="capdec_tpu/ops/cache_reorder.py:210",
+              **fork_copy_checks(k0, v0, src, count, "main path"),
+              max_abs_err_f32=0.0, f32_ms=k4_f32["ms"], ptxas=regs4,
+              library_note="null: no one PyTorch call copies only the "
+                           "forked rows' live slots in place")
     return [k3, k4]
 
 
@@ -628,12 +733,7 @@ def check_quantising_write(gen, ptxas):
     from capdec_tpu_torch.ops import cache_reorder as cr
     N, R, L, E, D = (MAIN[k] for k in ("N", "R", "L", "E", "D"))
     B = N * R
-    regs = {quant_write_instance(name): rep for name, rep in ptxas.items()
-            if "write_gen_slot_q" in name}
-    require(not ptxas or len(regs) == 4, f"ptxas: K5 reported {regs}")
-    for t, rep in regs.items():
-        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
-                f"{t} spills: {rep}")
+    regs = instances(ptxas, "write_gen_slot_q", quant_write_instance, 4)
     k0, v0 = _int8(gen, B, L, E, D), _int8(gen, B, L, E, D)
     ks0, vs0 = (torch.rand(B, L, 1, E, generator=gen, device=DEVICE)
                 for _ in range(2))
@@ -942,17 +1042,38 @@ def check_chunked_int8_attention(gen):
               "greedy_r1: R=1, int8 prefix)")
 
 
-def seq_write_instance(mangled: str) -> str:
-    """'write_gen_slot_seqmajor<4>' (16-byte words a lane) for K13's
+def slot_write_instance(mangled: str) -> str:
+    """'write_gen_slot_views<4, row>' (16-byte words a lane; the row-major
+    layout of K3/K14 or the seq-major one of K13) for the mangled name of
+    the slot write's kernel."""
+    m = re.search(r"write_gen_slot_viewsILi(\d+)ELb([01])E", mangled)
+    layout = "row" if m.group(2) == "1" else "seq"
+    return f"write_gen_slot_views<{m.group(1)}, {layout}>"
+
+
+def fork_copy_instance(mangled: str) -> str:
+    """'copy_forked_rows_bounded<8>' (16-byte words a lane) for K4's
     mangled kernel name."""
-    m = re.search(r"write_gen_slot_seqmajorILi(\d+)E", mangled)
-    return f"write_gen_slot_seqmajor<{m.group(1)}>"
+    m = re.search(r"copy_forked_rows_boundedILi(\d+)E", mangled)
+    return f"copy_forked_rows_bounded<{m.group(1)}>"
+
+
+def instances(ptxas: dict, name: str, label, n: int) -> dict:
+    """The `n` instances of kernel `name` in the ptxas report, labelled by
+    `label`, each required to build without spills (none when the
+    library was loaded, not built)."""
+    regs = {label(m): rep for m, rep in ptxas.items() if name + "I" in m}
+    require(not ptxas or len(regs) == n, f"ptxas: {name} reported {regs}")
+    for t, rep in regs.items():
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"{t} spills: {rep}")
+    return regs
 
 
 def qkv_view_sets(gen, L, N, D, dtype=torch.bfloat16, n=None):
-    """K13's inputs as decode_step hands them over: (new_k, new_v), the
-    per-layer k and v thirds of a [L, N, 3D] buffer of qkv rows, for n
-    buffers (default: as many as one pass of K/V reads past
+    """The slot writes' inputs as decode_step hands them over: (new_k,
+    new_v), the per-layer k and v thirds of a [L, N, 3D] buffer of qkv
+    rows, for n buffers (default: as many as one pass of K/V reads past
     L2_FLUSH_BYTES, for a rotation)."""
     n = n or -(-L2_FLUSH_BYTES // (2 * L * N * D * 2))
     sets = []
@@ -963,29 +1084,32 @@ def qkv_view_sets(gen, L, N, D, dtype=torch.bfloat16, n=None):
     return sets
 
 
-def seqmajor_write_call(fn, k, v, sets, stack=False):
-    """A call of a seq-major slot write `fn(k, v, new_k, new_v, step)`:
+def views_write_call(fn, k, v, sets, stack_dim=None):
+    """A call of a slot write `fn(k, v, new_k, new_v, step)` (K3, K13,
+    K14, or a plain or library route) on the caches k/v (slots on dim 2):
     call i reads qkv set i of a rotation and writes slot i mod E; with
-    `stack` the per-layer views are first stacked into [L, N, D] (the
-    route of decode_step before K13 took views)."""
+    `stack_dim` the per-layer views are first stacked on that dim (0:
+    [L, N, D] for the seq-major cache, 1: [N, L, D] for the row-major),
+    the route of decode_step before the write took views."""
     n, E = len(sets), k.shape[2]
 
     def call(i):
         nk, nv = sets[i % n]
-        if stack:
-            nk, nv = torch.stack(nk), torch.stack(nv)
+        if stack_dim is not None:
+            nk, nv = (torch.stack(s, dim=stack_dim) for s in (nk, nv))
         fn(k, v, nk, nv, i % E)
     return rotating(call, n * E)
 
 
-def stack_index_copy(E):
-    """The library route of K13 from views over E slots: torch.stack of
-    each side, then `index_copy_` into slot `step` of k and v."""
+def stack_index_copy(E, dim=0):
+    """The library route of a slot write from views over E slots:
+    torch.stack of each side on `dim` (0 seq-major, 1 row-major), then
+    `index_copy_` into slot `step` of k and v."""
     idx = [torch.tensor([s], device=DEVICE) for s in range(E)]
 
     def call(k, v, nk, nv, step):
-        k.index_copy_(2, idx[step], torch.stack(nk).unsqueeze(2))
-        v.index_copy_(2, idx[step], torch.stack(nv).unsqueeze(2))
+        k.index_copy_(2, idx[step], torch.stack(nk, dim=dim).unsqueeze(2))
+        v.index_copy_(2, idx[step], torch.stack(nv, dim=dim).unsqueeze(2))
     return call
 
 
@@ -1009,12 +1133,9 @@ def check_seqmajor_write(gen, ptxas):
     of one launch) and, from stacked tensors, K13 alone."""
     from capdec_tpu_torch.ops import _build, cache_reorder as cr
     N, L, E, D = (MAIN[k] for k in ("N", "L", "E", "D"))
-    regs = {seq_write_instance(name): rep for name, rep in ptxas.items()
-            if "write_gen_slot_seqmajor" in name}
-    require(not ptxas or len(regs) == 4, f"ptxas: K13 reported {regs}")
-    for t, rep in regs.items():
-        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
-                f"{t} spills: {rep}")
+    regs = {t: rep for t, rep in instances(
+        ptxas, "write_gen_slot_views", slot_write_instance, 8).items()
+        if t.endswith("seq>")}
     for dtype in (torch.bfloat16, torch.float32):
         rand = lambda *s: torch.randn(*s, generator=gen,
                                       device=DEVICE).to(dtype)
@@ -1044,7 +1165,7 @@ def check_seqmajor_write(gen, ptxas):
         if dtype == torch.bfloat16:
             k, v = k0, v0
     sets = qkv_view_sets(gen, L, N, D)
-    plan = cr.seqmajor_write_plan(L, N, D, 2, _build.sm_count(
+    plan = cr.slot_write_plan(L, N, D, 2, _build.sm_count(
         torch.device(DEVICE)))
     tensor_form = slot_write_times(gen, cr.write_gen_slot_chunk_seqmajor,
                                    cr.write_gen_slot_chunk_seqmajor_plain,
@@ -1055,12 +1176,12 @@ def check_seqmajor_write(gen, ptxas):
         source="capdec_tpu_torch/csrc/cache_reorder.cu",
         replaces="capdec_tpu/ops/cache_reorder.py:380",
         max_abs_err=0.0, max_abs_err_f32=0.0,
-        ms=time_ms(seqmajor_write_call(cr.write_gen_slot_chunk_seqmajor, k,
-                                       v, sets)),
-        plain_ms=time_ms(seqmajor_write_call(
+        ms=time_ms(views_write_call(cr.write_gen_slot_chunk_seqmajor, k, v,
+                                    sets)),
+        plain_ms=time_ms(views_write_call(
             cr.write_gen_slot_chunk_seqmajor_plain, k, v, sets)),
-        library_ms=time_ms(seqmajor_write_call(stack_index_copy(E), k, v,
-                                               sets)),
+        library_ms=time_ms(views_write_call(stack_index_copy(E), k, v,
+                                            sets)),
         bound_ms=b_ms, bound_by=b_by,
         floor_ms=time_ms(empty_grid_call(plan)),
         tensor_form_ms=tensor_form["ms"], ptxas=regs, plan=plan,
@@ -1190,39 +1311,23 @@ def check_gathers(gen):
 
 def check_single_slot_write(gen):
     """K14 bit-identical to its plain version (K3's plain write) at K3's
-    shapes in bf16 and f32, at steps 0, odd, even and E-1; every other
-    slot untouched."""
+    shapes in bf16 and f32, at steps 0, odd, even and E-1, from views and
+    from tensors (rowmajor_write_checks); timed as K3 is."""
     from capdec_tpu_torch.ops import cache_reorder as cr
     N, R, L, E, D = (MAIN[k] for k in ("N", "R", "L", "E", "D"))
     B = N * R
-    for dtype in (torch.bfloat16, torch.float32):
-        rand = lambda *s: torch.randn(*s, generator=gen,
-                                      device=DEVICE).to(dtype)
-        k0, v0 = rand(B, L, E, D), rand(B, L, E, D)
-        nk, nv = rand(B, L, D), rand(B, L, D)
-        for step in (0, 7, 8, E - 1):
-            a = cr.write_gen_slot(k0.clone(), v0.clone(), nk, nv, step)
-            b = cr.write_gen_slot_plain(k0.clone(), v0.clone(), nk, nv, step)
-            torch.cuda.synchronize()
-            require(torch.equal(a["k"], b["k"]) and
-                    torch.equal(a["v"], b["v"]),
-                    f"K14 {dtype} step {step}: slot write differs from the "
-                    "plain version")
-            other = torch.arange(E, device=DEVICE) != step
-            require(torch.equal(a["k"][:, :, other], k0[:, :, other]),
-                    f"K14 {dtype} step {step}: touched another slot")
-        if dtype == torch.bfloat16:
-            k, v = k0, v0
-    n = n_kv_sets((B, L, D))
+    k, v = rowmajor_write_checks(gen, cr.write_gen_slot,
+                                 cr.write_gen_slot_plain, "K14", B, L, E, D,
+                                 (0, 7, 8, E - 1))
     return dict(
         name="write_gen_slot", route="cuda",
         source="capdec_tpu_torch/csrc/cache_reorder.cu",
         replaces="capdec_tpu/ops/cache_reorder.py:452",
         max_abs_err=0.0, max_abs_err_f32=0.0,
-        **slot_write_times(gen, cr.write_gen_slot, cr.write_gen_slot_plain,
-                           k, v, (B, L, D)),
-        shape=f"B={B} L={L} E={E} D={D} bf16 (K3's kernel), inputs rotated "
-              f"over {n} sets and the {E} slots")
+        **rowmajor_write_times(gen, cr.write_gen_slot,
+                               cr.write_gen_slot_plain, k, v),
+        shape=f"B={B} L={L} E={E} D={D} bf16 (K3's kernel), from views as "
+              "K3's row")
 
 
 def check_v1_attention(gen):
@@ -2085,8 +2190,10 @@ def check_kv_kernels(gen, N, D, H, label) -> dict:
     width D over H heads of 64; `label` names the case) against their
     plain versions, as check_decode_attention and check_cache_kernels do
     at the main path's: K2 in bf16 with NaN in the slots it must not read,
-    within 2e-2; K3 and K4 bit for bit. Times beside the plain versions,
-    SDPA (K2), index_copy_ (K3) and the bounds."""
+    within 2e-2; K3 (from views and from tensors) and K4 bit for bit.
+    Times beside the plain
+    versions, SDPA (K2), stack + index_copy_ (K3), the empty kernel on the
+    grid (K3, K4) and the bounds."""
     from capdec_tpu_torch.ops import cache_reorder as cr
     from capdec_tpu_torch.ops import decode_attention as da
     R, L, K, E = (MAIN[k] for k in ("R", "L", "K", "E"))
@@ -2125,36 +2232,14 @@ def check_kv_kernels(gen, N, D, H, label) -> dict:
                              f"D={D} H={H} bf16 ({label})")
 
     src = _lane_src(torch.Generator().manual_seed(SEED), N, R).to(DEVICE)
-    forked = src != torch.arange(B, device=DEVICE)
-    nk, nv = rand(B, L, D), rand(B, L, D)
-    a = cr.write_gen_slot_chunk(gk.clone(), gv.clone(), nk, nv, 30)
-    b = cr.write_gen_slot_chunk_plain(gk.clone(), gv.clone(), nk, nv, 30)
-    torch.cuda.synchronize()
-    require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]),
-            f"K3 at {label} differs from its plain version")
-    k3 = dict(max_abs_err=0.0, **slot_write_times(
-        gen, cr.write_gen_slot_chunk, cr.write_gen_slot_chunk_plain, gk, gv,
-        (B, L, D)), shape=f"B={B} L={L} E={E} D={D} bf16 ({label})")
-    count = MAIN["entry_length"] - 1
-    a = cr.copy_forked_rows_bounded(gk.clone(), gv.clone(), src, count)
-    b = cr.copy_forked_rows_bounded_plain(gk.clone(), gv.clone(), src,
-                                          count)
-    torch.cuda.synchronize()
-    require(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]) and
-            torch.equal(a["k"][~forked], gk[~forked]),
-            f"K4 at {label} differs from its plain version")
-    forks = int(forked.sum())
-    sources = int(src[forked].unique().numel())
-    b4, by4 = bound_ms(2 * (sources + forks) * L * count * D * 2, 0,
-                       torch.bfloat16)
-    k4 = dict(max_abs_err=0.0,
-              ms=time_ms(lambda: cr.copy_forked_rows_bounded(gk, gv, src,
-                                                             count)),
-              plain_ms=time_ms(lambda: cr.copy_forked_rows_bounded_plain(
-                  gk, gv, src, count)),
-              bound_ms=b4, bound_by=by4, library_ms=None,
-              shape=f"B={B} forks={forks} L={L} count={count} D={D} bf16 "
-                    f"({label})")
+    del sk, sv, q, kn, vn, pk, pv
+    rowmajor_write_checks(gen, cr.write_gen_slot_chunk,
+                          cr.write_gen_slot_chunk_plain, f"K3 at {label}", B,
+                          L, E, D, (30,), dtypes=(torch.bfloat16,))
+    k3 = dict(max_abs_err=0.0, **rowmajor_write_times(
+        gen, cr.write_gen_slot_chunk, cr.write_gen_slot_chunk_plain, gk, gv),
+        shape=f"B={B} L={L} E={E} D={D} bf16 ({label}), from views")
+    k4 = fork_copy_checks(gk, gv, src, MAIN["entry_length"] - 1, label)
     return {"beam_decode_attention_rowmajor": k2,
             "write_gen_slot_chunk": k3, "copy_forked_rows_bounded": k4}
 
@@ -2955,7 +3040,8 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     kernels = [check_lm_head(gen, ptxas), check_decode_attention(gen),
-               *check_cache_kernels(gen), check_quantising_write(gen, ptxas),
+               *check_cache_kernels(gen, ptxas),
+               check_quantising_write(gen, ptxas),
                check_int8_attention(gen), check_whole_row_fork(gen),
                check_chunked_attention(gen),
                check_chunked_int8_attention(gen),

@@ -18,7 +18,11 @@ in-register int8 policy of the same kernel) at R = 1, 2, 5, 8, 16, 17 and
 32, head_dim 32, 64 and 128, its tile's edges, step 0, e_cap below the
 step and step = e_cap, NaN scales at and above n_gen; K3/K4/K7
 bit-exact; K13 bit-exact from per-layer views of qkv buffers and from
-[L, B, D] tensors at L up to 64, B up to 320 and D up to 1600; K5 bit-exact at D 64, 768, 1024 and 2048, item counts not a
+[L, B, D] tensors at L up to 64, B up to 320 and D up to 1600; K3 and
+K14 the same from views and from [B, L, D] tensors at B 1 to 2560, D 384
+to 1600; K4 bit-exact on the beam engine's fork sources (R 1, 3, 5 and
+33, one image to batch 512, D 384 to 1600, f32, bf16 and int8), on
+sources that cross images; K5 bit-exact at D 64, 768, 1024 and 2048, item counts not a
 multiple of a block's warps, grids with fewer warps than items, exact
 ties (x / s = k + 0.5) and an amax outside [2^-60, 2^100] (the division
 route); the gathers K10-K12 and the slot write K14
@@ -522,6 +526,97 @@ def _rand_cache(gen, dev, dtype, *shape):
 
 # B = 41 (odd); several rows read one source, some sources are read by none
 GATHER_SRC = [(7 * b + 3) % 41 if b % 3 else 5 for b in range(41)]
+
+
+# K3/K14 (the row-major twin of K13's kernel): L up to 48, B from one
+# image (5) to batch 512 (2560) and odd counts, D 384 (a tp=2 rank), 768
+# and 1600, E 16 (B 2560: E 8)
+ROW_CASES = [(L, B, 16, D) for L in (1, 12, 48) for B in (1, 5, 7, 320)
+             for D in (384, 768, 1600)] + [(12, 2560, 8, 768),
+                                           (12, 2560, 8, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("L,B,E,D", ROW_CASES)
+def test_rowmajor_slot_write_kernel_bit_exact(dev, gen, dtype, L, B, E, D):
+    """K3 and K14 from per-layer views (the k and v thirds of [B, 3D] qkv
+    buffers) and from [B, L, D] tensors: bit-identical to the plain
+    version at steps 0, 7 and E-1, every other slot and the sources
+    untouched, one launch a call, each on its own count."""
+    if B * L * D > 2560 * 12 * 768 // 2 and dtype == torch.float32:
+        pytest.skip("f32 at batch 512 repeats the bf16 case at twice the "
+                    "memory")
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    k, v, qkv = r(B, L, E, D), r(B, L, E, D), r(L, B, 3 * D)
+    held = qkv.clone()
+    views = ([t[:, D:2 * D] for t in qkv], [t[:, 2 * D:] for t in qkv])
+    stacked = tuple(torch.stack(s, dim=1) for s in views)
+    for fn in (cache_reorder.write_gen_slot_chunk,
+               cache_reorder.write_gen_slot):
+        for step in (0, 7, E - 1):
+            for nk, nv in (views, stacked):
+                n0 = fn.launches
+                a = fn(k.clone(), v.clone(), nk, nv, step)
+                b = cache_reorder.write_gen_slot_chunk_plain(
+                    k.clone(), v.clone(), nk, nv, step)
+                assert fn.launches == n0 + 1
+                assert torch.equal(a["k"], b["k"]) and \
+                    torch.equal(a["v"], b["v"])
+                other = torch.arange(E, device=dev) != step
+                assert torch.equal(a["k"][:, :, other], k[:, :, other])
+                assert torch.equal(a["v"][:, :, other], v[:, :, other])
+                del a, b
+    assert torch.equal(qkv, held)
+
+
+def _engine_src(gen, N, R, dev):
+    """Fork sources as the beam engine makes them: ranked winners' source
+    lanes, given lanes by beam._assign_lanes, as flat rows."""
+    winners = torch.randint(0, R, (N, R), generator=gen, device=dev)
+    lanes = beam._assign_lanes(winners, R)
+    base = torch.arange(N, device=dev)[:, None] * R
+    return (base + beam._to_lane(winners, lanes)).reshape(-1)
+
+
+def _spread_src(gen, B, dev):
+    """Fork sources that keep the lane invariant across the whole batch."""
+    keep = torch.randperm(B, generator=gen, device=dev)[:max(1, B // 2)]
+    pick = torch.randint(len(keep), (B,), generator=gen, device=dev)
+    src = keep[pick]
+    src[keep] = keep
+    return src
+
+
+# K4: (images N, beams R, D) from one image to batch 512 and beams of 33,
+# at D 384 (a tp=2 rank) and 768, and the live slots below `count`
+FORK_CASES = [(1, 5, 768), (3, 1, 768), (64, 5, 768), (64, 5, 384),
+              (512, 5, 768), (4, 33, 768), (7, 3, 1600)]
+
+
+@pytest.mark.parametrize("dtype", MOVABLE)
+@pytest.mark.parametrize("N,R,D", FORK_CASES)
+@pytest.mark.parametrize("count", [1, 13, 66])
+def test_fork_copy_kernel_bit_exact(dev, gen, dtype, N, R, D, count):
+    """K4 bit-identical to its plain version on the engine's fork sources
+    and on sources that cross images; rows that keep their lane and slots
+    at or above count untouched; one launch a call."""
+    B, L, E = N * R, 12, 72
+    if B * D > 2560 * 768 // 2 and dtype == torch.float32:
+        pytest.skip("f32 at batch 512 repeats the bf16 case at twice the "
+                    "memory")
+    k, v = (_rand_cache(gen, dev, dtype, B, L, E, D) for _ in range(2))
+    fn = cache_reorder.copy_forked_rows_bounded
+    for src in (_engine_src(gen, N, R, dev), _spread_src(gen, B, dev)):
+        forked = src != torch.arange(B, device=dev)
+        n0 = fn.launches
+        a = fn(k.clone(), v.clone(), src, count)
+        b = cache_reorder.copy_forked_rows_bounded_plain(k.clone(), v.clone(),
+                                                         src, count)
+        assert fn.launches == n0 + 1
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+        assert torch.equal(a["k"][~forked], k[~forked])
+        assert torch.equal(a["v"][:, :, count:], v[:, :, count:])
+        del a, b
 
 
 @pytest.mark.parametrize("dtype", MOVABLE)

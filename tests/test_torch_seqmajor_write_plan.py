@@ -1,6 +1,6 @@
 """K13, the seq-major slot write from per-layer views
-(csrc/cache_reorder.cu write_gen_slot_seqmajor,
-`cache_reorder.seqmajor_write_plan`), checked on the CPU:
+(csrc/cache_reorder.cu write_gen_slot_views<W, false>,
+`cache_reorder.slot_write_plan`), checked on the CPU:
 
   * the launch plan takes every (layer, row, K|V) item with exactly one
     warp and every 16-byte word of its row with exactly one lane, at the
@@ -14,8 +14,9 @@
   * the plain version, given L per-layer views of [B, 3D] arrays, equals
     the JAX Pallas kernel (interpret mode) given the stacked arrays, bit
     for bit;
-  * decode_step's K13 route hands the wrapper the per-layer views and
-    stacks nothing; every other route still stacks.
+  * decode_step's K13 route (and the K3, K14 and plain float routes)
+    hands the wrapper the per-layer views and stacks nothing; the int8
+    routes still stack.
 """
 import ctypes
 
@@ -35,14 +36,14 @@ SMS = 132  # the H100's SMs
 ITEMSIZE = {torch.bfloat16: 2, torch.float32: 4}
 
 
-def _items_taken(plan):
-    """How often each item is taken in the kernel's loop: warp w takes
-    items w, w + warps, ... below `items`."""
-    warps = plan["blocks"] * plan["warps"]
-    count = np.zeros(plan["items"], np.int64)
-    for first in range(0, plan["items"], warps):
-        count[first:first + warps] += 1
-    return count
+def _items_taken(plan, L):
+    """How often each item 2 (l B + b) + K|V is taken on the grid: warp j
+    of layer l (grid.y) takes item 2 l B + j, those with j < 2 B."""
+    per_layer = plan["items"] // L
+    j = np.arange(plan["layer_blocks"] * plan["warps"])
+    j = j[j < per_layer]
+    taken = (np.arange(L)[:, None] * per_layer + j[None, :]).ravel()
+    return np.bincount(taken, minlength=plan["items"])
 
 
 def _words_taken(plan):
@@ -64,21 +65,21 @@ def test_plan_covers_every_item_and_word_once(L, B, D, dtype):
     each of a row's 16-byte words by one lane; W is the least of 1, 2, 4,
     8 that covers a row in one pass (8 in passes beyond); blocks of four
     warps unless that leaves an SM without a block."""
-    plan = cr.seqmajor_write_plan(L, B, D, ITEMSIZE[dtype], SMS)
+    plan = cr.slot_write_plan(L, B, D, ITEMSIZE[dtype], SMS)
     row16 = D * ITEMSIZE[dtype] // 16
     assert plan["items"] == 2 * L * B and plan["row16"] == row16
     assert plan["threads"] == 32 * plan["warps"]
-    assert np.array_equal(_items_taken(plan), np.ones(2 * L * B))
-    # one warp an item: the last block's tail idle, no warp loops
-    assert (plan["blocks"] - 1) * plan["warps"] < plan["items"] <= \
-        plan["blocks"] * plan["warps"]
+    assert np.array_equal(_items_taken(plan, L), np.ones(2 * L * B))
+    # one warp an item: each layer's last block's tail idle
+    assert plan["blocks"] == L * plan["layer_blocks"]
+    assert (plan["layer_blocks"] - 1) * plan["warps"] < 2 * B <= \
+        plan["layer_blocks"] * plan["warps"]
     assert np.array_equal(_words_taken(plan), np.ones(row16))
     W = plan["words"]
-    assert W in cr.SEQ_WORDS and (32 * W >= row16 or W == 8)
+    assert W in cr.SLOT_WORDS and (32 * W >= row16 or W == 8)
     assert W == 1 or 16 * W < row16  # the least that covers the row
     assert plan["passes"] == -(-row16 // (32 * W))
-    assert plan["warps"] == 4 or -(-plan["items"] // (2 * plan["warps"])) \
-        < SMS
+    assert plan["warps"] == 4 or L * -(-2 * B // (2 * plan["warps"])) < SMS
     # the items decode to every (layer, row, K|V) once, each slot row once
     it = np.arange(plan["items"])
     row, kv = it >> 1, it & 1
@@ -88,10 +89,11 @@ def test_plan_covers_every_item_and_word_once(L, B, D, dtype):
 
 def test_served_plan():
     """At the served shape (L 12, B 64, D 768 bf16): 1536 warps, three of
-    a lane's four words live, 384 blocks of four warps: one wave."""
-    plan = cr.seqmajor_write_plan(12, 64, 768, 2, SMS)
-    assert plan == dict(warps=4, threads=128, words=4, blocks=384,
-                        items=1536, row16=96, passes=1)
+    a lane's four words live, 32 blocks of four warps a layer, 384 in
+    all: one wave."""
+    plan = cr.slot_write_plan(12, 64, 768, 2, SMS)
+    assert plan == dict(warps=4, threads=128, words=4, layer_blocks=32,
+                        blocks=384, items=1536, row16=96, passes=1)
 
 
 @pytest.mark.parametrize("args,match", [
@@ -100,7 +102,7 @@ def test_served_plan():
     ((2, 4, 38, 4), "16 == 0")])
 def test_plan_refuses_a_shape_the_kernel_does_not_take(args, match):
     with pytest.raises(ValueError, match=match):
-        cr.seqmajor_write_plan(*args, SMS)
+        cr.slot_write_plan(*args, SMS)
 
 
 class _Library:
@@ -125,15 +127,15 @@ class _Library:
 
 def _emulate_k13(k, v, src, L, B, E, step, row_bytes, warps, words, blocks,
                  stream):
-    """The kernel's loop: warp w takes items w, w + warps, ...; item it
-    is row (it >> 1) = l B + b of K (it even) or V; lane words as
-    _words_taken lists them."""
+    """The kernel's grid: warp j < 2 B of layer l (of `blocks` blocks of
+    `warps` warps a layer) takes row b = j >> 1 of K (j even) or V, slot
+    row l B + b; lane words as _words_taken lists them."""
     row16 = row_bytes // 16
-    total = blocks * warps
-    for w in range(total):
-        for it in range(w, 2 * L * B, total):
-            row, is_v = it >> 1, it & 1
-            l, b = divmod(row, B)
+    assert blocks == -(-2 * B // warps)
+    for l in range(L):
+        for j in range(min(blocks * warps, 2 * B)):
+            b, is_v = j >> 1, j & 1
+            row = l * B + b
             base, stride = ((src.v[l], src.v_row16[l]) if is_v
                             else (src.k[l], src.k_row16[l]))
             s = base + 16 * b * stride
@@ -206,11 +208,11 @@ def test_one_launch_per_call_with_the_plan(library, form, L, B, D, dtype,
     assert len(library.calls) == 1 and library.calls[0][0] == entry
     got = library.calls[0][1]
     item = k.element_size()
-    plan = cr.seqmajor_write_plan(L, B, D, item, SMS)
+    plan = cr.slot_write_plan(L, B, D, item, SMS)
     assert got[0] == k.data_ptr() and got[1] == v.data_ptr()
-    assert isinstance(got[2], _build.SeqmajorSources)
+    assert isinstance(got[2], _build.LayerSources)
     assert got[3:] == (L, B, E, step, D * item, plan["warps"],
-                       plan["words"], plan["blocks"], 0)
+                       plan["words"], plan["layer_blocks"], 0)
     layers = lambda x: list(x.unbind(0)) if torch.is_tensor(x) else x
     for name, views in (("k", layers(nk)), ("v", layers(nv))):
         assert list(getattr(got[2], name)[:L]) == [t.data_ptr()
@@ -220,7 +222,7 @@ def test_one_launch_per_call_with_the_plan(library, form, L, B, D, dtype,
     sig = _build.SIGNATURES[entry]
     assert len(sig) == len(got)
     assert sig[:2] == [ctypes.c_void_p] * 2 and sig[-1] is ctypes.c_void_p
-    assert sig[2] is ctypes.POINTER(_build.SeqmajorSources)
+    assert sig[2] is ctypes.POINTER(_build.LayerSources)
     assert sig[3:7] == [ctypes.c_int] * 4 and sig[7] is ctypes.c_long
     assert sig[8:11] == [ctypes.c_int] * 3
     want = cr.write_gen_slot_chunk_seqmajor_plain(k0.clone(), v0.clone(), nk,
@@ -230,10 +232,10 @@ def test_one_launch_per_call_with_the_plan(library, form, L, B, D, dtype,
 
 
 def test_parameter_struct_layout():
-    """The struct is csrc/cache_reorder.cu's SeqmajorSources: 64 K and 64
+    """The struct is csrc/cache_reorder.cu's LayerSources: 64 K and 64
     V pointers, then 64 and 64 int row strides, 1536 bytes."""
-    S = _build.SeqmajorSources
-    assert _build.SEQ_MAX_LAYERS == 64
+    S = _build.LayerSources
+    assert _build.SLOT_MAX_LAYERS == 64
     assert (S.k.offset, S.v.offset, S.k_row16.offset, S.v_row16.offset) == \
         (0, 512, 1024, 1280)
     assert ctypes.sizeof(S) == 1536
@@ -358,13 +360,13 @@ ROUTES = {
     "k13": (dict(rowmajor=False, chunk_slot_write=True), "seq",
             "write_gen_slot_chunk_seqmajor", False),
     "seq_plain": (dict(rowmajor=False, chunk_slot_write=False), "seq",
-                  "write_gen_slot_chunk_seqmajor_plain", True),
+                  "write_gen_slot_chunk_seqmajor_plain", False),
     "seq_int8": (dict(rowmajor=False, chunk_slot_write=True), "seq_int8",
                  "write_gen_slot_chunk_q_plain", True),
     "k3": (dict(chunk_slot_write=True, e_cap=E), "row",
-           "write_gen_slot_chunk", True),
+           "write_gen_slot_chunk", False),
     "k14": (dict(chunk_slot_write=False, slot_write_kernel=True, e_cap=E),
-            "row", "write_gen_slot", True),
+            "row", "write_gen_slot", False),
     "k5": (dict(chunk_slot_write=True, e_cap=E), "row_int8",
            "write_gen_slot_chunk_q", True),
 }
@@ -378,10 +380,11 @@ def _gen_cache(cfg, kind):
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_decode_step_hands_k13_the_layer_views(tiny, monkeypatch, route):
-    """decode_step's K13 route passes the wrapper the lists of the layers'
-    k and v thirds of their [B, 3D] qkv outputs and calls no torch.stack;
-    every other route stacks twice as before. Either way the step writes
-    what the plain route writes."""
+    """decode_step's float routes (K13, K3, K14 and the plain seq-major
+    write) pass the wrapper the lists of the layers' k and v thirds of
+    their [B, 3D] qkv outputs and call no torch.stack; the int8 routes
+    stack twice as before. Either way the step writes what the plain route
+    writes."""
     cfg, model, prefix, tok = tiny
     knobs, kind, writer, stacked = ROUTES[route]
     D, L = cfg.n_embd, cfg.n_layer
