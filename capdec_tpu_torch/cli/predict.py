@@ -112,6 +112,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if not (args.embeddings_pickle or args.clip_checkpoint):
+        sys.exit("--clip_checkpoint or --embeddings_pickle required")
+    if not args.mesh:
+        return _predict(args, None)
+    from ..parallel import mesh as mesh_lib
+    with mesh_lib.cli_mesh(dp=int(args.mesh), tp=1,
+                           device=args.device) as mesh:
+        return _predict(args, mesh)
+
+
+def _predict(args, mesh):
+    """The CLI's body, under `mesh` (None: one process, no group)."""
     import torch
 
     from ..decode import BeamConfig
@@ -121,14 +134,6 @@ def main(argv=None):
     from ..utils.tokenizer import load_tokenizer
     from ..utils.torch_setup import resolve_device
 
-    args = build_parser().parse_args(argv)
-    if not (args.embeddings_pickle or args.clip_checkpoint):
-        sys.exit("--clip_checkpoint or --embeddings_pickle required")
-    mesh = None
-    if args.mesh:
-        from ..parallel import mesh as mesh_lib
-        mesh = mesh_lib.make_mesh(dp=int(args.mesh), tp=1,
-                                  device=args.device)
     main_rank = mesh is None or mesh.is_main
     device = mesh.device if mesh else resolve_device(args.device)
     print(f'beam search = {args.beam}', flush=True)

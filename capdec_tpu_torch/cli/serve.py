@@ -120,6 +120,19 @@ def _watch_requests(watch_dir: str, poll_s: float = 0.2,
 
 
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if not args.embeddings_pickle and not args.watch:
+        sys.exit('need --embeddings_pickle or --watch')
+    if not args.mesh:
+        return _run(args, None)
+    from ..parallel import mesh as mesh_lib
+    with mesh_lib.cli_mesh(dp=int(args.mesh), tp=1,
+                           device=args.device) as mesh:
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> None:
+    """The CLI's body, under `mesh` (None: one process, no group)."""
     import torch
 
     from .. import serve as serve_lib
@@ -128,15 +141,6 @@ def main(argv=None):
     from ..utils.tokenizer import load_tokenizer
     from ..utils.torch_setup import resolve_device
 
-    args = build_parser().parse_args(argv)
-    if not args.embeddings_pickle and not args.watch:
-        sys.exit('need --embeddings_pickle or --watch')
-    mesh, started = None, False
-    if args.mesh:
-        from ..parallel import mesh as mesh_lib
-        started = not torch.distributed.is_initialized()
-        mesh = mesh_lib.make_mesh(dp=int(args.mesh), tp=1,
-                                  device=args.device)
     device = mesh.device if mesh else resolve_device(args.device)
 
     sd = ckpt_lib.load_state_dict(args.checkpoint)
@@ -164,17 +168,13 @@ def main(argv=None):
         mesh=mesh, beam_config=bc, topp_config=tc)
     server = serve_lib.CaptionServer(model, model_cfg, tokenizer, cfg,
                                      device=device)
-    try:
-        if mesh is not None and not mesh.is_main:
-            server.follow()  # until rank 0 closes
-        else:
-            try:
-                _serve(args, server)
-            finally:
-                server.close()
-    finally:
-        if started:  # no collective thread of ours outlives the process
-            torch.distributed.destroy_process_group()
+    if mesh is not None and not mesh.is_main:
+        server.follow()  # until rank 0 closes
+    else:
+        try:
+            _serve(args, server)
+        finally:
+            server.close()
 
 
 def _serve(args, server) -> None:

@@ -125,6 +125,17 @@ def load_modality_offset(path: str) -> Optional[np.ndarray]:
 
 
 def main(argv=None):
+    args = apply_presets(build_parser().parse_args(argv))
+    if not args.mesh:
+        return _train(args, None)
+    from ..parallel import mesh as mesh_lib
+    dp, tp = (int(x) for x in args.mesh.split(','))
+    with mesh_lib.cli_mesh(dp=dp, tp=tp, device=args.device) as mesh:
+        return _train(args, mesh)
+
+
+def _train(args, mesh):
+    """The CLI's body, under `mesh` (None: one process, no group)."""
     import torch
 
     from ..data import dataset as data_lib
@@ -135,12 +146,6 @@ def main(argv=None):
     from ..utils.tokenizer import load_tokenizer
     from ..utils.torch_setup import resolve_device
 
-    args = apply_presets(build_parser().parse_args(argv))
-    mesh = None
-    if args.mesh:
-        from ..parallel import mesh as mesh_lib
-        dp, tp = (int(x) for x in args.mesh.split(','))
-        mesh = mesh_lib.make_mesh(dp=dp, tp=tp, device=args.device)
     device = mesh.device if mesh else resolve_device(args.device)
     prefix_dim = 640 if not args.is_not_rn else 512
 

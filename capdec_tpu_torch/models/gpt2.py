@@ -29,6 +29,12 @@ the block `prefill` shares. Two functions carry the beam-decode path:
     math and the slot write K13 or its plain version; so does ancestry
     attention, which reads each beam's slots from the rows that hold them.
 
+The JAX package's single-cache API is here too: `init_kv_cache` (one
+fixed-shape cache [L, B, H, S_max, hd]), `reorder_kv_cache` (a row
+gather) and `forward_with_cache` (prefill or decode over that cache
+through the same block). No engine calls them, and no kernel runs them:
+the JAX functions are XLA, not Pallas.
+
 A tp rank's model (parallel/mesh.shard_params, Megatron) holds n_head /
 tp whole heads of every block and its slice of the MLP's hidden width:
 the blocks take their K/V width from their own weights (`kv_width`), the
@@ -258,13 +264,20 @@ def _block_mlp(x: torch.Tensor, blk: Block, cdt) -> torch.Tensor:
 
 
 def _block(x: torch.Tensor, blk: Block, bias: torch.Tensor,
-           cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+           cfg: GPT2Config,
+           cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           cache_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
     """One transformer block on the full sequence x [B, T, D] with the
-    additive f32 attention bias (broadcastable to [B, H, T, T]); returns
+    additive f32 attention bias (broadcastable to [B, H, T, S]); returns
     (y, k, v), k/v [B, T, W] in the compute dtype (JAX `_block`,
     gpt2.py:158-204). W is the block's K/V width: D, or D / tp on a tp
-    rank, which holds n_head / tp whole heads."""
+    rank, which holds n_head / tp whole heads.
+
+    With `cache_kv`, the layer's (k, v) [B, H, S, hd] of `init_kv_cache`,
+    the T new K/V are written at slots cache_index.. of copies of them in
+    the cache's dtype, the attention reads the whole cache back in the
+    compute dtype, and the copies are returned as k and v."""
     B, T, _ = x.shape
     hd = cfg.head_dim
     cdt = cfg.compute_dtype
@@ -273,7 +286,13 @@ def _block(x: torch.Tensor, blk: Block, bias: torch.Tensor,
     W = qkv.shape[-1] // 3
     q, k, v = qkv.split(W, dim=-1)
     heads = lambda a: a.reshape(B, T, W // hd, hd).transpose(1, 2)
-    attn = _attention(heads(q), heads(k), heads(v), bias)
+    keys, vals = heads(k), heads(v)
+    if cache_kv is not None:
+        k, v = (c.slice_scatter(new.to(c.dtype), dim=2, start=cache_index,
+                                end=cache_index + T)
+                for c, new in zip(cache_kv, (keys, vals)))
+        keys, vals = k.to(cdt), v.to(cdt)
+    attn = _attention(heads(q), keys, vals, bias)
     attn = attn.transpose(1, 2).reshape(B, T, W).to(cdt)
     attn = _dense_out(attn, blk.attn.c_proj, cdt, blk.tp)
     return _block_mlp(x + attn.to(x.dtype), blk, cdt), k, v
@@ -332,6 +351,79 @@ def forward(model: GPT2LMHeadModel, cfg: GPT2Config,
     x = forward_hidden(model, cfg, inputs_embeds, attention_mask,
                        position_offset)
     return final_logits(model, cfg, x)
+
+
+def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
+                  dtype: Optional[torch.dtype] = None,
+                  device=None) -> Cache:
+    """The fixed-shape cache of `forward_with_cache` (JAX
+    `init_kv_cache`): zeros k, v [L, B, H, S_max, head_dim], in the
+    compute dtype unless `dtype` is given."""
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def reorder_kv_cache(cache: Cache, source: torch.Tensor) -> Cache:
+    """Row b of the result is row source[b] of the cache, for every entry
+    (axis 1, the batch axis: beam-search reordering; JAX
+    `reorder_kv_cache`). Out of place."""
+    return {name: c.index_select(1, source.to(c.device, torch.int64))
+            for name, c in cache.items()}
+
+
+def forward_with_cache(model: GPT2LMHeadModel, cfg: GPT2Config,
+                       inputs_embeds: torch.Tensor, cache: Cache,
+                       cache_index: Union[int, torch.Tensor],
+                       key_mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Cache]:
+    """Cached forward for prefill (T > 1) or decode (T = 1) over the cache
+    of `init_kv_cache` (JAX `forward_with_cache`, gpt2.py:298-336).
+
+    inputs_embeds [B, T, D] sit at positions cache_index + t. Each layer
+    writes its T new K/V (in the cache's dtype) at slot cache_index of a
+    copy of its cache and attends over the whole cache: slot s is visible
+    to query t iff s <= cache_index + t, and `key_mask` [B, S_max] (1/0
+    or bool) masks slots further. Both masks add the finite NEG_INF to
+    f32 scores, as the JAX function does, so a query whose every slot is
+    masked takes a uniform softmax, not NaN. Returns (f32 logits [B, T,
+    V], the new cache); the given cache is not changed.
+
+    Edges, as JAX computes them: the write starts at min(cache_index,
+    S_max - T), the clamp of `lax.dynamic_update_slice`, while the mask
+    keeps the unclamped index. Refused with ValueError: T > S_max (JAX
+    raises too), a negative index (JAX wraps it from the end of the cache
+    and of wpe), and positions past n_positions (JAX's `jnp.take` gives
+    NaN rows). `cache_index` is an int or a 0-d tensor; a tensor costs
+    one host sync a call (its `.item()`)."""
+    T = inputs_embeds.shape[1]
+    S = cache["k"].shape[3]
+    t = model.transformer
+    index = int(cache_index)
+    if T > S:
+        raise ValueError(f"{T} new positions do not fit a cache of {S}")
+    if index < 0 or index + T > t.wpe.weight.shape[0]:
+        raise ValueError(f"positions {index}..{index + T - 1} are outside "
+                         f"0..{t.wpe.weight.shape[0] - 1}")
+    dev = inputs_embeds.device
+    queries = index + torch.arange(T, device=dev)
+    x = (inputs_embeds + t.wpe.weight[queries]).to(cfg.compute_dtype)
+    visible = torch.arange(S, device=dev)[None, :] <= queries[:, None]
+    bias = torch.where(visible, 0.0, NEG_INF)[None, None]
+    if key_mask is not None:
+        bias = bias + torch.where(key_mask[:, None, None, :] > 0, 0.0,
+                                  NEG_INF)
+    bias = bias.to(torch.float32)
+    write = min(index, S - T)
+    ks, vs = [], []
+    for layer, blk in enumerate(t.h):
+        x, k, v = _block(x, blk, bias, cfg,
+                         (cache["k"][layer], cache["v"][layer]), write)
+        ks.append(k)
+        vs.append(v)
+    return (final_logits(model, cfg, x),
+            {"k": torch.stack(ks), "v": torch.stack(vs)})
 
 
 @torch.no_grad()

@@ -19,15 +19,17 @@ Ranks lay out as the JAX `devices.reshape(dp, tp)`: rank = d * tp + t, so
 a tp group is tp consecutive ranks and a dp group is strided by tp. A
 world is started by `torchrun` (its RANK / WORLD_SIZE / MASTER_ADDR /
 MASTER_PORT environment), by an explicit `init_method`, or, with neither,
-as a world of one process.
+as a world of one process. A CLI takes its mesh from `cli_mesh`, which
+ends the group on the way out if the CLI started it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
 import re
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -156,6 +158,21 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, device=None) -> Mesh:
             tp_group = g
     return Mesh(dp=dp, tp=tp, rank=rank, device=device, dp_group=dp_group,
                 tp_group=tp_group)
+
+
+@contextlib.contextmanager
+def cli_mesh(dp: Optional[int] = None, tp: int = 1,
+             device=None) -> Iterator[Mesh]:
+    """`make_mesh` for the body of a CLI: on the way out (a return, an
+    exception or a SystemExit) the default process group is destroyed if
+    this call started it, so no collective thread outlives the process.
+    A group the caller started stays alive for the caller."""
+    started = not dist.is_initialized()
+    try:
+        yield make_mesh(dp=dp, tp=tp, device=device)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -109,6 +109,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      x R 5) against their plain versions (the `tp2` key of their rows);
      the world-1 overhead per train step and the captions/s beside the
      card's name and power limit. The process group is destroyed after.
+     Then the lifecycle phase (lifecycle): the predict CLI (--mesh 1, 16
+     of those records, beam at batch 64) and the train CLI (--mesh 1,1
+     --max_steps 2 at full width) each as a process of its own under
+     `python -m torch.distributed.run --standalone --nproc_per_node 1`
+     on NCCL, both at once: rc 0 and neither PyTorch's
+     destroy_process_group warning nor an abort in stderr (each CLI ends
+     the group it started), predict's captions equal to an in-process
+     run's without a mesh and its launches K1-K4 only, train's two
+     losses finite. Then the cache-api phase (cache_api): GPT-2's
+     single-cache API (init_kv_cache, forward_with_cache) at full width,
+     GPT-2 124M, 5 rows of a 40-slot prefix prefilled and 26 greedy
+     decode steps over S_max 67: in f32 each step's logits within 1e-4
+     relative of the full forward's; in bf16 within 2e-2 of the bf16 full
+     forward's, and the tokens equal to the greedy engine's but at a bf16
+     rounding tie (cache_api_phase says which).
      Then the recipes phase (recipes), on the clip phase's artifacts:
      (a) examples/torch_inference_demo.py on one test JPEG at full width
      (RN50x4, GPT-2 124M, the 8-layer mapper, bf16): the beam launches
@@ -149,9 +164,11 @@ import dataclasses
 import importlib.util
 import itertools
 import json
+import math
 import os
 import pathlib
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2074,12 +2091,10 @@ PREDICT_RUNS = (("beam", [], BEAM_PATH), ("int8", ["--int8_kv"], INT8_PATH),
                 ("greedy", ["--no_beam"], ("lm_head_topk",)))
 
 
-def predict_inputs(embeds, tmp: str) -> dict:
-    """The predict CLI's inputs for MAIN["requests"] records: the
-    dataset_mode-0 registry under tmp/data, a GT file and the embeddings
-    pickle."""
+def predict_inputs(embeds, tmp: str, n: int = MAIN["requests"]) -> dict:
+    """The predict CLI's inputs for n records: the dataset_mode-0
+    registry under tmp/data, a GT file and the embeddings pickle."""
     import pickle
-    n = MAIN["requests"]
     rng = np.random.RandomState(SEED + 1)
     records = [{"image_id": i, "clip_embedding": i,
                 "caption": " ".join(rng.choice(WORDS, 8)) + "."}
@@ -2102,11 +2117,10 @@ def predict_inputs(embeds, tmp: str) -> dict:
 
 
 def predict_once(ckpt: str, inputs: dict, out: str, flags, path,
-                 what: str) -> dict:
-    """One predict CLI call on the card (its launch set asserted and
-    returned with the captions written and the scores)."""
+                 what: str, n: int = MAIN["requests"]) -> dict:
+    """One predict CLI call on the card over n records (its launch set
+    asserted and returned with the captions written and the scores)."""
     from capdec_tpu_torch.cli import predict
-    n = MAIN["requests"]
     old_root = os.environ.get("CAPDEC_DATA_ROOT")
     os.environ["CAPDEC_DATA_ROOT"] = inputs["root"]
     try:
@@ -2366,6 +2380,266 @@ def mesh_phase(gen, ds, ckpt: str, embeds, tmp: str) -> dict:
         serve_captions_per_s={t: r["captions_per_s"]
                               for t, r in served.items()},
         entry_loss=entry_loss, tp2=tp2)
+
+
+# ---------------------------------------------------------------------------
+# The lifecycle phase: the predict and train CLIs as processes of their
+# own under torchrun, each owning its NCCL group
+# ---------------------------------------------------------------------------
+
+LIFECYCLE = dict(records=16, train_steps=2, timeout_s=300)
+# PyTorch's warning at exit when a group was never destroyed, and what a
+# process aborted in a collective thread prints
+UNCLOSED = ("destroy_process_group", "terminate called")
+
+
+@contextlib.contextmanager
+def torchrun_clis(runs: dict, log_dir: str):
+    """Start each of runs {tag: (module, argv, env)} at once as `python -m
+    torch.distributed.run --standalone --nproc_per_node 1 -m module argv`
+    in a session of its own (stdout and stderr to log_dir/tag.*); yield a
+    function that waits for one and returns (stdout, stderr, wall s, rc).
+    Every process group still running at the end is killed."""
+    os.makedirs(log_dir)
+    procs = {}
+    try:
+        for tag, (module, argv, env) in runs.items():
+            out = open(f"{log_dir}/{tag}.stdout", "w")
+            err = open(f"{log_dir}/{tag}.stderr", "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "1", "-m", module,
+                 *argv], cwd=ROOT, env=env, stdout=out, stderr=err,
+                start_new_session=True)
+            procs[tag] = (proc, out, err, time.perf_counter())
+
+        def wait(tag):
+            proc, out, err, t0 = procs[tag]
+            try:
+                proc.wait(timeout=LIFECYCLE["timeout_s"])
+            except subprocess.TimeoutExpired:
+                pass
+            wall = time.perf_counter() - t0
+            out.close()
+            err.close()
+            with open(out.name) as f, open(err.name) as g:
+                return f.read(), g.read(), wall, proc.returncode
+
+        yield wait
+    finally:
+        for proc, out, err, _ in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            out.close()
+            err.close()
+
+
+def lifecycle_phase(ckpt: str, corpus: str, embeds, tmp: str) -> dict:
+    """The predict and train CLIs each as a process of its own under
+    torchrun on the card (NCCL, a world of 1, the group theirs), at once:
+      * predict --mesh 1 from (j)'s `smoke-000.pt` on LIFECYCLE["records"]
+        records at batch 64, beam 5 (K1-K4 only, counted in the process
+        through LAUNCH_SITECUSTOMIZE), whose captions must equal an
+        in-process run's without a mesh on the same records;
+      * train --mesh 1,1 --max_steps 2 at full width (GPT-2 124M, the
+        8-layer mapper, --only_prefix, --bf16, batch 30) from the smoke's
+        corpus: LIFECYCLE["train_steps"] finite losses in the state's
+        sidecar, no decode kernel launched (counted the same way).
+    Each must exit 0 with neither of UNCLOSED in its stderr. Returns the
+    wall seconds of each and of the phase."""
+    t0 = time.perf_counter()
+    n = LIFECYCLE["records"]
+    inputs = predict_inputs(embeds, f"{tmp}/lifecycle_inputs", n=n)
+    site = f"{tmp}/lifecycle_site"
+    os.makedirs(site)
+    kernels = {name: fn.__module__ for name, fn in counters().items()}
+    with open(f"{site}/sitecustomize.py", "w") as f:
+        f.write(LAUNCH_SITECUSTOMIZE.format(kernels=kernels))
+    log_dir, out = f"{tmp}/lifecycle", f"{tmp}/lifecycle_out"
+    predict_json = f"{out}/predict_mesh.json"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env.update(PYTHONPATH=os.pathsep.join(
+        [site, str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]),
+        CAPDEC_DATA_ROOT=inputs["root"])
+    launches_of = lambda tag: f"{log_dir}_{tag}.launches"
+    runs = {
+        "predict": ("capdec_tpu_torch.cli.predict", [
+            "--checkpoint", ckpt, "--infer_model_config",
+            "--embeddings_pickle", inputs["pkl"], "--score_gt", inputs["gt"],
+            "--batch_size", str(MAIN["N"]), "--out", predict_json,
+            "--dataset_mode", "0", "--mesh", "1"]),
+        "train": ("capdec_tpu_torch.cli.train", [
+            "--data", corpus, "--out_dir", f"{out}/train", "--mesh", "1,1",
+            "--max_steps", str(LIFECYCLE["train_steps"]), "--only_prefix",
+            "--bf16", "--bs", str(TRAIN["batch"]), "--noise_variance",
+            str(TRAIN["variance"]), "--lr", str(TRAIN["lr"]), "--epochs",
+            "1", "--prefix", "lifecycle"])}
+    runs = {tag: (module, argv, dict(env, CAPDEC_SMOKE_LAUNCHES=launches_of(
+        tag))) for tag, (module, argv) in runs.items()}
+    result = {}
+    with torchrun_clis(runs, log_dir) as wait:
+        # the same records in this process, no mesh, while they run
+        plain = predict_once(ckpt, inputs, f"{out}/predict_plain.json", [],
+                             BEAM_PATH, "lifecycle predict plain", n=n)
+        for tag in runs:
+            stdout, stderr, wall, rc = wait(tag)
+            require(rc == 0, f"lifecycle {tag} under torchrun exited {rc}:"
+                             f"\n{stdout[-2000:]}\n{stderr[-3000:]}")
+            for said in UNCLOSED:
+                require(said not in stderr, f"lifecycle {tag}: '{said}' in "
+                                            f"stderr:\n{stderr[-3000:]}")
+            result[tag] = dict(rc=rc, wall_s=wall)
+    with open(predict_json) as f:
+        written = json.load(f)
+    require(written == plain["written"] and len(written) == n,
+            f"lifecycle predict --mesh 1: {len(written)} captions, "
+            f"not the in-process run's")
+    for tag in runs:
+        launches = {name: 0 for name in kernels}
+        with open(launches_of(tag)) as f:
+            procs = [json.loads(line) for line in f]
+        for proc in procs:
+            for name, c in proc.items():
+                launches[name] += c
+        result[tag].update(launches=launches, processes=len(procs))
+    require_launch_set(result["predict"]["launches"], BEAM_PATH,
+                       "lifecycle predict --mesh 1")
+    require(not any(result["train"]["launches"].values()),
+            f"lifecycle train: decode kernels launched "
+            f"{result['train']['launches']}")
+    losses = np.load(f"{out}/train/epoch_losses_latest.npz")["losses"]
+    require(len(losses) == LIFECYCLE["train_steps"] and
+            np.isfinite(losses).all(), f"lifecycle train: losses {losses}")
+    result["predict"].update(captions=len(written), equal_to_plain=True)
+    result["train"].update(losses=losses.tolist())
+    result["phase_s"] = time.perf_counter() - t0
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The cache-api phase: GPT-2's single-cache API (init_kv_cache,
+# forward_with_cache) at full width
+# ---------------------------------------------------------------------------
+
+CACHE_API = dict(N=5, steps=26, S_max=MAIN["entry_length"])
+
+
+def cached_greedy(model, cfg, prefix, steps: int, S: int):
+    """Greedy decode through forward_with_cache: the prefix prefilled into
+    a cache of S slots, then `steps` one-token steps. Returns (tokens [N,
+    steps + 1], each step's f32 logits [N, steps + 1, V], prefill ms, ms a
+    decode step)."""
+    from capdec_tpu_torch.models import gpt2
+    N, K, _ = prefix.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = gpt2.init_kv_cache(cfg, N, S, device=DEVICE)
+    logits, cache = gpt2.forward_with_cache(model, cfg, prefix, cache, 0)
+    step_logits = [logits[:, -1]]
+    toks = [step_logits[-1].argmax(-1)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = gpt2.forward_with_cache(
+            model, cfg, gpt2.embed_tokens(model, toks[-1])[:, None], cache,
+            K + i)
+        step_logits.append(logits[:, 0])
+        toks.append(step_logits[-1].argmax(-1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.stack(toks, 1), torch.stack(step_logits, 1),
+            1e3 * (t1 - t0), 1e3 * (t2 - t1) / steps)
+
+
+@torch.no_grad()
+def cache_api_phase() -> dict:
+    """GPT-2 124M from the seed, CACHE_API["N"] rows of a MAIN["K"]-slot
+    prefix (random embeddings at wte's scale) prefilled into an
+    S_max = CACHE_API["S_max"] cache, then CACHE_API["steps"] greedy
+    decode steps through forward_with_cache:
+      * f32: each step's logits within 1e-4 relative (max |diff| over max
+        |logit|) of the full forward's on the prefix and the same tokens;
+      * bf16 (the decode cast of the weights, as the engines take them):
+        each step's logits within 2e-2 relative of the bf16 full
+        forward's, and the tokens equal to the greedy engine's
+        (decode/topp.py, default ToppConfig routes: plain attention math
+        and K1, no stop token) on the same prefix, but where a row meets
+        a rounding tie: final_logits rounds a bf16 product to bf16, as
+        the engine's prefill does, while K1 picks from f32 sums, so a row
+        may part from the engine's only at a step where the two tokens'
+        logits in the cached path lie within one bf16 ulp of the larger
+        (equal up to that step; `ties` lists them).
+    Returns the errors, the ties and the times."""
+    from capdec_tpu_torch.decode import topp
+    from capdec_tpu_torch.decode.beam import cast_params_for_decode
+    from capdec_tpu_torch.models import gpt2
+    t0 = time.perf_counter()
+    N, steps, S = (CACHE_API[k] for k in ("N", "steps", "S_max"))
+    shape = dict(vocab_size=MAIN["V"], n_embd=MAIN["D"], n_layer=MAIN["L"],
+                 n_head=MAIN["H"])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    f32 = gpt2.GPT2Config(**shape)
+    model = gpt2.init_params(gpt2.GPT2LMHeadModel(f32, device=DEVICE), f32,
+                             gen)
+    prefix = 0.02 * torch.randn(N, MAIN["K"], MAIN["D"], generator=gen,
+                                device=DEVICE)
+    toks, logits, prefill_ms, step_ms = cached_greedy(model, f32, prefix,
+                                                      steps, S)
+    full = gpt2.forward(model, f32, torch.cat(
+        [prefix, gpt2.embed_tokens(model, toks[:, :-1])], dim=1))
+    full = full[:, MAIN["K"] - 1:]
+    rel = ((logits - full).abs().amax(dim=(0, 2)) /
+           full.abs().amax(dim=(0, 2))).tolist()
+    require(len(rel) == steps + 1 and max(rel) <= 1e-4,
+            f"cache api f32: relative errors by step {rel}")
+    out = dict(f32=dict(max_rel_err=max(rel), prefill_ms=prefill_ms,
+                        ms_per_step=step_ms))
+
+    bf16 = gpt2.GPT2Config(**shape, compute_dtype=torch.bfloat16)
+    cast = cast_params_for_decode(model, bf16)
+    toks, logits, prefill_ms, step_ms = cached_greedy(cast, bf16, prefix,
+                                                      steps, S)
+    full = gpt2.forward(cast, bf16, torch.cat(
+        [prefix, gpt2.embed_tokens(cast, toks[:, :-1])], dim=1))
+    full = full[:, MAIN["K"] - 1:]
+    rel = ((logits - full).abs().amax(dim=(0, 2)) /
+           full.abs().amax(dim=(0, 2))).tolist()
+    require(max(rel) <= 2e-2, f"cache api bf16: relative errors by step "
+                              f"against the full forward {rel}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine, lengths = topp.greedy_topp_search(
+        cast, bf16, prefix, topp.ToppConfig(entry_length=steps + 1,
+                                            stop_token=-1,
+                                            extra_stop_token=-1))
+    torch.cuda.synchronize()
+    engine_ms = 1e3 * (time.perf_counter() - t1)
+    require(engine.shape == toks.shape and
+            bool((lengths == steps + 1).all()),
+            f"cache api bf16: engine tokens {tuple(engine.shape)}")
+    ties = []
+    for row in range(N):
+        parted = (engine[row] != toks[row]).nonzero()
+        if len(parted):
+            step = int(parted[0])
+            mine, theirs = (float(logits[row, step, t[row, step]])
+                            for t in (toks, engine))
+            ulp = 2.0 ** (math.floor(math.log2(max(abs(mine), 1e-30))) - 7)
+            require(mine - theirs <= ulp,
+                    f"cache api bf16: row {row} parts from the greedy "
+                    f"engine at step {step}, logits {mine} against "
+                    f"{theirs}: not a rounding tie")
+            ties.append(dict(row=row, step=step, logits=[mine, theirs]))
+    out["bf16"] = dict(max_rel_err=max(rel), rows_equal_to_engine=N - len(
+        ties), ties=ties, distinct_tokens=int(toks.unique().numel()),
+        prefill_ms=prefill_ms, ms_per_step=step_ms, engine_ms=engine_ms)
+    del model, cast
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3165,6 +3439,15 @@ def main() -> int:
                 k["tp2"] = meshed["tp2"][k["name"]]
         log(json.dumps({"phase": "mesh", "card": torch.cuda.get_device_name(0),
                         "nvidia_smi": smi, **meshed}))
+        torch.cuda.empty_cache()
+        log(json.dumps({"phase": "lifecycle",
+                        "card": torch.cuda.get_device_name(0),
+                        "nvidia_smi": smi, **lifecycle_phase(
+                            f"{tmp}/train_j/timed/smoke-000.pt", corpus,
+                            embeds, tmp)}))
+        log(json.dumps({"phase": "cache_api",
+                        "card": torch.cuda.get_device_name(0),
+                        "nvidia_smi": smi, **cache_api_phase()}))
         clipped, artifacts = clip_phase(tmp)
         for name, run in clipped["predict"].items():
             served[f"clip_predict_{name}"] = run
