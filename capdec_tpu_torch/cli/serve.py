@@ -9,7 +9,10 @@ Two request sources:
     it. Ctrl-C to stop.
 
 Results stream to stdout as JSON lines {"id": ..., "caption": ...}; the
-final line reports throughput. The GPT-2 size is read from the
+final line reports throughput (`captions_per_s` over the wall,
+`decode_captions_per_s` over the decoding thread's time), the latency
+and queue-wait percentiles, the decode steps run and the captions that
+stopped before entry_length. The GPT-2 size is read from the
 checkpoint's shapes; the mapper flags mirror cli/predict.py. `--no_beam`
 serves greedy/top-p captions (ToppConfig(entry_length=...)); `--int8_kv`
 serves beam search with the int8 generated KV cache (beam only, as in the
@@ -204,6 +207,9 @@ def _serve(args, server) -> None:
             'latency_p50_s': round(pct['p50'], 4),
             'latency_p95_s': round(pct['p95'], 4),
             'latency_p99_s': round(pct['p99'], 4),
+            'queue_wait_p95_s': round(pct['wait_p95'], 4),
+            'decode_steps': server.stats['decode_steps'],
+            'captions_stopped': server.stats['captions_stopped'],
         }), flush=True)
         return
 

@@ -45,7 +45,9 @@ Every path of the JAX engine (`_beam_search_impl`, beam.py:271-553):
     attention math), then the fused LM head with top-R and logsumexp
     (kernel K1), or under a temperature the logits, scaled, with their
     logsumexp and top-R; then the selection on the R*R-candidate
-    shortlist.
+    shortlist, and the read of the stop flag. Each step is the span
+    `decode.step` (its `step`), from its first launch to the end of that
+    read (`decode.stop_flag`, utils/profiling.py).
 The JAX engine's one-hot contractions (TPU gather workarounds) are plain
 indexing here; the loop is a Python loop. The out-of-place gathers
 (K10, K11) take a fresh output cache from PyTorch's caching allocator
@@ -65,6 +67,7 @@ import torch
 from . import staging
 from ..models import gpt2
 from ..ops import cache_reorder, lm_head
+from ..utils import profiling
 from ..utils.tokenizer import GPT2_DOT_TOKEN
 
 NEG = -1e30
@@ -382,64 +385,70 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
 
     i = 1
     for cap in buckets:
-        if i >= E or bool(is_stopped.all()):
+        if i >= E or staging.all_stopped(is_stopped):
             break  # done: later stages neither run nor grow the cache
         if gen_cache["k"].shape[2] < cap:
             gen_cache = staging.grow_cache(
                 gen_cache, init_cache(cfg, N * R, cap, device=dev))
-        while i < E and i <= cap and not bool(is_stopped.all()):
-            if use_lanes:
-                # slots 0..i-2 are live history; decode_step writes i-1
-                gen_cache = lane_fixup(gen_cache, pending_src, i - 1)
-            anc_rows = None if anc is None else \
-                (image_base[:, :, None] + anc).reshape(N * R, E_pad)
-            out = gpt2.decode_step(model, cfg, cur, prefix_cache, gen_cache,
-                                   i - 1, e_cap=cap, anc_rows=anc_rows,
-                                   **step_kw)
-            # Per-beam shortlist: adding the beam's score and dividing by
-            # its length are monotonic within a beam, so the flat top-R
-            # over beam x vocab picks only from each beam's own top-R.
-            if bc.fused_lm_head:
-                cand_val, cand_tok, lse = topk(out, wte, R)
-            else:  # `out` is the f32 logits
-                logits = out if inv_t is None else out * inv_t
-                lse = torch.logsumexp(logits, dim=-1)
-                cand_val, cand_tok = lm_head._top_k(logits, R)
-            cand_logp = (cand_val - lse[:, None]).reshape(N, R, R)
-            cand_tok = cand_tok.reshape(N, R, R)
-            stopped = is_stopped[:, :, None]
-            cand_logp = torch.where(stopped, NEG, cand_logp)
-            cand_logp[:, :, 0] = torch.where(is_stopped, 0.0,
-                                             cand_logp[:, :, 0])
-            cand_tok = torch.where(stopped, 0, cand_tok)
-            scores_sum = scores[:, :, None] + cand_logp        # [N, R, R]
-            seq_lengths = seq_lengths + (~is_stopped).float()
-            avg = scores_sum / seq_lengths[:, :, None]
-            top_avg, flat_idx = lm_head._top_k(avg.reshape(N, R * R), R)
-            src = flat_idx // R                                # [N, W]
-            nxt = cand_tok.reshape(N, R * R).gather(1, flat_idx)
-            seq_lengths = seq_lengths.gather(1, src)
-            is_stopped = is_stopped.gather(1, src)
-            tokens = _take_rows(tokens, src)
-            if use_lanes:
-                lane_of_rank = _assign_lanes(src, R)
-                nxt, seq_lengths, is_stopped, tokens, top_avg = (
-                    _to_lane(x, lane_of_rank) for x in
-                    (nxt, seq_lengths, is_stopped, tokens, top_avg))
-                pending_src = (image_base
-                               + _to_lane(src, lane_of_rank)).reshape(-1)
-            elif anc is not None:
-                # no cache movement: slot i-1 was written row-identically
-                anc[:, :, i - 1] = torch.arange(R, device=dev)
-                anc = _take_rows(anc, src)
-            else:
-                gen_cache = gather(gen_cache, (image_base + src).reshape(-1))
-            scores = top_avg * seq_lengths
-            tokens[:, :, i] = nxt
-            is_stopped = is_stopped | (nxt == bc.stop_token)
-            cur = gpt2.embed_tokens(model, nxt.reshape(N * R))
-            i += 1
+        more = i < E and i <= cap and not staging.all_stopped(is_stopped)
+        while more:
+            with profiling.span("decode.step", step=i):
+                if use_lanes:
+                    # slots 0..i-2 are live history; decode_step writes i-1
+                    gen_cache = lane_fixup(gen_cache, pending_src, i - 1)
+                anc_rows = None if anc is None else \
+                    (image_base[:, :, None] + anc).reshape(N * R, E_pad)
+                out = gpt2.decode_step(model, cfg, cur, prefix_cache,
+                                       gen_cache, i - 1, e_cap=cap,
+                                       anc_rows=anc_rows, **step_kw)
+                # Per-beam shortlist: adding the beam's score and dividing by
+                # its length are monotonic within a beam, so the flat top-R
+                # over beam x vocab picks only from each beam's own top-R.
+                if bc.fused_lm_head:
+                    cand_val, cand_tok, lse = topk(out, wte, R)
+                else:  # `out` is the f32 logits
+                    logits = out if inv_t is None else out * inv_t
+                    lse = torch.logsumexp(logits, dim=-1)
+                    cand_val, cand_tok = lm_head._top_k(logits, R)
+                cand_logp = (cand_val - lse[:, None]).reshape(N, R, R)
+                cand_tok = cand_tok.reshape(N, R, R)
+                stopped = is_stopped[:, :, None]
+                cand_logp = torch.where(stopped, NEG, cand_logp)
+                cand_logp[:, :, 0] = torch.where(is_stopped, 0.0,
+                                                 cand_logp[:, :, 0])
+                cand_tok = torch.where(stopped, 0, cand_tok)
+                scores_sum = scores[:, :, None] + cand_logp        # [N, R, R]
+                seq_lengths = seq_lengths + (~is_stopped).float()
+                avg = scores_sum / seq_lengths[:, :, None]
+                top_avg, flat_idx = lm_head._top_k(avg.reshape(N, R * R), R)
+                src = flat_idx // R                                # [N, W]
+                nxt = cand_tok.reshape(N, R * R).gather(1, flat_idx)
+                seq_lengths = seq_lengths.gather(1, src)
+                is_stopped = is_stopped.gather(1, src)
+                tokens = _take_rows(tokens, src)
+                if use_lanes:
+                    lane_of_rank = _assign_lanes(src, R)
+                    nxt, seq_lengths, is_stopped, tokens, top_avg = (
+                        _to_lane(x, lane_of_rank) for x in
+                        (nxt, seq_lengths, is_stopped, tokens, top_avg))
+                    pending_src = (image_base
+                                   + _to_lane(src, lane_of_rank)).reshape(-1)
+                elif anc is not None:
+                    # no cache movement: slot i-1 was written row-identically
+                    anc[:, :, i - 1] = torch.arange(R, device=dev)
+                    anc = _take_rows(anc, src)
+                else:
+                    gen_cache = gather(gen_cache,
+                                       (image_base + src).reshape(-1))
+                scores = top_avg * seq_lengths
+                tokens[:, :, i] = nxt
+                is_stopped = is_stopped | (nxt == bc.stop_token)
+                cur = gpt2.embed_tokens(model, nxt.reshape(N * R))
+                i += 1
+                more = i < E and i <= cap and \
+                    not staging.all_stopped(is_stopped)
 
+    staging.add_steps(i - 1)
     # restore the reference's rank ordering of the returned beams
     tokens = _take_rows(tokens, lane_of_rank)
     seq_lengths = seq_lengths.gather(1, lane_of_rank)

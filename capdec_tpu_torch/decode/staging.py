@@ -7,13 +7,19 @@ read bound (`e_cap`) of a cache allocated once at full size, or the size
 of a cache that grows between stages (`grow_cache`), so early steps read
 and fork-copy a small cache. Boundary contract: the loop counter `i` is
 one past the slot being written (`step = i - 1`), and a stage with bucket
-`cap` runs while `i <= cap`, so `step < cap`.
+`cap` runs while `i <= cap`, so `step < cap`. Between the steps the
+loop reads back whether every row has stopped (`all_stopped`, the one host
+sync of a step), and the engines count the steps they run, per thread
+(`steps_run`).
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, List
 
 import torch
+
+from ..utils import profiling
 
 
 def stage_buckets(e_pad: int, stages: int, align: int = 8) -> List[int]:
@@ -53,3 +59,22 @@ def grow_cache(gen_cache: Dict[str, torch.Tensor],
                              f"{big.dtype}")
         big[tuple(slice(0, n) for n in old.shape)] = old
     return bigger
+
+
+_steps = threading.local()
+
+
+def add_steps(n: int) -> None:
+    _steps.n = steps_run() + n
+
+
+def steps_run() -> int:
+    """Decode steps the beam and greedy engines have run on this thread."""
+    return getattr(_steps, "n", 0)
+
+
+def all_stopped(stopped: torch.Tensor) -> bool:
+    """Whether every row has stopped: a read of the device by the host,
+    recorded as the span `decode.stop_flag`."""
+    with profiling.span("decode.stop_flag"):
+        return bool(stopped.all())

@@ -13,7 +13,9 @@ caps the decode.
 
 The engine decodes in stages over a generated cache that grows between
 them (`staging.stage_buckets`, `staging.grow_cache`) and stops growing
-once every row has stopped. Routes of the decode step:
+once every row has stopped. Each step is the span `decode.step`, and
+each read of the stop flag `decode.stop_flag`, as in the beam engine.
+Routes of the decode step:
   * default (`fused_attention=False`): a seq-major cache [L, B, E, D].
     Its attention is plain PyTorch math, the counterpart of the JAX XLA
     path, which has no Pallas kernel; the slot write is plain, or kernel
@@ -41,6 +43,7 @@ from . import staging
 from .beam import SLOT_ALIGN, cast_params_for_decode
 from ..models import gpt2
 from ..ops import lm_head
+from ..utils import profiling
 from ..utils.tokenizer import GPT2_DOT_TOKEN, GPT2_SPACE_DOT_TOKEN
 
 
@@ -149,29 +152,33 @@ def _greedy_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
 
     i = 1
     for cap in buckets:
-        if i >= E or bool(stopped.all()):
+        if i >= E or staging.all_stopped(stopped):
             break  # done: later stages neither run nor grow the cache
         if gen_cache["k"].shape[2] < cap:
             gen_cache = staging.grow_cache(
                 gen_cache, init_cache(cfg, N, cap, device=dev))
-        while i < E and i <= cap and not bool(stopped.all()):
-            out = gpt2.decode_step(
-                model, cfg, cur, prefix_cache, gen_cache, i - 1,
-                rowmajor=fused, fused_attention=fused and kernels,
-                chunk_slot_write=bool(tc.chunk_slot_write) and kernels,
-                fused_slot_chunks=chunks,
-                return_hidden=bool(tc.fused_lm_head))
-            if tc.fused_lm_head:
-                nxt = topk(out, wte, 1)[1][:, 0]
-            else:
-                nxt = _pick(out, tc, generator)
-            alive = ~stopped
-            tokens[:, i] = torch.where(alive, nxt, 0)
-            lengths += alive.long()
-            stopped = stopped | (alive & ((nxt == tc.stop_token)
-                                          | (nxt == tc.extra_stop_token)))
-            cur = gpt2.embed_tokens(model, nxt)
-            i += 1
+        more = i < E and i <= cap and not staging.all_stopped(stopped)
+        while more:
+            with profiling.span("decode.step", step=i):
+                out = gpt2.decode_step(
+                    model, cfg, cur, prefix_cache, gen_cache, i - 1,
+                    rowmajor=fused, fused_attention=fused and kernels,
+                    chunk_slot_write=bool(tc.chunk_slot_write) and kernels,
+                    fused_slot_chunks=chunks,
+                    return_hidden=bool(tc.fused_lm_head))
+                if tc.fused_lm_head:
+                    nxt = topk(out, wte, 1)[1][:, 0]
+                else:
+                    nxt = _pick(out, tc, generator)
+                alive = ~stopped
+                tokens[:, i] = torch.where(alive, nxt, 0)
+                lengths += alive.long()
+                stopped = stopped | (alive & ((nxt == tc.stop_token)
+                                              | (nxt == tc.extra_stop_token)))
+                cur = gpt2.embed_tokens(model, nxt)
+                i += 1
+                more = i < E and i <= cap and not staging.all_stopped(stopped)
+    staging.add_steps(i - 1)
     return tokens, lengths
 
 

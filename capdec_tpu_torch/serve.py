@@ -14,8 +14,18 @@ batches:
     host) before it finishes batch k (device->host copy of the rank-0
     beams and detokenization), so a finished batch is yielded while the
     next one decodes.
-  * Per-request latency (enqueue -> caption yielded); p50/p95/p99 via
-    `latency_percentiles()`.
+  * Per-request latency (enqueue -> caption yielded) and queue wait
+    (enqueue -> launch); their percentiles via `latency_percentiles()`.
+  * Counters in `stats`: batches, requests, `decode_s` (the decoding
+    thread's time in `_decode`), `batch_span_s` (launch -> finish, summed
+    over batches), `decode_steps` (the engine's steps, summed over
+    batches) and `captions_stopped` (captions that ended at the stop
+    token before entry_length).
+  * Spans (utils/profiling.py, recorded while a profiler is open), each
+    with its batch's id: `serve.collect` (the queue reads, the batch
+    build and its launch), `serve.finish` (the wait, the copy to the host
+    and `serve.detokenize`) on the serving thread, and `decode.batch` on
+    the decoding thread, around the engine's `decode.step` spans.
 
 The decode engine is the beam engine with its BeamConfig knobs (the int8
 KV cache and the slot-bounded kernels included), or with `beam=False`
@@ -43,9 +53,11 @@ import torch.distributed as dist
 
 from .decode import (BeamConfig, ToppConfig, beam_search, beam_top_select,
                      greedy_topp_search)
+from .decode import staging
 from .decode.beam import cast_params_for_decode
 from .models import caption_model
 from .parallel import mesh as mesh_lib
+from .utils import profiling
 from .utils.torch_setup import resolve_device
 
 # Latency samples kept for the percentile report (the latest ones).
@@ -71,6 +83,11 @@ class ServeConfig:
     mesh: Optional[Any] = None
     beam_config: BeamConfig = dataclasses.field(default_factory=BeamConfig)
     topp_config: ToppConfig = dataclasses.field(default_factory=ToppConfig)
+
+
+def _fresh_stats() -> Dict[str, Any]:
+    return {"batches": 0, "requests": 0, "decode_s": 0.0,
+            "batch_span_s": 0.0, "decode_steps": 0, "captions_stopped": 0}
 
 
 def _l2norm(x, axis=-1):
@@ -113,26 +130,35 @@ class CaptionServer:
         self._queue: "queue.Queue[Any]" = queue.Queue(
             maxsize=max(0, cfg.max_queue))
         self._latencies: List[float] = []
-        self.stats = {"batches": 0, "requests": 0, "decode_s": 0.0,
-                      "batch_span_s": 0.0}
+        self._waits: List[float] = []
+        # the id of the next batch launched (its spans' `batch`)
+        self._next_batch = 0
+        self.stats = _fresh_stats()
 
     def warmup(self) -> None:
         """Run one batch before serving traffic (excluded from the
         serving stats)."""
         self.caption(np.zeros((1, self._model_cfg.prefix_size), np.float32))
-        self.stats = {"batches": 0, "requests": 0, "decode_s": 0.0,
-                      "batch_span_s": 0.0}
+        self.stats = _fresh_stats()
         self._latencies = []
+        self._waits = []
 
-    def _decode(self, x: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _decode(self, x: np.ndarray, batch: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Caption tokens [N, E] and lengths [N] of the padded batch: the
         rank-0 beams, selected on the device, or the greedy rows. Under a
-        mesh, rank 0 hands the batch to the followers first."""
-        x = torch.from_numpy(x).to(self._device)
-        if self._mesh is not None:
-            self._broadcast_header(_DECODE, len(x))
-            dist.broadcast(x, src=0)
-        return self._decode_rows(x)
+        mesh, rank 0 hands the batch to the followers first. Its time is
+        `stats["decode_s"]` (the engine reads a flag back every step, so
+        it returns within a step's device time of the decode's end)."""
+        t0 = time.perf_counter()
+        with profiling.span("decode.batch", batch=batch):
+            x = torch.from_numpy(x).to(self._device)
+            if self._mesh is not None:
+                self._broadcast_header(_DECODE, len(x))
+                dist.broadcast(x, src=0)
+            out = self._decode_rows(x)
+        self.stats["decode_s"] += time.perf_counter() - t0
+        return out
 
     def _decode_rows(self, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,6 +166,7 @@ class CaptionServer:
         gathered back over dp under a mesh."""
         mesh = self._mesh
         rows = x if mesh is None else mesh_lib.shard_batch(x, mesh)
+        steps = staging.steps_run()
         prefix = caption_model.map_prefix(self._model, self._model_cfg,
                                           rows)
         if not self._cfg.beam:
@@ -150,6 +177,7 @@ class CaptionServer:
                 self._gpt, self._model_cfg.gpt2, prefix,
                 self._cfg.beam_config)
             toks, lens = beam_top_select(toks, lens, order)
+        self.stats["decode_steps"] += staging.steps_run() - steps
         if mesh is None:
             return toks, lens
         return (mesh_lib.gather_batch(toks, mesh),
@@ -189,27 +217,33 @@ class CaptionServer:
         copies the rank-0 beams to the host and detokenizes the n
         captions. The decode loop drives the card from the host step by
         step, so the decode runs on `pool`'s thread when one is given (the
-        serve loop's batch in flight) and here otherwise."""
+        serve loop's batch in flight) and here otherwise. The batch takes
+        the next batch id."""
         cfg = self._cfg
         n, D = embeds.shape
         if n > cfg.batch_size:
             raise ValueError(f"{n} requests > batch_size {cfg.batch_size}")
+        batch = self._next_batch
+        self._next_batch += 1
         x = np.zeros((cfg.batch_size, D), np.float32)
         x[:n] = embeds
         if cfg.normalize_prefix:
             x = _l2norm(x)
         if pool is not None:
-            result = pool.submit(self._decode, x).result
+            result = pool.submit(self._decode, x, batch).result
         else:
-            done = self._decode(x)
+            done = self._decode(x, batch)
             result = lambda: done
+        E = (cfg.beam_config if cfg.beam else cfg.topp_config).entry_length
 
         def finish() -> List[str]:
             top_toks, top_lens = result()
             t = top_toks.cpu().numpy()
             ln = top_lens.cpu().numpy()
-            return [self._tokenizer.decode(t[i, :int(ln[i])])
-                    for i in range(n)]
+            self.stats["captions_stopped"] += int((ln[:n] < E).sum())
+            with profiling.span("serve.detokenize"):
+                return [self._tokenizer.decode(t[i, :int(ln[i])])
+                        for i in range(n)]
 
         self.stats["batches"] += 1
         self.stats["requests"] += n
@@ -217,10 +251,7 @@ class CaptionServer:
 
     def caption(self, embeds: np.ndarray) -> List[str]:
         """Caption `embeds` [n, D], n <= batch_size. Synchronous."""
-        t0 = time.perf_counter()
-        texts = self._launch(embeds)()
-        self.stats["decode_s"] += time.perf_counter() - t0
-        return texts
+        return self._launch(embeds)()
 
     def submit(self, rid: Any, embed: np.ndarray) -> None:
         """Inject a request into a running serve() loop (thread-safe;
@@ -261,75 +292,85 @@ class CaptionServer:
         cfg = self._cfg
         q = self._queue
         done = False
-        # (ids, arrivals, finisher, launch time) of the batch in flight
-        pending: Optional[Tuple[List[Any], List[float], Callable, float]] = None
+        # (ids, arrivals, launch time, finisher, launch time on the
+        # perf_counter clock, batch id) of the batch in flight
+        pending: Optional[Tuple[List[Any], List[float], float, Callable,
+                                float, int]] = None
         while not done or pending is not None:
-            batch: List[Tuple[Any, np.ndarray, float]] = []
-            deadline = None
-            while not done and len(batch) < cfg.batch_size:
-                if deadline is not None:
-                    timeout = max(0.0, deadline - time.monotonic())
-                elif pending is not None:
-                    timeout = 0.0  # drain what's queued; don't hold the
-                    #                finished batch waiting for traffic
-                else:
-                    timeout = None
-                try:
-                    item = q.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if item is None:  # requests iterable exhausted
-                    if stop_on_exhaust:
+            launched = None
+            with profiling.span("serve.collect", batch=self._next_batch):
+                batch: List[Tuple[Any, np.ndarray, float]] = []
+                deadline = None
+                while not done and len(batch) < cfg.batch_size:
+                    if deadline is not None:
+                        timeout = max(0.0, deadline - time.monotonic())
+                    elif pending is not None:
+                        timeout = 0.0  # drain what's queued; don't hold the
+                        #                finished batch waiting for traffic
+                    else:
+                        timeout = None
+                    try:
+                        item = q.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if item is None:  # requests iterable exhausted
+                        if stop_on_exhaust:
+                            done = True
+                            break
+                        continue  # keep waiting for submit()/shutdown()
+                    if item is _Shutdown:
                         done = True
                         break
-                    continue  # keep waiting for submit()/shutdown()
-                if item is _Shutdown:
-                    done = True
-                    break
-                batch.append(item)
-                if deadline is None:
-                    deadline = time.monotonic() + cfg.max_wait_s
-            launched = None
-            if batch:
-                ids = [i for i, _, _ in batch]
-                arrivals = [a for _, _, a in batch]
-                embeds = np.stack([e for _, e, _ in batch]).astype(
-                    np.float32)
-                t_launch = time.perf_counter()
-                launched = (ids, arrivals, self._launch(embeds, pool),
-                            t_launch)
+                    batch.append(item)
+                    if deadline is None:
+                        deadline = time.monotonic() + cfg.max_wait_s
+                if batch:
+                    ids = [i for i, _, _ in batch]
+                    arrivals = [a for _, _, a in batch]
+                    embeds = np.stack([e for _, e, _ in batch]).astype(
+                        np.float32)
+                    b = self._next_batch
+                    t_launch = time.perf_counter()
+                    launched = (ids, arrivals, time.monotonic(),
+                                self._launch(embeds, pool), t_launch, b)
             if pending is not None:
-                p_ids, p_arrivals, finish, t_launch = pending
-                t0 = time.perf_counter()
-                texts = finish()
-                t_fin = time.perf_counter()
-                # decode_s: the blocking finish() only; batch_span_s: the
-                # launch -> finish interval of each batch. End-to-end
-                # throughput is served / wall, measured by the caller.
-                self.stats["decode_s"] += t_fin - t0
-                self.stats["batch_span_s"] += t_fin - t_launch
+                p_ids, p_arrivals, t_queue, finish, t_launch, p_b = pending
+                with profiling.span("serve.finish", batch=p_b):
+                    texts = finish()
+                # batch_span_s: the launch -> finish interval of each
+                # batch. End-to-end throughput is served / wall, measured
+                # by the caller.
+                self.stats["batch_span_s"] += time.perf_counter() - t_launch
                 t_done = time.monotonic()
                 for arr in p_arrivals:
                     self._latencies.append(t_done - arr)
+                    self._waits.append(t_queue - arr)
                 if len(self._latencies) > LATENCY_WINDOW:
                     del self._latencies[:-LATENCY_WINDOW]
+                    del self._waits[:-LATENCY_WINDOW]
                 for rid, text in zip(p_ids, texts):
                     yield rid, text
             pending = launched
 
     def latency_percentiles(self) -> Dict[str, float]:
-        """p50/p95/p99 request latency (seconds, enqueue -> yield) over
-        the latest LATENCY_WINDOW served requests."""
+        """p50/p95/p99 request latency (seconds, enqueue -> yield) and the
+        p50/p95 queue wait (`wait_p50`, `wait_p95`: enqueue -> launch)
+        over the latest LATENCY_WINDOW served requests."""
         if not self._latencies:
-            return {"p50": 0.0, "p95": 0.0, "p99": 0.0, "n": 0}
+            return {"p50": 0.0, "p95": 0.0, "p99": 0.0, "n": 0,
+                    "wait_p50": 0.0, "wait_p95": 0.0}
         arr = np.asarray(self._latencies)
+        wait = np.asarray(self._waits)
         return {"p50": float(np.percentile(arr, 50)),
                 "p95": float(np.percentile(arr, 95)),
                 "p99": float(np.percentile(arr, 99)),
-                "n": int(arr.size)}
+                "n": int(arr.size),
+                "wait_p50": float(np.percentile(wait, 50)),
+                "wait_p95": float(np.percentile(wait, 95))}
 
     def throughput(self) -> float:
-        """requests / decode_s (see serve() for what decode_s counts);
-        use served / wall for end-to-end serving throughput."""
+        """requests / decode_s: the decode rate, decode_s being the
+        decoding thread's time in `_decode`; use served / wall for
+        end-to-end serving throughput."""
         s = self.stats
         return s["requests"] / s["decode_s"] if s["decode_s"] else 0.0

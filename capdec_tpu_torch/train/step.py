@@ -6,6 +6,11 @@ buffers; here it runs eagerly and updates the train state in place. The
 state is a dict {model, optimizer, scheduler, step}. The step's noise is
 a pure function of (base seed, global step), the counterpart of
 `fold_in(key, step)`: a resumed run draws the same noise.
+
+Spans (utils/profiling.py, recorded while a profiler is open): `train.step`
+(its `step`) around `train.forward` (the batch's copy to the device, the
+noise, the forward pass and the loss), `train.backward` (the backward
+pass, and the dp sums under a mesh) and `train.optimizer`.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from ..models import caption_model
 from ..ops import noise as noise_ops
 from ..parallel import mesh as mesh_lib
+from ..utils import profiling
 from . import optim as optim_lib
 
 
@@ -61,33 +67,36 @@ def loss_and_grads(state, cfg: caption_model.CaptionModelConfig,
     then add up to the global masked mean, whatever tokens each rank
     holds; the returned loss is that sum."""
     model = state["model"]
-    b = _batch(batch, _device(model))
-    offset = noise_cfg.modality_offset
-    if offset is not None:
-        offset = torch.as_tensor(offset, device=b["prefix"].device,
-                                 dtype=torch.float32)
-    gen = None
-    if draws is None and noise_cfg.variance != 0.0:
-        gen = torch.Generator(device=b["prefix"].device)
-        gen.manual_seed(noise_seed(seed, state["step"]))
-    prefix = noise_ops.noise_injection(
-        b["prefix"], variance=noise_cfg.variance,
-        modality_offset=offset, uniform_noise=noise_cfg.uniform_noise,
-        dont_norm=noise_cfg.dont_norm, generator=gen, **(draws or {}))
-    if mesh is None:
-        # the fused loss: the LM head runs only over the scored slice
-        loss = caption_model.loss_forward(model, cfg, b["tokens"], prefix,
-                                          b["mask"])
+    with profiling.span("train.forward"):
+        b = _batch(batch, _device(model))
+        offset = noise_cfg.modality_offset
+        if offset is not None:
+            offset = torch.as_tensor(offset, device=b["prefix"].device,
+                                     dtype=torch.float32)
+        gen = None
+        if draws is None and noise_cfg.variance != 0.0:
+            gen = torch.Generator(device=b["prefix"].device)
+            gen.manual_seed(noise_seed(seed, state["step"]))
+        prefix = noise_ops.noise_injection(
+            b["prefix"], variance=noise_cfg.variance,
+            modality_offset=offset, uniform_noise=noise_cfg.uniform_noise,
+            dont_norm=noise_cfg.dont_norm, generator=gen, **(draws or {}))
+        if mesh is None:
+            # the fused loss: the LM head runs only over the scored slice
+            loss = caption_model.loss_forward(model, cfg, b["tokens"],
+                                              prefix, b["mask"])
+        else:
+            rows = mesh_lib.shard_batch({**b, "prefix": prefix}, mesh)
+            s, v = caption_model.loss_sums(model, cfg, rows["tokens"],
+                                           rows["prefix"], rows["mask"])
+            loss = s / mesh_lib.dp_sum(v, mesh).clamp_min(1.0)
+    with profiling.span("train.backward"):
         loss.backward()
-        return loss.detach()
-    rows = mesh_lib.shard_batch({**b, "prefix": prefix}, mesh)
-    s, v = caption_model.loss_sums(model, cfg, rows["tokens"],
-                                   rows["prefix"], rows["mask"])
-    loss = s / mesh_lib.dp_sum(v, mesh).clamp_min(1.0)
-    loss.backward()
-    mesh_lib.all_reduce_grads(
-        (p for p in model.parameters() if p.requires_grad), mesh)
-    return mesh_lib.dp_sum(loss, mesh)
+        if mesh is None:
+            return loss.detach()
+        mesh_lib.all_reduce_grads(
+            (p for p in model.parameters() if p.requires_grad), mesh)
+        return mesh_lib.dp_sum(loss, mesh)
 
 
 def make_train_step(cfg: caption_model.CaptionModelConfig,
@@ -106,9 +115,12 @@ def make_train_step(cfg: caption_model.CaptionModelConfig,
     tp = None if mesh is None else mesh.tp_handle
 
     def step_fn(state, batch, seed: int, draws=None):
-        loss = loss_and_grads(state, cfg, noise_cfg, batch, seed, draws,
-                              mesh)
-        optim_lib.apply_updates(state["optimizer"], state["scheduler"], tp)
+        with profiling.span("train.step", step=state["step"]):
+            loss = loss_and_grads(state, cfg, noise_cfg, batch, seed, draws,
+                                  mesh)
+            with profiling.span("train.optimizer"):
+                optim_lib.apply_updates(state["optimizer"],
+                                        state["scheduler"], tp)
         state["step"] += 1
         return state, loss
 

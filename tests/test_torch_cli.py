@@ -100,11 +100,14 @@ def test_serve_cli_prints_the_jax_clis_captions(saved, tmp_path, capsys,
              "--num_layers", "2", "--mapping_type", "transformer",
              "--beam_size", "3", "--entry_length", "8"]
 
+    summaries = []
+
     def captions():
         lines = [json.loads(x) for x in
                  capsys.readouterr().out.strip().splitlines()]
         summary = [x for x in lines if "captions_per_s" in x]
         assert summary and summary[0]["served"] == 6
+        summaries.append(summary[0])
         return {x["id"]: x["caption"] for x in lines if "caption" in x}
 
     # the JAX CLI builds a full-size GPT-2 config; give it the tiny one
@@ -116,6 +119,11 @@ def test_serve_cli_prints_the_jax_clis_captions(saved, tmp_path, capsys,
     cli.main(flags + ["--device", "cpu"])
     assert captions() == want
     assert len(want) == 6
+    # the port's summary adds the queue wait, the steps and the early stops
+    port = summaries[-1]
+    assert 0 <= port["queue_wait_p95_s"] <= port["latency_p95_s"]
+    assert 2 <= port["decode_steps"] <= 2 * 7     # two batches, E - 1 each
+    assert 0 <= port["captions_stopped"] <= 6
     # a mesh larger than the world (one process here) is refused
     with pytest.raises(ValueError, match="device count 1"):
         cli.main(flags + ["--device", "cpu", "--mesh=2"])

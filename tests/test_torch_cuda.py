@@ -36,7 +36,9 @@ ancestry and temperature paths, and a beam of 33 on the K2, K6 and K8
 routes) and greedy searches (every route) in f32 give identical tokens through the kernels and through the plain versions
 (int8: a token share of at least 0.98). The CLIP towers (no hand-written
 kernel) at full width, RN50x4 and ViT-B/32, text and image, card against
-CPU in f32 within 1e-4 relative L2.
+CPU in f32 within 1e-4 relative L2. The program's spans
+(utils/profiling.py) and the profiler's device events on one clock: a
+kernel launched inside a span that ends in a synchronise runs inside it.
 """
 import pathlib
 import subprocess
@@ -48,6 +50,7 @@ import torch
 from capdec_tpu_torch.decode import beam
 from capdec_tpu_torch.models import caption_model, gpt2
 from capdec_tpu_torch.ops import cache_reorder, decode_attention, lm_head
+from capdec_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -887,3 +890,24 @@ def test_clip_towers_full_width_card_matches_cpu(dev, name, tower):
     got = getattr(card, encode)(x.to(dev)).cpu().double()
     assert torch.isfinite(got).all()
     assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+def test_kernel_runs_inside_the_span_that_issued_and_synchronised_it(dev):
+    a = torch.randn(2048, 2048, device=dev)
+    torch.cuda.synchronize()
+    profiling.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with profiling.span("issue"):
+                (a @ a).relu_()
+                torch.cuda.synchronize()
+        sp, = profiling.spans()
+    finally:
+        profiling.clear()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) >= 2
+    for e in kernels:
+        assert sp.start_ns <= e.start_ns() <= e.end_ns() <= sp.end_ns, \
+            e.name()
