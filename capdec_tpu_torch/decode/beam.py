@@ -367,7 +367,8 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
             or bc.kv_cache_int8),
         slot_write_kernel=kernels and bool(bc.pallas_slot_write)
         and bc.rowmajor_cache,
-        fused_slot_chunks=chunks, return_hidden=bool(bc.fused_lm_head))
+        fused_slot_chunks=chunks, return_hidden=bool(bc.fused_lm_head),
+        fused_epilogues=kernels)
     # rank -> lane map of the latest selection (identity at step 0, where
     # ranks ARE lanes, and outside lane mode); restores rank order at the
     # end.

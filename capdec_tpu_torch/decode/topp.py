@@ -165,7 +165,8 @@ def _greedy_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
                     rowmajor=fused, fused_attention=fused and kernels,
                     chunk_slot_write=bool(tc.chunk_slot_write) and kernels,
                     fused_slot_chunks=chunks,
-                    return_hidden=bool(tc.fused_lm_head))
+                    return_hidden=bool(tc.fused_lm_head),
+                    fused_epilogues=kernels)
                 if tc.fused_lm_head:
                     nxt = topk(out, wte, 1)[1][:, 0]
                 else:

@@ -18,9 +18,13 @@ the block `prefill` shares. Two functions carry the beam-decode path:
   * `decode_step` is the JAX `decode_step`: per layer ln_1 -> QKV ->
     decode attention (ops/decode_attention.py) -> c_proj -> ln_2 -> MLP,
     then one slot write of the step's K/V for all layers
-    (ops/cache_reorder.py), in place. The beam engine's row-major cache
-    [B, L, E, D] takes kernel K2 and the slot write K3 (or K14), or the
-    slot-bounded K8 (`fused_slot_chunks`); an int8 generated cache
+    (ops/cache_reorder.py), in place. Its blocks run `_decode_block`: the
+    products by `torch.mm` in the compute dtype, the work between them
+    as the fused epilogues of ops/epilogue.py (bias adds, casts, GELU,
+    residual sums, layernorms), which round where `_block` rounds. The
+    beam engine's row-major cache [B, L, E, D] takes kernel K2 and the
+    slot write K3 (or K14), or the slot-bounded K8 (`fused_slot_chunks`);
+    an int8 generated cache
     (`init_gen_cache_rowmajor_int8`: levels plus per-slot scales) takes
     K6 or K9 and the quantising slot write K5, and K9 also reads an int8
     prefix cache (`quantize_prefix_cache`). The seq-major cache
@@ -53,7 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import cache_reorder, decode_attention
+from ..ops import cache_reorder, decode_attention, epilogue
 
 Cache = Dict[str, torch.Tensor]
 
@@ -580,6 +584,87 @@ def _decode_routes(prefix_cache: Cache, gen_cache: Cache, *, rowmajor: bool,
     return attend, kw, write
 
 
+def _w(layer: Conv1D, cdt: torch.dtype) -> torch.Tensor:
+    """A product's weight in the compute dtype (as cast for decode)."""
+    w = layer.weight
+    return w if w.dtype == cdt else w.to(cdt)
+
+
+def _f32(p: torch.Tensor) -> torch.Tensor:
+    return p if p.dtype == torch.float32 else p.float()
+
+
+def _ln_args(ln: nn.LayerNorm):
+    return _f32(ln.weight), _f32(ln.bias), ln.eps
+
+
+def _proj_residual_layernorm(x: torch.Tensor, h: torch.Tensor,
+                             inp: torch.Tensor, layer: Conv1D,
+                             ln: nn.LayerNorm, cdt: torch.dtype, tp) -> None:
+    """x += the c_proj `layer` of `inp` and h = ln(x), in place. One
+    epilogue (bias_residual_layernorm); on a tp rank the chain, whose
+    bias is added in float32 after the tp sum, which the epilogue, adding
+    it to a product rounded to the compute dtype, cannot do."""
+    if tp is None:
+        epilogue.bias_residual_layernorm(
+            x, torch.mm(inp, _w(layer, cdt)), _f32(layer.bias),
+            *_ln_args(ln), out=(x, h))
+        return
+    x.add_(_dense_out(inp, layer, cdt, tp).to(x.dtype))
+    h.copy_(_layer_norm(x, ln))
+
+
+def _decode_block(x: torch.Tensor, h: torch.Tensor,
+                  a: Optional[torch.Tensor], blk: Block,
+                  next_ln: nn.LayerNorm, cdt: torch.dtype, attention,
+                  layer: int):
+    """One block of a decode step through the fused epilogues
+    (ops/epilogue.py). x [B, D] is the residual stream and h its ln_1,
+    both in the compute dtype, and `a` the step's GELU buffer (None: a
+    new one); `attention(q, k, v, layer)` the step's attention. Updates x
+    and h in place: x to the block's output and h to its layernorm by
+    `next_ln` (the next block's ln_1, or ln_f after the last block), each
+    read by the products before it is written again on the one stream.
+    Returns the GELU buffer and the layer's k/v views of its qkv output,
+    which the slot write reads after the last block. Each epilogue rounds
+    where `_block`'s chain rounds, so the values are `_block`'s; the
+    decode path's own function, so that `_block` (training, prefill)
+    keeps its autograd graph."""
+    ep, mm, tp = epilogue, torch.mm, blk.tp  # 2-D: torch.matmul's product
+    attn, mlp = blk.attn, blk.mlp
+    hin = h if tp is None else tp.copy_in(h)
+    qkv = ep.bias_cast(mm(hin, _w(attn.c_attn, cdt)), _f32(attn.c_attn.bias))
+    # q, k and v: views of qkv's thirds (rows 3W apart, as a split gives)
+    q, k_new, v_new = qkv.view(qkv.shape[0], 3, -1).unbind(1)
+    out = attention(q, k_new, v_new, layer).to(cdt)
+    _proj_residual_layernorm(x, h, out, attn.c_proj, blk.ln_2, cdt, tp)
+    hin = h if tp is None else tp.copy_in(h)
+    a = ep.bias_gelu_cast(mm(hin, _w(mlp.c_fc, cdt)), _f32(mlp.c_fc.bias),
+                          out=a)
+    _proj_residual_layernorm(x, h, a, mlp.c_proj, next_ln, cdt, tp)
+    return a, k_new, v_new
+
+
+def _decode_blocks(t: Transformer, cdt: torch.dtype,
+                   token_embed: torch.Tensor, position: int, attention):
+    """The blocks of a decode step by `_decode_block`, from the entry (the
+    token embeddings plus wpe[position], and block 0's ln_1, in one
+    epilogue, into the step's new x and h) to ln_f. Returns (the ln_f'd
+    hidden state [B, D] in the compute dtype, the layers' k views, their
+    v views)."""
+    blocks = list(t.h)
+    x, h = epilogue.embed_layernorm(token_embed, t.wpe.weight[position],
+                                    *_ln_args(blocks[0].ln_1), cdt)
+    next_lns = [blk.ln_1 for blk in blocks[1:]] + [t.ln_f]
+    a, ks, vs = None, [], []
+    for layer, (blk, next_ln) in enumerate(zip(blocks, next_lns)):
+        a, k_new, v_new = _decode_block(x, h, a, blk, next_ln, cdt,
+                                        attention, layer)
+        ks.append(k_new)
+        vs.append(v_new)
+    return h, ks, vs
+
+
 @torch.no_grad()
 def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
                 token_embed: torch.Tensor, prefix_cache: Cache,
@@ -591,7 +676,8 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
                 rowmajor: bool = True,
                 slot_write_kernel: bool = False,
                 anc_rows: Optional[torch.Tensor] = None,
-                return_hidden: bool = True) -> torch.Tensor:
+                return_hidden: bool = True,
+                fused_epilogues: bool = True) -> torch.Tensor:
     """One decode step over split caches.
 
     token_embed: [B, D] embeddings of the tokens decoded at generated
@@ -621,6 +707,13 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     slot e lives in cache row anc_rows[b, e]; the cache never moves, and
     the attention is the plain math with that gather
     (decode_attention._attention_plain).
+
+    `fused_epilogues` runs each block by `_decode_block`, whose bias adds,
+    casts, GELU, residual sums and layernorms are the kernels of
+    ops/epilogue.py (their plain versions on the CPU; on the card they
+    raise for a width or dtype they do not take), but for a tp rank's
+    c_projs, whose bias follows the tp sum; False runs `_block`'s op
+    chain (`plain_ops`).
     """
     B = token_embed.shape[0]
     L, N, K, _ = prefix_cache["k"].shape
@@ -637,19 +730,26 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     # the attention reads [B, L, ...] layouts; seq-major caches as views
     att_caches = (gk, gv, *scales) if rowmajor else \
         tuple(c.transpose(0, 1) for c in (gk, gv, *scales))
-    x = (token_embed + t.wpe.weight[K + step]).to(cdt)
     pk, pv = prefix_cache["k"], prefix_cache["v"]
-    ks, vs = [], []
-    for layer, blk in enumerate(t.h):
-        h = _layer_norm(x, blk.ln_1)
-        qkv = _dense_in(h, blk.attn.c_attn, cdt, blk.tp).to(cdt)
-        q, k_new, v_new = qkv.split(qkv.shape[-1] // 3, dim=-1)
-        out = attend(q, k_new, v_new, pk, pv, *att_caches, step, layer,
-                     beams_per_image=R, head_dim=cfg.head_dim, **kw)
-        out = _dense_out(out.to(cdt), blk.attn.c_proj, cdt, blk.tp)
-        x = _block_mlp(x + out.to(x.dtype), blk, cdt)
-        ks.append(k_new)
-        vs.append(v_new)
+
+    def attention(q, k_new, v_new, layer):
+        return attend(q, k_new, v_new, pk, pv, *att_caches, step, layer,
+                      beams_per_image=R, head_dim=cfg.head_dim, **kw)
+
+    if fused_epilogues:
+        h, ks, vs = _decode_blocks(t, cdt, token_embed, K + step, attention)
+    else:
+        x = (token_embed + t.wpe.weight[K + step]).to(cdt)
+        ks, vs = [], []
+        for layer, blk in enumerate(t.h):
+            h = _layer_norm(x, blk.ln_1)
+            qkv = _dense_in(h, blk.attn.c_attn, cdt, blk.tp).to(cdt)
+            q, k_new, v_new = qkv.split(qkv.shape[-1] // 3, dim=-1)
+            out = attention(q, k_new, v_new, layer)
+            out = _dense_out(out.to(cdt), blk.attn.c_proj, cdt, blk.tp)
+            x = _block_mlp(x + out.to(x.dtype), blk, cdt)
+            ks.append(k_new)
+            vs.append(v_new)
     if scales:  # int8: K5 (or the plain write) quantises them stacked
         axis = 1 if rowmajor else 0  # [B, L, D] or [L, B, D]
         write(gk, gv, *scales, torch.stack(ks, dim=axis),
@@ -658,6 +758,9 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         # K3, K13 and K14 read the per-layer views where they lie: no
         # stacking copy (the plain versions stack them themselves)
         write(gk, gv, ks, vs, step)
+    if fused_epilogues:  # h is ln_f's output already
+        return h if return_hidden else torch.matmul(
+            h, t.wte.weight.to(cdt).t()).float()
     if return_hidden:
         return final_hidden(model, cfg, x)
     return final_logits(model, cfg, x)

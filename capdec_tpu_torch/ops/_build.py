@@ -67,6 +67,9 @@ SIGNATURES = {
     "capdec_empty_grid": [I, I, P],
     "capdec_gather_rows": [P, P, P, P, P, I, I, I, L, L, P],
     "capdec_beam_decode_attention": [P, P, P, L, *[P] * 5, *[I] * 14, P],
+    "capdec_bias_act": [P, P, P, I, I, I, I, I, P],
+    "capdec_residual_layernorm":
+        [*[P] * 7, I, I, ctypes.c_float, I, I, I, P],
 }
 
 build_seconds = 0.0  # wall time of the build this process ran (0: cached)
@@ -148,10 +151,12 @@ def on_cpu(t) -> bool:
     """True for a CPU tensor (the wrapper runs its plain version), False
     for a CUDA tensor (the wrapper launches its kernel); raises for any
     other device."""
-    if t.device.type not in ("cpu", "cuda"):
+    if t.is_cuda:
+        return False
+    if not t.is_cpu:
         raise ValueError(f"kernels run on cuda (or plain on cpu), got "
                          f"{t.device}")
-    return t.device.type == "cpu"
+    return True
 
 
 def check(code: int, name: str) -> None:
@@ -160,7 +165,12 @@ def check(code: int, name: str) -> None:
 
 
 def stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on `device` (a CUDA
+    torch.device or its index), read without building a Stream object."""
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 @functools.lru_cache(maxsize=None)

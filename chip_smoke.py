@@ -30,13 +30,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      instances must build without spills) and their SDPA yardstick at
      steps 1, 33 and 66, on one layer and rotated over the layers or
      cache sets (SDPA over key sets); K9 at R = 5 with both prefix kinds
-     and at R = 1 with the int8 prefix.
+     and at R = 1 with the int8 prefix. Then decode_step's fused
+     epilogues (csrc/epilogue.cu: bias_cast, bias_gelu_cast,
+     bias_residual_layernorm, embed_layernorm; their twelve instances
+     must build without spills) at B 2560, 5 and 333 in bf16 and f32
+     against the op chains they replace, timed in bf16 at B 2560 (rotated
+     past the L2, and warm) and B 5, each with its wrapper's host µs.
   3. The served paths: a CaptionServer on full-width weights made from a
      seed (GPT-2 124M + the 8-layer TransformerMapper, prefix 640 -> 40,
      bf16, batch 64, entry_length 67) serves 128 requests on each path;
      the kernels' launch counters are zeroed just before each and read
      just after, and each path must have launched its kernels and no
-     other: beam 5 (K1-K4); int8 KV (K1, K5-K7); (a) slot-bounded beam,
+     other, the four epilogues on every path (each decodes GPT-2 124M at
+     one rank): beam 5 (K1-K4); int8 KV (K1, K5-K7); (a) slot-bounded beam,
      fused_slot_chunks=8 (K1, K8, K3, K4); (b) its int8 form with the
      int8 prefix (K1, K9, K5, K4); (c) greedy, the default ToppConfig
      (K1); (d) greedy with chunk_slot_write (K1, K13); (e) greedy's fused
@@ -90,9 +96,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      text mode with RN50x4 and --fix_gender_imbalance_mode 1; the train
      CLI (one epoch of --only_prefix, 10 steps); predict --clip_checkpoint
      --infer_model_config --score_gt at batch 64, beam 5, on the 128 image
-     files (K1-K4 and no other kernel, 128 captions), whose captions must
-     equal predict's from the pickle embeddings_generator writes in image
-     mode on the same images. ViT-B/32: image mode, and predict
+     files (K1-K4, the epilogues and no other kernel, 128 captions), whose
+     captions must equal predict's from the pickle embeddings_generator writes
+     in image mode on the same images. ViT-B/32: image mode, and predict
      --text_autoencoder on its text tower (a 512-wide checkpoint trained
      the same way). Each tower's f32 output on a batch of 4, card against
      CPU, within 1e-4 relative L2; RN50x4's activations after each stage
@@ -115,8 +121,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      `python -m torch.distributed.run --standalone --nproc_per_node 1`
      on NCCL, both at once: rc 0 and neither PyTorch's
      destroy_process_group warning nor an abort in stderr (each CLI ends
-     the group it started), predict's captions equal to an in-process
-     run's without a mesh and its launches K1-K4 only, train's two
+     the group it started), predict's captions equal to an in-process run's
+     without a mesh and its launches K1-K4 and the epilogues only, train's two
      losses finite. Then the cache-api phase (cache_api): GPT-2's
      single-cache API (init_kv_cache, forward_with_cache) at full width,
      GPT-2 124M, 5 rows of a 40-slot prefix prefilled and 26 greedy
@@ -126,10 +132,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rounding tie (cache_api_phase says which).
      Then the recipes phase (recipes), on the clip phase's artifacts:
      (a) examples/torch_inference_demo.py on one test JPEG at full width
-     (RN50x4, GPT-2 124M, the 8-layer mapper, bf16): the beam launches
-     K1-K4 only, greedy K1 only; in f32 its beam and greedy decodes
-     through the kernels equal those through the plain versions; K1 at
-     B 5, R 5 and B 1, R 1 and K2-K4 at N 1 against their plain versions
+     (RN50x4, GPT-2 124M, the 8-layer mapper, bf16): the beam launches K1-K4
+     and the epilogues only, greedy K1 and the epilogues; in f32 its beam and
+     greedy decodes through the kernels equal those through the plain versions;
+     K1 at B 5, R 5 and B 1, R 1 and K2-K4 at N 1 against their plain versions
      (the `demo` key of their rows); beam 0 equals the predict CLI's
      caption of that image at --batch_size 1; (b)
      scripts/torch_zoo_parity.sh on the same full-width stand-ins with the
@@ -1435,6 +1441,187 @@ def check_v1_attention(gen):
               f"[B, E, D] written in place (rotated over {L} cache sets)")
 
 
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Units in the last place of a's dtype (bf16 or f32) between a and
+    b, elementwise (int64)."""
+    bits = {torch.bfloat16: (torch.int16, 0x7FFF),
+            torch.float32: (torch.int32, 0x7FFFFFFF)}[a.dtype]
+
+    def ordered(t):  # sign-magnitude bits onto one monotonic integer line
+        m = t.view(bits[0]).long()
+        return torch.where(m < 0, -(m & bits[1]), m)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def epilogue_instance(mangled: str) -> str:
+    """'bias_act<bf16, gelu>', 'residual_layernorm<f32, entry, 6>', ...
+    for a mangled kernel name of csrc/epilogue.cu (the layernorm's last
+    argument: the vectors a lane holds)."""
+    m = re.search(r"(bias_act|residual_layernorm)I(13__nv_bfloat16|f)"
+                  r"Lb([01])E(?:Li(\d+)E)?", mangled)
+    flag = {"bias_act": ("bias", "gelu"),
+            "residual_layernorm": ("residual", "entry")}[m.group(1)]
+    t = "bf16" if m.group(2) != "f" else "f32"
+    per = f", {m.group(4)}" if m.group(4) else ""
+    return f"{m.group(1)}<{t}, {flag[int(m.group(3))]}{per}>"
+
+
+# The epilogues' rows: B 2560 (batch 512 x beam 5, the offline cells) and
+# B 5 (one image); their tolerances against the plain versions: bit-exact
+# but for one unit in the last place of the compute dtype (tanh's, and
+# the layernorm statistics' last bit, which Welford's update and two
+# passes round differently), or EPILOGUE_ATOL where g (x - mean) and beta
+# cancel to near zero and a unit is tiny, on at most EPILOGUE_ULP_SHARE
+# of the outputs; float32 GELU and layernorm outputs within 1e-6, and
+# 1e-6 relative above 1 (a last bit of tanh or rstd, scaled where 1 + tanh
+# or x - mean cancels).
+EPILOGUE_ROWS = (2560, 5)
+EPILOGUE_ULP_SHARE = 1e-3
+EPILOGUE_ATOL = 2.0 ** -20
+
+
+def epilogue_close(got, want, what, exact=False):
+    """got within the epilogues' tolerance of want (bf16: one unit in the
+    last place or EPILOGUE_ATOL, on a share of at most
+    EPILOGUE_ULP_SHARE; f32: 1e-6 and 1e-6 relative), or bit-exact."""
+    torch.cuda.synchronize()
+    if exact:
+        require(torch.equal(got, want), f"{what}: not bit-exact")
+        return 0.0
+    u = ulps(got, want)
+    share = float((u > 0).float().mean())
+    if got.dtype == torch.bfloat16:
+        far = (u > 1) & ((got.float() - want.float()).abs() > EPILOGUE_ATOL)
+        require(not bool(far.any()) and share <= EPILOGUE_ULP_SHARE,
+                f"{what}: {int(u.max())} ulps (max abs err "
+                f"{max_err(got, want)}), on {share:.2e} of the outputs")
+    else:
+        require(torch.allclose(got, want, atol=1e-6, rtol=1e-6),
+                f"{what}: max abs err {max_err(got, want)}")
+    return share
+
+
+def epilogue_inputs(gen, B, dtype, n=1):
+    """n sets of the epilogues' inputs at B rows: the products' outputs y
+    (c_attn 2304, c_fc 3072, a c_proj 768) and the residual x [B, 768] in
+    dtype; the f32 biases, layernorm weight and bias; a wpe row."""
+    D = MAIN["D"]
+    rand = lambda *s: torch.randn(*s, generator=gen, device=DEVICE)
+    sets = [dict(qkv=rand(B, 3 * D).to(dtype), fc=rand(B, 4 * D).to(dtype),
+                 proj=rand(B, D).to(dtype), x=rand(B, D).to(dtype))
+            for _ in range(n)]
+    return sets, dict(b3=rand(3 * D), b4=rand(4 * D), b1=rand(D),
+                      g=1 + 0.1 * rand(D), beta=0.1 * rand(D),
+                      p=rand(D).to(dtype), eps=1e-5)
+
+
+def check_epilogues(gen, ptxas):
+    """The decode step's epilogues (csrc/epilogue.cu) against their plain
+    versions, the op chains they replace, at B 2560 and B 5 in bf16 and
+    f32 (tolerances above); each wrapper launches once a call and refuses
+    a row not of whole 16-byte vectors and a dtype it does not take. Timed in bf16: at B 2560 over inputs
+    rotated past the L2 (`ms`, as the bytes bound assumes) and on one set
+    (`warm_ms`: in the step, a product has just written y), at B 5 on one
+    set; beside the plain version and the bytes bound; each wrapper's
+    host µs a call (the card kept busy, HOST_CALLS calls)."""
+    from capdec_tpu_torch.ops import epilogue as ep
+    regs = instances(ptxas, "bias_act", epilogue_instance, 4)
+    regs.update(instances(ptxas, "residual_layernorm", epilogue_instance, 8))
+    D = MAIN["D"]
+    calls = {  # name -> (kernel call, plain call, bytes moved, exact?)
+        "bias_cast": (
+            lambda i, c: ep.bias_cast(i["qkv"], c["b3"]),
+            lambda i, c: ep.bias_cast_plain(i["qkv"], c["b3"]),
+            lambda B, t: 2 * B * 3 * D * t, True),
+        "bias_gelu_cast": (
+            lambda i, c: ep.bias_gelu_cast(i["fc"], c["b4"]),
+            lambda i, c: ep.bias_gelu_cast_plain(i["fc"], c["b4"]),
+            lambda B, t: 2 * B * 4 * D * t, False),
+        "bias_residual_layernorm": (
+            lambda i, c: ep.bias_residual_layernorm(
+                i["x"], i["proj"], c["b1"], c["g"], c["beta"], c["eps"]),
+            lambda i, c: ep.bias_residual_layernorm_plain(
+                i["x"], i["proj"], c["b1"], c["g"], c["beta"], c["eps"]),
+            lambda B, t: 4 * B * D * t, False),
+        "embed_layernorm": (
+            lambda i, c: ep.embed_layernorm(
+                i["x"], c["p"], c["g"], c["beta"], c["eps"], i["x"].dtype),
+            lambda i, c: ep.embed_layernorm_plain(
+                i["x"], c["p"], c["g"], c["beta"], c["eps"], i["x"].dtype),
+            lambda B, t: 3 * B * D * t, False)}
+    rows = {name: dict(name=name, route="cuda",
+                       source="capdec_tpu_torch/csrc/epilogue.cu",
+                       replaces="none (XLA fused it on the TPU): "
+                                "models/gpt2.py _block's op chain",
+                       ptxas=regs) for name in calls}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in EPILOGUE_ROWS + (333,):
+            (ins,), consts = epilogue_inputs(gen, B, dtype)
+            for name, (call, plain, _, exact) in calls.items():
+                fn = getattr(ep, name)
+                n0 = fn.launches
+                got, want = call(ins, consts), plain(ins, consts)
+                require(fn.launches == n0 + 1, f"{name}: launches")
+                what = f"{name} {dtype} B {B}"
+                if isinstance(got, tuple):  # (x', h): x' exact, h close
+                    epilogue_close(got[0], want[0], what + " x", exact=True)
+                    share = epilogue_close(got[1], want[1], what + " h")
+                else:
+                    share = epilogue_close(got, want, what, exact=exact)
+                key = ("ulp_share" if dtype == torch.bfloat16
+                       else "ulp_share_f32")
+                rows[name][key] = max(rows[name].get(key, 0.0), share)
+    (ins,), consts = epilogue_inputs(gen, 5, torch.bfloat16)
+    for bad in (ins["x"][:, :636].contiguous(), ins["x"].half()):
+        for name in ("bias_cast", "bias_residual_layernorm"):
+            try:
+                calls[name][0](dict(ins, qkv=bad, x=bad, proj=bad), consts)
+            except (ValueError, TypeError):
+                continue
+            raise AssertionError(f"{name} took {bad.dtype} {bad.shape}")
+    for B in EPILOGUE_ROWS:
+        # sets enough that the least-reading call (the entry's e) passes
+        # more than L2_FLUSH_BYTES a rotation; one at B 5
+        n = -(-L2_FLUSH_BYTES // (B * D * 2)) if B > 5 else 1
+        sets, consts = epilogue_inputs(gen, B, torch.bfloat16, n)
+        for name, (call, plain, nbytes, _) in calls.items():
+            b_ms, b_by = bound_ms(nbytes(B, 2), 0, torch.bfloat16)
+            row = dict(
+                ms=time_ms(rotating(lambda i: call(sets[i], consts),
+                                    len(sets))),
+                warm_ms=time_ms(lambda: call(sets[0], consts)),
+                plain_ms=time_ms(rotating(lambda i: plain(sets[i], consts),
+                                          len(sets))),
+                bound_ms=b_ms, bound_by=b_by,
+                host_us=host_us(lambda: call(sets[0], consts)),
+                plain_host_us=host_us(lambda: plain(sets[0], consts)),
+                shape=f"B={B} D={D} bf16, rotated over {len(sets)} sets")
+            if B == EPILOGUE_ROWS[0]:
+                rows[name].update(row)
+            else:
+                rows[name][f"b{B}"] = row
+    return list(rows.values())
+
+
+# Calls a host-time reading averages over (the plain chains' launches stay
+# under the card's queue of pending launches).
+HOST_CALLS = 100
+
+
+def host_us(fn) -> float:
+    """Host microseconds of one call of fn, the card kept busy so that no
+    call waits for it (the launches queue)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES * 4)
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / HOST_CALLS * 1e6
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
@@ -1483,7 +1670,8 @@ def build_server(gen, model=None, beam=True, beam_size=MAIN["R"], cfg=None,
 
 
 def counters():
-    from capdec_tpu_torch.ops import cache_reorder, decode_attention, lm_head
+    from capdec_tpu_torch.ops import (cache_reorder, decode_attention,
+                                      epilogue, lm_head)
     return {"lm_head_topk": lm_head.lm_head_topk,
             "beam_decode_attention_rowmajor":
                 decode_attention.beam_decode_attention_rowmajor,
@@ -1505,53 +1693,61 @@ def counters():
             "reorder_cache_rows_bounded":
                 cache_reorder.reorder_cache_rows_bounded,
             "write_gen_slot": cache_reorder.write_gen_slot,
-            "beam_decode_attention": decode_attention.beam_decode_attention}
+            "beam_decode_attention": decode_attention.beam_decode_attention,
+            **{name: getattr(epilogue, name) for name in EPILOGUES}}
+
+
+# decode_step's fused epilogues, which every decode on the card launches
+# (GPT-2 124M at one rank: the entry, and four a block each step)
+EPILOGUES = ("bias_cast", "bias_gelu_cast", "bias_residual_layernorm",
+             "embed_layernorm")
 
 
 # The served paths: (phase, beam search?, decode knobs, the kernels the
-# path must launch; the others must not launch).
+# path must launch; the others must not launch). Every path decodes
+# GPT-2 124M at one rank, so each launches the epilogues too.
 CHUNKED = dict(fused_slot_chunks=8)
 PATHS = (
     ("main_path", True, {},
      ("lm_head_topk", "beam_decode_attention_rowmajor",
-      "write_gen_slot_chunk", "copy_forked_rows_bounded")),
+      "write_gen_slot_chunk", "copy_forked_rows_bounded") + EPILOGUES),
     ("int8_path", True, dict(kv_cache_int8=True),
      ("lm_head_topk", "write_gen_slot_chunk_q",
-      "beam_decode_attention_rowmajor_q", "copy_forked_rows")),
+      "beam_decode_attention_rowmajor_q", "copy_forked_rows") + EPILOGUES),
     # (a) slot-bounded beam: staged growth, bounded fork copies
     ("v3_path", True, CHUNKED,
      ("lm_head_topk", "beam_decode_attention_chunked",
-      "write_gen_slot_chunk", "copy_forked_rows_bounded")),
+      "write_gen_slot_chunk", "copy_forked_rows_bounded") + EPILOGUES),
     # (b) slot-bounded int8 beam; int8_prefix resolves on
     ("v3_int8_path", True, dict(kv_cache_int8=True, **CHUNKED),
      ("lm_head_topk", "beam_decode_attention_chunked_q",
-      "write_gen_slot_chunk_q", "copy_forked_rows_bounded")),
+      "write_gen_slot_chunk_q", "copy_forked_rows_bounded") + EPILOGUES),
     # (c) greedy, the default ToppConfig (--no_beam)
-    ("greedy_path", False, {}, ("lm_head_topk",)),
+    ("greedy_path", False, {}, ("lm_head_topk",) + EPILOGUES),
     # (d) greedy with the seq-major kernel slot write
     ("greedy_k13_path", False, dict(chunk_slot_write=True),
-     ("lm_head_topk", "write_gen_slot_chunk_seqmajor")),
+     ("lm_head_topk", "write_gen_slot_chunk_seqmajor") + EPILOGUES),
     # (e) greedy's fused chunked int8 route, int8 prefix
     ("greedy_int8_path", False,
      dict(fused_attention=True, kv_cache_int8=True, **CHUNKED),
      ("lm_head_topk", "beam_decode_attention_chunked_q",
-      "write_gen_slot_chunk_q")),
+      "write_gen_slot_chunk_q") + EPILOGUES),
     # (f) non-lane beam: one full-size cache gathered after each selection
     ("nonlane_path", True, dict(lane_beams=False),
      ("lm_head_topk", "beam_decode_attention_rowmajor",
-      "write_gen_slot_chunk", "reorder_rows_leading")),
+      "write_gen_slot_chunk", "reorder_rows_leading") + EPILOGUES),
     # (g) seq-major lane beam, staged growth: plain attention and slot
     # write, the whole cache gathered by the lanes' sources each step
     ("seqmajor_path", True, dict(rowmajor_cache=False),
-     ("lm_head_topk", "reorder_cache_rows")),
+     ("lm_head_topk", "reorder_cache_rows") + EPILOGUES),
     # (h) the lane path with the slot write K14 in place of K3
     ("slot_write_path", True,
      dict(chunk_slot_write=False, pallas_slot_write=True),
      ("lm_head_topk", "beam_decode_attention_rowmajor", "write_gen_slot",
-      "copy_forked_rows_bounded")),
+      "copy_forked_rows_bounded") + EPILOGUES),
     # (i) ancestry attention: the cache never moves
     ("ancestry_path", True, dict(ancestry=True),
-     ("lm_head_topk", "write_gen_slot_chunk")),
+     ("lm_head_topk", "write_gen_slot_chunk") + EPILOGUES),
 )
 
 
@@ -1949,8 +2145,9 @@ def card_cpu_step(sd, ds):
 # ---------------------------------------------------------------------------
 
 WIDE_R = 33  # beams per image: more than the 32 the kernel once took
-BEAM_PATH = PATHS[0][3]  # K1-K4
-INT8_PATH = PATHS[1][3]  # K1, K5-K7
+BEAM_PATH = PATHS[0][3]  # K1-K4 and the epilogues
+INT8_PATH = PATHS[1][3]  # K1, K5-K7 and the epilogues
+GREEDY_PATH = PATHS[4][3]  # K1 and the epilogues
 
 
 def wide_attention_times(gen) -> dict:
@@ -2088,7 +2285,7 @@ def mapper_mode(mapping_type, ds, out_dir, embeds) -> dict:
 # ---------------------------------------------------------------------------
 
 PREDICT_RUNS = (("beam", [], BEAM_PATH), ("int8", ["--int8_kv"], INT8_PATH),
-                ("greedy", ["--no_beam"], ("lm_head_topk",)))
+                ("greedy", ["--no_beam"], GREEDY_PATH))
 
 
 def predict_inputs(embeds, tmp: str, n: int = MAIN["requests"]) -> dict:
@@ -2439,8 +2636,8 @@ def lifecycle_phase(ckpt: str, corpus: str, embeds, tmp: str) -> dict:
     """The predict and train CLIs each as a process of its own under
     torchrun on the card (NCCL, a world of 1, the group theirs), at once:
       * predict --mesh 1 from (j)'s `smoke-000.pt` on LIFECYCLE["records"]
-        records at batch 64, beam 5 (K1-K4 only, counted in the process
-        through LAUNCH_SITECUSTOMIZE), whose captions must equal an
+      records at batch 64, beam 5 (K1-K4 and the epilogues only, counted in the
+      process through LAUNCH_SITECUSTOMIZE), whose captions must equal an
         in-process run's without a mesh on the same records;
       * train --mesh 1,1 --max_steps 2 at full width (GPT-2 124M, the
         8-layer mapper, --only_prefix, --bf16, batch 30) from the smoke's
@@ -2818,9 +3015,10 @@ def clip_phase(tmp: str):
     to scored captions, at full width: parse_corpus karpathy;
     embeddings_generator text mode with RN50x4 and gender balancing; the
     train CLI (one epoch of --only_prefix, 10 steps); predict
-    --clip_checkpoint --infer_model_config --score_gt at batch 64, beam 5,
-    on the 128 test images (K1-K4 and no other kernel, 128 captions); the
-    same from a pickle embeddings_generator wrote in image mode (the same
+    --clip_checkpoint --infer_model_config --score_gt at batch 64, beam 5, on
+    the 128 test images (K1-K4, the epilogues and no other kernel, 128
+    captions); the same from a pickle embeddings_generator wrote in image mode
+    (the same
     captions). Then ViT-B/32: embeddings_generator image mode, a 512-wide
     checkpoint trained the same way, and predict --text_autoencoder on
     ViT-B/32's text tower. Every tower card against CPU in f32. Returns
@@ -2955,8 +3153,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # from 67 for the plain path's time): the f32 cache [2560, 12, 24, 768]
 # still spans 2.26e9 bytes, past 2^31
 RECIPES = dict(serve_n=2048, serve_batch=512, identity_entry_length=24)
-GREEDY_PATH = ("lm_head_topk",)
-PROBE_PATH = BEAM_PATH + INT8_PATH[1:]  # K1-K7: the exact and int8 beams
+# K1-K7 and the epilogues: the exact and int8 beams
+PROBE_PATH = BEAM_PATH + INT8_PATH[1:]
 
 # sitecustomize.py for the zoo chain's python processes (its directory
 # first on PYTHONPATH): at exit each appends its kernel launch counts to
@@ -2996,10 +3194,11 @@ def repo_module(rel: str):
 
 def demo_run(gen, arts: dict, tmp: str) -> dict:
     """(a) examples/torch_inference_demo.py on the first test JPEG at full
-    width (RN50x4, the clip phase's caption checkpoint: GPT-2 124M, the
-    8-layer mapper, bf16): the beam launches K1-K4 only, greedy K1 only;
-    the demo's beam and greedy decodes of that image in f32 through the
-    kernels equal those through the plain versions (token_identity, N 1);
+    width (RN50x4, the clip phase's caption checkpoint: GPT-2 124M, the 8-layer
+    mapper, bf16): the beam launches K1-K4 and the epilogues only, greedy K1
+    and the epilogues; the demo's beam and greedy decodes of that image in f32
+    through the kernels equal those through the plain versions (token_identity,
+    N 1);
     K1 at B 5, R 5 and B 1, R 1 and K2-K4 at N 1 against their plain
     versions (the `demo` key of their rows); beam 0 equals the predict
     CLI's caption of that image alone at --batch_size 1 (K1-K4)."""
@@ -3073,7 +3272,7 @@ def zoo_chain(arts: dict, tmp: str) -> dict:
     gates off (MIN_CIDER=-1 MIN_B4=-1). It must print PARITY OK and write
     128 predictions and float CIDEr and Bleu_4;
     its python processes (each counting through LAUNCH_SITECUSTOMIZE)
-    launch K1-K4 only."""
+    launch K1-K4 and the epilogues only."""
     ins = arts["ins"]
     site = f"{tmp}/zoo_site"
     os.makedirs(site)
@@ -3321,7 +3520,7 @@ def main() -> int:
                check_chunked_int8_attention(gen),
                check_seqmajor_write(gen, ptxas),
                *check_gathers(gen), check_single_slot_write(gen),
-               check_v1_attention(gen)]
+               check_v1_attention(gen), *check_epilogues(gen, ptxas)]
     for k in kernels:
         if k["source"].endswith("decode_attention_async.cu"):
             # K6's instances (its in-register policy) apart from the others'
@@ -3485,7 +3684,8 @@ def main() -> int:
             "cublas_ms", "max_abs_err_f32", "launches_by_path", "bf16_prefix",
             "greedy_r1", "rotated_ms", "library_rotated_ms", "floor_ms",
             "tensor_form_ms", "steps", "r33", "tp2", "demo", "n512", "probe",
-            "ptxas", "shape")
+            "warm_ms", "host_us", "plain_host_us", "b5", "ulp_share",
+            "ulp_share_f32", "ptxas", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

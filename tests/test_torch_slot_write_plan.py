@@ -32,6 +32,7 @@ from capdec_tpu.ops import cache_reorder as jax_cr
 from capdec_tpu_torch.models import gpt2
 from capdec_tpu_torch.ops import _build
 from capdec_tpu_torch.ops import cache_reorder as cr
+from capdec_tpu_torch.ops import epilogue
 
 torch.set_num_threads(2)
 
@@ -338,9 +339,9 @@ ROUTES = {
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_decode_step_launches_from_the_layer_views(tiny, library,
                                                    monkeypatch, route):
-    """decode_step's K3 and K14 routes (plain attention, so that only the
-    slot write reaches the stand-in library) call no torch.stack and
-    launch once; the struct's pointers are the k and v thirds of each
+    """decode_step's K3 and K14 routes (plain attention and epilogues, so
+    that only the slot write reaches the stand-in library) call no
+    torch.stack and launch once; the struct's pointers are the k and v thirds of each
     layer's [B, 3D] qkv output, rows 3D apart; the step writes what the
     plain route writes."""
     cfg, model, prefix, tok = tiny
@@ -360,6 +361,10 @@ def test_decode_step_launches_from_the_layer_views(tiny, library,
     cache = gpt2.init_gen_cache_rowmajor(cfg, N, E)
     monkeypatch.setattr(cr, writer, capture)
     monkeypatch.setattr(torch, "stack", no_stack)
+    for name in ("bias_cast", "bias_gelu_cast", "bias_residual_layernorm",
+                 "embed_layernorm"):
+        monkeypatch.setattr(epilogue, name, getattr(epilogue,
+                                                     name + "_plain"))
     hid = gpt2.decode_step(model, cfg, tok, prefix, cache, 3, e_cap=E,
                            fused_attention=False, **knobs)
     monkeypatch.undo()
