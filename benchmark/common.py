@@ -6,12 +6,24 @@ Each piece is found by the name `BENCHMARK.json` gives it, so a new cell,
 configuration, mix or metric is a new file and a new entry:
 
   configs/<file of the configuration entry>   sizes, precision, weights
+  decoders/<key>.py                           the decoder a configuration's
+                                              `model` names by its one key
+                                              other than `mapper`
+                                              (decoders/__init__.py)
   traffic/<traffic>.json                      parameters of one mix; its
                                               `driver` names the general
                                               generator drivers/<driver>.py
   layer_metrics/<metric>.py                   read(ctx) -> float or None
   limits/<workload>.json                      the limit of each number
                                               compared, with its readings
+
+A configuration file holds `model` (`mapper` and the decoder's key),
+`decode`, `serve_precision`, `train_precision`, `weights` (the scale of
+each kind of tensor) and optionally `weights_dtype`: the type the
+weights are drawn and handed to the program in (weights.py), "f32"
+(the default, which the GPT-2 files leave out) or "bf16", which a
+configuration whose float32 weights would not fit beside its program
+needs.
 """
 from __future__ import annotations
 

@@ -43,7 +43,7 @@ def run(run):
 
     traced = None
     if run.trace:
-        serving.install_spans(run.spans)
+        serving.install_spans(run.spans, run.cfg["model"])
         traced = tracing.Slice(run.spans, run.device)
     served = {}
     batches = []           # [completion time, captions] of each batch

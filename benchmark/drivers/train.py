@@ -12,13 +12,21 @@ loss, the first gradient as the optimizer holds it after one step (AdamW's
 first moment over 1 - beta1), and every parameter's change after the
 last of them. The window then drives the same state on, batch after
 batch, for `--seconds`; the step begun once that time has passed is its
-last, and ends it with a synchronise: train_samples_per_s is every
-sample stepped over the window's length. Before that last step the state
-is copied on the device (weights and AdamW's moments), so that the check
-can follow that step of the window too.
+last, and ends it with a synchronise: the rate (the counter
+`samples_per_s`) is every sample stepped over the window's length. Before
+that last step the state is copied on the device (weights and AdamW's
+moments), so that the check can follow that step of the window too;
+train_peak_memory_gb is the allocator's peak on the card just before
+that copy, over the window's steps alone (the peak is reset as the
+window opens, after the first steps' copies of the weights are gone), which
+every step reaches alike: the program's own. The result's
+`memory_peak_bytes` is still the whole run's.
 
 Mix parameters: batch_size, tokens, caption_tokens, noise_variance, lr,
 warmup_steps, total_steps, check_steps, trace_after_s, trace_steps.
+
+`train(run, mesh, stop, after)` is the whole run, which drivers/train_dp.py
+drives on every rank of a data-parallel world.
 """
 from __future__ import annotations
 
@@ -27,9 +35,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark import common, port, tracing, weights
+from benchmark import common, decoders, port, tracing, weights
 from benchmark.checks import train as train_check
-from benchmark.reference import model as ref_model
 from benchmark.reference import train as ref_train
 
 from capdec_tpu_torch.models import caption_model
@@ -41,7 +48,7 @@ def make_batch(seed: int, k: int, tr, cfg) -> dict:
     """Batch k of the run (numpy, as the program's data loader gives)."""
     m = cfg["model"]
     B, T = tr["batch_size"], tr["tokens"]
-    K, V = m["mapper"]["prefix_length"], m["gpt2"]["vocab_size"]
+    K, V = m["mapper"]["prefix_length"], decoders.of(m).vocab(m)
     rng = np.random.default_rng([int(seed), 1, int(k)])
     lo, hi = tr["caption_tokens"]
     lens = rng.integers(lo, hi + 1, size=B)
@@ -61,22 +68,25 @@ def noise_base(seed: int) -> int:
     return int(seed) & 0x7FFFFFFF
 
 
-def build_state(run, sd):
+def build_state(run, sd, mesh=None):
+    """The train state and step on the program's model; under a `mesh`
+    the step is the data-parallel one (train/step.py)."""
     tr, cfg = run.traffic, run.cfg
     mcfg = port.model_config(cfg, cfg["train_precision"])
-    model = port.load_model(sd, mcfg, run.device)
+    model = port.load_model(cfg, sd, mcfg, run.device)
     opt, sched = optim_lib.make_optimizer(
         caption_model.set_trainable(model, mcfg), tr["lr"],
         tr["warmup_steps"], tr["total_steps"])
     state = step_lib.init_train_state(model, opt, sched)
     step_fn = step_lib.make_train_step(
-        mcfg, step_lib.NoiseConfig(variance=tr["noise_variance"]))
+        mcfg, step_lib.NoiseConfig(variance=tr["noise_variance"]), mesh)
     return state, step_fn
 
 
 def trained(run, model):
     """The program's trained parameters by their reference-layout names."""
-    keys = {k for k, _, _ in ref_model.layout(run.cfg["model"])}
+    m = run.cfg["model"]
+    keys = {k for k, _, _ in decoders.of(m).layout(m)}
     return [(n, p) for n, p in model.named_parameters()
             if p.requires_grad and n in keys]
 
@@ -105,6 +115,13 @@ def first_steps(run, state, step_fn):
     return {"loss": losses, "grad_norm": grad_norms, "change_norm": change}
 
 
+def program_peak(device) -> int:
+    """The allocator's peak on `device` so far, in bytes (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0
+    return int(torch.cuda.max_memory_allocated(device))
+
+
 def snapshot(run, state):
     """The state a step starts from: {name: (weights, AdamW's first
     moment, its second moment)}, copies on the device."""
@@ -130,9 +147,19 @@ def step_readings(run, state, before, loss):
 
 
 def run(run):
+    return train(run)
+
+
+def train(run, mesh=None, stop=None, after=None):
+    """The run: set-up, the window and what the check needs. `stop(s)`
+    says whether the step about to begin, s seconds into the window, is
+    its last (by default: once run.seconds have passed); `after(state)`
+    is called once the window has closed, on the state it left, and its
+    dict joins the result."""
     tr = run.traffic
+    stop = stop or (lambda elapsed: elapsed >= run.seconds)
     sd = weights.state_dict(run.cfg, run.seed, run.device)
-    state, step_fn = build_state(run, sd)
+    state, step_fn = build_state(run, sd, mesh)
     del sd
     readings = first_steps(run, state, step_fn)
     sync = (lambda: torch.cuda.synchronize(run.device)) \
@@ -143,6 +170,9 @@ def run(run):
         run.spans.wrap(step_lib, "loss_and_grads", "forward_backward")
         run.spans.wrap(optim_lib, "apply_updates", "optimizer")
         traced = tracing.Slice(run.spans, run.device)
+    setup_peak = program_peak(run.device)
+    if run.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(run.device)
     seed = noise_base(run.seed)
     k = tr["check_steps"]
     trace_from = trace_to = None
@@ -151,7 +181,7 @@ def run(run):
     while True:
         # the step begun once the window's time has passed is its last,
         # and the one the check follows: its state is copied first
-        last = time.perf_counter() - t0 >= run.seconds
+        last = stop(time.perf_counter() - t0)
         if traced is not None:
             if trace_from is None and time.perf_counter() - t0 >= tr["trace_after_s"]:
                 trace_from, trace_to = k, k + tr["trace_steps"]
@@ -163,6 +193,8 @@ def run(run):
         if traced is not None:
             run.spans.mark("batch_build", tb, time.time_ns())
             ts = time.time_ns()
+        if last:
+            peak = program_peak(run.device)
         before = snapshot(run, state) if last else None
         state, loss = step_fn(state, batch, seed)
         if traced is not None:
@@ -178,22 +210,26 @@ def run(run):
         run.spans.restore()
     steps = k - tr["check_steps"]
     mem = common.device_info(run.device)
+    mem["memory_peak_bytes"] = max(mem["memory_peak_bytes"], setup_peak)
     window_step = {"k": k - 1, "before": before,
                    "readings": step_readings(run, state, before, loss)}
+    extra = after(state) if after is not None else {}
     del state
     return {
         "setup_end": t_setup,
-        "e2e": {"train_samples_per_s": steps * tr["batch_size"] / (t_end - t0)},
+        "e2e": {"train_peak_memory_gb": peak / 1e9},
         "attempted": steps,
         "missing": 0,
         "readings": readings,
         "window_step": window_step,
         "window_s": t_end - t0,
         "device": mem,
-        "counters": {"steps_in_window": steps,
+        "counters": {"samples_per_s": steps * tr["batch_size"] / (t_end - t0),
+                     "steps_in_window": steps,
                      "traced_steps": (trace_to - trace_from)
                      if trace_from is not None else 0},
         "trace": traced.result() if traced is not None and traced.t1_ns
         else None,
         "check": train_check.check,
+        **extra,
     }

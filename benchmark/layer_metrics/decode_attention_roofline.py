@@ -1,7 +1,9 @@
 """K2's share of its roofline in the traced slice, in %: each call's
 bound (roofline/decode_attention.py at its decode step, which the
 decode-step span that launched it records) over the device time of K2's
-kernels."""
+kernels. None for a decoder without K2 (its `decode_attention_shape`
+is None)."""
+from benchmark import decoders
 from benchmark.roofline import decode_attention, peaks
 
 
@@ -9,11 +11,14 @@ def read(ctx):
     t = ctx.trace
     if t is None:
         return None
-    ks = t.kernels_matching(decode_attention.KERNELS)
     m = ctx.cfg["model"]
+    width = decoders.of(m).decode_attention_shape
+    if width is None:
+        return None
+    ks = t.kernels_matching(decode_attention.KERNELS)
     N = ctx.traffic["batch_size"]
     R = ctx.cfg["decode"]["beam_size"]
-    K, D = m["mapper"]["prefix_length"], m["gpt2"]["n_embd"]
+    K, D = m["mapper"]["prefix_length"], width(m)
     bound = busy = 0.0
     for (_, s, e), span in t.assign(ks, "decode_step"):
         if span is None or span[4] is None:

@@ -1,6 +1,7 @@
 """The system under test: `capdec_tpu_torch`, built from a configuration
-file and the benchmark's state dict through the program's own loader.
-This is the one module of the benchmark that imports the program."""
+file and the benchmark's state dict through the program's own loader,
+which the configuration's decoder (decoders/<key>.py) names, and served
+by the program's CaptionServer."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,33 +10,21 @@ import torch
 
 from capdec_tpu_torch import serve as serve_lib
 from capdec_tpu_torch.decode import BeamConfig
-from capdec_tpu_torch.models import caption_model, gpt2
 
-DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-
-
-def model_config(cfg: Dict, precision: str,
-                 only_prefix: bool = False) -> caption_model.CaptionModelConfig:
-    """The program's CaptionModelConfig of a configuration file."""
-    g, m = cfg["model"]["gpt2"], cfg["model"]["mapper"]
-    return caption_model.CaptionModelConfig(
-        prefix_length=m["prefix_length"],
-        clip_length=m.get("clip_length", m["prefix_length"]),
-        prefix_size=m["prefix_size"],
-        num_layers=m.get("num_layers", 2),
-        mapping_type=m["type"],
-        only_prefix=only_prefix,
-        gpt2=gpt2.GPT2Config(
-            vocab_size=g["vocab_size"], n_positions=g["n_positions"],
-            n_embd=g["n_embd"], n_layer=g["n_layer"], n_head=g["n_head"],
-            layer_norm_epsilon=g["layer_norm_epsilon"],
-            compute_dtype=DTYPES[precision]))
+from benchmark import decoders
 
 
-def load_model(sd: Dict[str, torch.Tensor],
-               mcfg: caption_model.CaptionModelConfig, device):
-    """The program's model from a reference-layout state dict."""
-    return caption_model.params_from_torch_state_dict(sd, mcfg, device)
+def model_config(cfg: Dict, precision: str, only_prefix: bool = False):
+    """The program's CaptionModelConfig of a configuration file, by its
+    decoder (decoders/<key>.py)."""
+    return decoders.of(cfg["model"]).model_config(cfg["model"], precision,
+                                                  only_prefix)
+
+
+def load_model(cfg: Dict, sd: Dict[str, torch.Tensor], mcfg, device):
+    """The program's model of configuration file `cfg` from a
+    reference-layout state dict."""
+    return decoders.of(cfg["model"]).load_model(sd, mcfg, device)
 
 
 class IdTokenizer:

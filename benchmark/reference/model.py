@@ -90,7 +90,13 @@ def layout(cfg: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
                 (b + "mlp.c_proj.bias", (D,), "gpt_bias")]
     out += [("gpt.transformer.ln_f.weight", (D,), "one"),
             ("gpt.transformer.ln_f.bias", (D,), "zero")]
-    m = cfg["mapper"]
+    return out + mapper_layout(cfg["mapper"], D)
+
+
+def mapper_layout(m: Dict, D: int) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """(key, shape, init) of the mapper `m`'s tensors (`clip_project.*`)
+    at the decoder's width D."""
+    out: List[Tuple[str, Tuple[int, ...], str]] = []
     C = m["prefix_size"]
     K = m["prefix_length"]
     if m["type"] == "transformer":
@@ -143,16 +149,19 @@ def _conv1d(x: Tensor, w: Tensor, b: Tensor, p: Precision) -> Tensor:
 def map_prefix(sd: Dict[str, Tensor], cfg: Dict, x: Tensor,
                p: Precision = F32) -> Tensor:
     """CLIP embeddings [B, prefix_size] (as the model receives them) ->
-    prefix embeddings [B, prefix_length, n_embd]."""
-    m, D = cfg["mapper"], cfg["gpt2"]["n_embd"]
+    prefix embeddings [B, prefix_length, D], D the decoder's width (read
+    from the mapper's own tensors)."""
+    m = cfg["mapper"]
     K, B = m["prefix_length"], x.shape[0]
     if m["type"] == "mlp":
+        D = sd["clip_project.model.2.bias"].shape[0] // K
         h = torch.tanh(_linear_t(x, sd["clip_project.model.0.weight"],
                                  sd["clip_project.model.0.bias"], p))
         h = _linear_t(h, sd["clip_project.model.2.weight"],
                       sd["clip_project.model.2.bias"], p)
         return h.reshape(B, K, D)
     CL, nh = m["clip_length"], m["num_heads"]
+    D = sd["clip_project.prefix_const"].shape[1]
     h = _linear_t(x, sd["clip_project.linear.weight"],
                   sd["clip_project.linear.bias"], p).reshape(B, CL, D)
     h = torch.cat([h, sd["clip_project.prefix_const"][None].expand(B, K, D)], 1)

@@ -17,8 +17,9 @@ from __future__ import annotations
 from typing import Dict
 
 
-def mapper_flops(cfg: Dict) -> float:
-    m, D = cfg["mapper"], cfg["gpt2"]["n_embd"]
+def mapper_flops(m: Dict, D: int) -> float:
+    """The mapper `m`'s matmul operations for one image, at the
+    decoder's width D."""
     C, K = m["prefix_size"], m["prefix_length"]
     if m["type"] == "mlp":
         H = D * K // 2
@@ -47,4 +48,4 @@ def caption_flops(cfg: Dict, beam_size: int, entry_length: int) -> float:
     prefill = sum(gpt2_token_flops(cfg, p + 1) for p in range(K)) + head
     steps = sum(beam_size * (gpt2_token_flops(cfg, K + s + 1) + head)
                 for s in range(entry_length - 1))
-    return mapper_flops(cfg) + prefill + steps
+    return mapper_flops(cfg["mapper"], D) + prefill + steps

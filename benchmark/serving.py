@@ -42,11 +42,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from benchmark import port, weights
+from benchmark import decoders, port, weights
 from benchmark.reference import model as ref_model
 
 from capdec_tpu_torch import serve as serve_lib
-from capdec_tpu_torch.models import caption_model, gpt2
+from capdec_tpu_torch.models import caption_model
 from capdec_tpu_torch.ops import cache_reorder, lm_head
 
 
@@ -73,7 +73,7 @@ def build_server(run):
     cfg = run.cfg
     sd = weights.state_dict(cfg, run.seed, run.device)
     mcfg = port.model_config(cfg, cfg["serve_precision"])
-    model = port.load_model(sd, mcfg, run.device)
+    model = port.load_model(cfg, sd, mcfg, run.device)
     del sd
     server = port.caption_server(model, mcfg, cfg["decode"], run.traffic,
                                  run.device)
@@ -83,13 +83,13 @@ def build_server(run):
     return server
 
 
-def install_spans(spans) -> None:
-    """Spans around the decode engine's layers (see tracing.py)."""
+def install_spans(spans, model_cfg) -> None:
+    """Spans around the decode engine's layers (see tracing.py); the
+    decoder's own (its prefill and `decode_step`) from its `spans()`."""
     spans.wrap(serve_lib.CaptionServer, "_decode", "decode_batch")
     spans.wrap(caption_model, "map_prefix", "map_prefix")
-    spans.wrap(gpt2, "prefill", "prefill")
-    spans.wrap(gpt2, "decode_step", "decode_step",
-               meta=lambda *a, **k: a[5] if len(a) > 5 else k.get("step"))
+    for owner, attr, name, meta in decoders.of(model_cfg).spans():
+        spans.wrap(owner, attr, name, meta=meta)
     spans.wrap(lm_head, "lm_head_topk", "lm_head")
     spans.wrap(cache_reorder, "copy_forked_rows_bounded", "fork_copy")
     spans.wrap(port.IdTokenizer, "decode", "detokenize")
@@ -121,6 +121,7 @@ def served_readings(run, rids: List[int], tokens: List[List[int]],
     length-normalised log-probability (see the module docstring). An
     empty caption reads an infinite gap and no score."""
     cfg = run.cfg
+    dec = decoders.of(cfg["model"])
     ref_model.disable_tf32()
     R = cfg["decode"]["beam_size"]
     sd = weights.state_dict(cfg, run.seed, run.device)
@@ -134,7 +135,7 @@ def served_readings(run, rids: List[int], tokens: List[List[int]],
         T = max(len(t) for t in toks)
         tt = torch.tensor([t + [t[-1]] * (T - len(t)) for t in toks],
                           device=run.device)
-        lg = ref_model.caption_logits(sd, cfg["model"], emb[i:i + block], tt)
+        lg = dec.caption_logits(sd, cfg["model"], emb[i:i + block], tt)
         kth = lg.topk(R, dim=-1).values[..., -1]
         picked = lg.gather(-1, tt[..., None])[..., 0]
         gap = (kth - picked).clamp_min(0)
@@ -154,13 +155,12 @@ def reference_beams(run, rids: List[int], precision: str = "f32"
     `precision`: each request's best caption and its score. In "fp8" it
     is the control, the reference put in the program's place."""
     cfg = run.cfg
-    dec = cfg["decode"]
+    d, dec = cfg["decode"], decoders.of(cfg["model"])
     ref_model.disable_tf32()
     sd = weights.state_dict(cfg, run.seed, run.device)
-    caps, best = ref_model.beam_search(
-        sd, cfg["model"], request_tensor(run, rids), dec["beam_size"],
-        dec["entry_length"], dec["stop_token"],
-        ref_model.Precision(precision))
+    caps, best = dec.beam_search(
+        sd, cfg["model"], request_tensor(run, rids), d["beam_size"],
+        d["entry_length"], d["stop_token"], dec.Precision(precision))
     return caps, best.cpu().numpy().astype(np.float64)
 
 

@@ -52,3 +52,65 @@ TINY_TRAIN = {"batch_size": 4, "tokens": 8, "caption_tokens": [2, 6],
 
 def tiny_traffic(workload: str) -> dict:
     return TINY_TRAIN if "train" in workload else TINY_SERVE
+
+
+# A decoder file that binds GPT-2's functions under the key `toy`: a
+# configuration whose `model` holds `toy` and `mapper` (and no `gpt2`)
+# runs through it as a GPT-2 one does.
+TOY_DECODER = '''"""GPT-2's bindings under the key `toy` (a test's decoder)."""
+from benchmark.decoders import gpt2 as _g
+
+Precision, load_model, spans = _g.Precision, _g.load_model, _g.spans
+
+
+def _m(m):
+    return {"gpt2": m["toy"], "mapper": m["mapper"]}
+
+
+def layout(m):
+    return _g.layout(_m(m))
+
+
+def hidden(m):
+    return _g.hidden(_m(m))
+
+
+def vocab(m):
+    return _g.vocab(_m(m))
+
+
+def lm_head_shape(m):
+    return _g.lm_head_shape(_m(m))
+
+
+def decode_attention_shape(m):
+    return _g.decode_attention_shape(_m(m))
+
+
+def caption_flops(m, *a):
+    return _g.caption_flops(_m(m), *a)
+
+
+def train_step_flops(m, *a):
+    return _g.train_step_flops(_m(m), *a)
+
+
+def model_config(m, *a, **k):
+    return _g.model_config(_m(m), *a, **k)
+
+
+def caption_logits(sd, m, *a, **k):
+    return _g.caption_logits(sd, _m(m), *a, **k)
+
+
+def beam_search(sd, m, *a, **k):
+    return _g.beam_search(sd, _m(m), *a, **k)
+'''
+
+
+def toy_config(workload: str, precision: str = "f32") -> dict:
+    """tiny_config with its decoder under the key `toy`."""
+    cfg = tiny_config(workload, precision)
+    cfg["model"] = {"toy": cfg["model"]["gpt2"],
+                    "mapper": cfg["model"]["mapper"]}
+    return cfg

@@ -48,13 +48,29 @@ def test_unique_names():
 
 
 def test_configs_and_files():
+    """Each configuration is used, and its file names a decoder module
+    that builds its layout."""
+    from benchmark import decoders
     used = {w["config"] for w in BENCH["workloads"]}
     for c in BENCH["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert c["name"] in used
         f = common.load_json(ROOT / c["file"])
         assert f["reduced"] == c["reduced"]
-        assert f["model"]["gpt2"]["n_embd"] == 768
+        dec = decoders.of(f["model"])
+        assert (ROOT / "benchmark" / "decoders"
+                / f"{decoders.key(f['model'])}.py").exists()
+        keys = [k for k, _, _ in dec.layout(f["model"])]
+        assert keys and len(keys) == len(set(keys))
+        assert dec.hidden(f["model"]) > 0 and dec.vocab(f["model"]) > 0
+
+
+def test_four_chip_cells():
+    """A cell takes 1 or 4 chips, and at most a quarter of the cells
+    (rounded down), or one, take 4."""
+    chips = [w["chips"] for w in BENCH["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -64,7 +80,7 @@ def test_cell_reports(cell):
     moves."""
     wl = common.by_name(BENCH["workloads"], cell, "workload")
     assert set(wl) == {"name", "config", "traffic", "chips", "why"}
-    assert wl["chips"] == 1
+    assert wl["chips"] in (1, 4)
     e2e = {m["name"] for m in common.metrics_of_cell(BENCH["end_to_end"], cell)}
     assert "setup_s" in e2e and len(e2e) >= 2
     layer = common.metrics_of_cell(BENCH["per_layer"], cell)
@@ -100,7 +116,8 @@ def test_run_seconds_fits_a_full_check():
 @pytest.mark.parametrize("cell", CELLS)
 def test_limits_lie_between_their_readings(cell):
     """Each compared number's limit lies above the program's largest
-    reading and below the least reading that sets its upper end."""
+    reading and below the least reading that sets its upper end; an
+    exact comparison's limit is 0, as its lower reading must be."""
     limits = common.limits_file(cell)
     compared = {n: v for n, v in limits.items()
                 if isinstance(v, dict) and "limit" in v}
@@ -108,4 +125,7 @@ def test_limits_lie_between_their_readings(cell):
     for name, v in compared.items():
         assert v["lower"] == max(v["program"] + v.get("program_48_requests", [])
                                  + v.get("program_runs", [])), name
-        assert v["lower"] < v["limit"] < v["upper"], name
+        if v.get("exact"):
+            assert v["lower"] == v["limit"] == 0 < v["upper"], name
+        else:
+            assert v["lower"] < v["limit"] < v["upper"], name

@@ -47,6 +47,21 @@ def test_sound_run_is_correct(cell):
     assert out["correct"], out["checks"]
 
 
+def test_train_run_reports_its_rate_per_layer():
+    """A train cell's end-to-end metrics are set-up and the program's peak
+    (none on the CPU); its rate is the per-layer samples_per_s.train."""
+    out = execute(TRAIN, **TRAIN_LR)
+    assert set(out["metrics"]) == {"setup_s", "train_peak_memory_gb"}
+    assert out["metrics"]["train_peak_memory_gb"]["value"] == 0
+    info = out["info"]
+    rate = info["counters"]["samples_per_s"]
+    assert rate == pytest.approx(info["counters"]["steps_in_window"]
+                                 * tiny_traffic(TRAIN)["batch_size"]
+                                 / info["window_s"])
+    ctx = run_module().MetricContext(None, None, info["counters"], None)
+    assert common.metric_reader("samples_per_s.train").read(ctx) == rate
+
+
 def failed(out):
     return [n for n, c in out["checks"].items() if c["value"] > c["limit"]]
 

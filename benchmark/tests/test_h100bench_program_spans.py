@@ -141,8 +141,9 @@ def test_entries_name_the_readers():
     for m in mine:
         assert m["unit"] == "ms" and m["better"] == "lower"
         train = m["name"].endswith(".train")
-        assert m["moves"] == ("train_samples_per_s" if train
+        assert m["moves"] == ("train_peak_memory_gb" if train
                               else "captions_per_s")
-        assert m["workloads"] == (["flagship-train-coco"] if train else
+        assert m["workloads"] == (["flagship-train-coco",
+                                   "flagship-train-dp4"] if train else
                                   ["flagship-beam-offline",
                                    "clipcap-mlp-beam-offline"])

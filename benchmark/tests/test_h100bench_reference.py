@@ -25,7 +25,7 @@ def test_teacher_forced_logits(cell):
     cfg = tiny_config(cell, "f32")
     sd = weights.state_dict(cfg, 11, CPU)
     mcfg = port.model_config(cfg, "f32")
-    model = port.load_model(sd, mcfg, CPU)
+    model = port.load_model(cfg, sd, mcfg, CPU)
     g = torch.Generator().manual_seed(3)
     B, T = 3, 6
     emb = torch.randn(B, cfg["model"]["mapper"]["prefix_size"], generator=g)
@@ -45,7 +45,7 @@ def test_train_loss_and_gradients():
     tr = dict(common.traffic_file("train-coco-b30"), **tiny_traffic("train"))
     sd = weights.state_dict(cfg, 5, CPU)
     mcfg = port.model_config(cfg, "f32")
-    model = port.load_model(sd, mcfg, CPU)
+    model = port.load_model(cfg, sd, mcfg, CPU)
     b = train_driver.make_batch(5, 0, tr, cfg)
     bt = {k: torch.as_tensor(v) for k, v in b.items()}
     prefix = ref_train.noised(bt["prefix"], tr["noise_variance"], 77)

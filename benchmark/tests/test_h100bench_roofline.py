@@ -69,7 +69,8 @@ def test_caption_flops_mlp_by_hand():
     cfg = _cfg("clipcap-vitb32-mlp-gpt2")
     D, K = 768, 10
     H = D * K // 2
-    assert decode_model.mapper_flops(cfg) == 2 * (512 * H + H * D * K)
+    assert decode_model.mapper_flops(cfg["mapper"], D) == \
+        2 * (512 * H + H * D * K)
 
 
 @pytest.mark.parametrize("batch,T", [(30, 40), (4, 8)])

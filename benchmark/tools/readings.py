@@ -27,11 +27,18 @@ cell's load and reads every number of the cell's check:
             the weights and moments as they were) and
             `fault_stale_batch_window` (each step trains on the batch
             before its own)
+  data parallel (a mix with `dp`, drivers/train_dp.py): as training, the
+            control taking the global batch on one card; its faults
+            `fault_dp_sum_skipped` (rank 0 sums its gradients with the
+            other ranks' but keeps its own: the exchange left out
+            there) and `fault_half_batch` on every rank (planted in the
+            children through tools/plant_child.py)
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -126,6 +133,49 @@ def train_faults(check_steps: int):
                                          stale(w))}
 
 
+def dp_faults():
+    """The exchange left out on one rank: its gradients are summed with
+    the other ranks' (so their sums complete), and it keeps its own."""
+    from capdec_tpu_torch.parallel import mesh as mesh_lib
+    reduce = mesh_lib.all_reduce_grads
+
+    def skipped(params, mesh):
+        params = [p for p in params if p.grad is not None]
+        own = [p.grad.clone() for p in params]
+        reduce(params, mesh)
+        for p, g in zip(params, own):
+            p.grad.copy_(g)
+    return {"fault_dp_sum_skipped": (mesh_lib, "all_reduce_grads", skipped)}
+
+
+def train_fault_table(check_steps: int):
+    """Every training fault by name."""
+    return {**train_faults(check_steps), **dp_faults()}
+
+
+# The faults read on a data-parallel cell: planted on every rank (True)
+# or on rank 0 alone.
+DP_FAULTS = {"fault_dp_sum_skipped": False, "fault_half_batch": True}
+# The environment variable that names the fault tools/plant_child.py
+# plants in a child rank.
+PLANT_ENV = "BENCH_PLANT_FAULT"
+
+
+def planted(name: str, every_rank: bool, check_steps: int, fn):
+    """fn() with fault `name` planted in this process (rank 0), and with
+    `every_rank` in drivers/train_dp.py's children too."""
+    owner, attr, value = train_fault_table(check_steps)[name]
+    if not every_rank:
+        return _with(owner, attr, value, fn)
+    from benchmark.drivers import train_dp
+    os.environ[PLANT_ENV] = name
+    try:
+        return _with(train_dp, "CHILD_MODULE", "benchmark.tools.plant_child",
+                     lambda: _with(owner, attr, value, fn))
+    finally:
+        del os.environ[PLANT_ENV]
+
+
 # --------------------------------------------------------------------------
 # Readings
 # --------------------------------------------------------------------------
@@ -135,7 +185,7 @@ def _numbers(checked):
 
 
 def serve_readings(run, drv, limits, faults: bool = True) -> dict:
-    from benchmark import port, serving
+    from benchmark import decoders, port, serving
     res = drv.run(run)
     checked = serving.check(run, res, limits)
     rec = {"program": _numbers(checked), "program_gaps": checked["score_gaps"],
@@ -149,7 +199,8 @@ def serve_readings(run, drv, limits, faults: bool = True) -> dict:
     rec["control"] = _numbers(ctrl)
     rec["control_gaps"] = ctrl["score_gaps"]
     if faults:
-        V = run.cfg["model"]["gpt2"]["vocab_size"]
+        m = run.cfg["model"]
+        V = decoders.of(m).vocab(m)
         for name, (owner, attr, value) in serve_faults(V).items():
             res_f = _with(owner, attr, value, lambda: drv.run(run))
             checked = serving.check(run, res_f, limits)
@@ -170,21 +221,28 @@ def train_readings(run, drv, limits, faults: bool = True) -> dict:
                     if n not in ("checks", "before")})
         return out
 
+    from benchmark.drivers import train_dp
+    dp = "dp" in run.traffic
+    # the reference takes the global batch, on one card: nothing apart
+    crun = train_dp.global_run(run) if dp else run
     res = drv.run(run)
+    judge = res["check"]
     ws = res["window_step"]
-    control = {"readings": check.reference_readings(run, "fp8"),
+    control = {"readings": check.reference_readings(crun, "fp8"),
                "window_step": dict(ws, readings=check.window_reference(
-                   run, ws, "fp8"))}
-    rec = {"control": numbers(check.check(run, control, limits)),
-           "program": numbers(check.check(run, res, limits)),
+                   crun, ws, "fp8")),
+               "ranks_apart": 0}
+    rec = {"control": numbers(judge(run, control, limits)),
+           "program": numbers(judge(run, res, limits)),
            "window_step": ws["k"], "e2e": res["e2e"]}
     del res, control, ws
     torch.cuda.empty_cache()
     if faults:
-        for name, (owner, attr, value) in train_faults(
-                run.traffic["check_steps"]).items():
-            res_f = _with(owner, attr, value, lambda: drv.run(run))
-            rec[name] = numbers(check.check(run, res_f, limits))
+        steps = run.traffic["check_steps"]
+        plan = DP_FAULTS if dp else dict.fromkeys(train_faults(steps), False)
+        for name, every_rank in plan.items():
+            res_f = planted(name, every_rank, steps, lambda: drv.run(run))
+            rec[name] = numbers(judge(run, res_f, limits))
             del res_f
             torch.cuda.empty_cache()
     return rec
@@ -225,7 +283,7 @@ def main(argv=None) -> int:
         run = run_mod.Run(args.workload, cfg, traffic, seed, args.seconds,
                           False, dev, tracing.Spans())
         t0 = time.perf_counter()
-        if traffic["driver"] == "train":
+        if traffic["driver"] in ("train", "train_dp"):
             rec = train_readings(run, drv, limits, i < args.fault_seeds)
         else:
             rec = serve_readings(run, drv, limits, i < args.fault_seeds)

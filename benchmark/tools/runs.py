@@ -6,7 +6,8 @@ another, and keep every result line.
 
 Each run is `python3 benchmark/run.py ...` from the checkout's root; the
 file gets one JSON object a run: the arguments, the exit code, the wall
-time, the result line (or null) and the end of standard error. A line
+time, the result line (or null), the processes that hold a card after
+it (`nvidia-smi`; none should) and the end of standard error. A line
 per run is printed too, with the card's name and power limit first.
 """
 from __future__ import annotations
@@ -31,6 +32,17 @@ def card(query: str = "name,power.limit") -> str:
 
 
 CLOCKS = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+
+
+def apps() -> str:
+    """The processes that hold a card (none should, once a run ended)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,process_name",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
 
 
 def main(argv=None) -> int:
@@ -65,7 +77,7 @@ def main(argv=None) -> int:
                 res = None
             rec = {"spec": spec, "rc": rc, "wall_s": wall, "result": res,
                    "card_before": before, "card_after": card(CLOCKS),
-                   "stderr_tail": se[-3000:]}
+                   "apps_after": apps(), "stderr_tail": se[-3000:]}
             f.write(json.dumps(rec) + "\n")
             f.flush()
             if res is None:
@@ -78,7 +90,8 @@ def main(argv=None) -> int:
                   f"att {res['attempted']} fail {res['failed']} {m} checks {c} "
                   f"mem {res['device'].get('memory_peak_bytes')} "
                   f"busy {res['device'].get('busy_s')} win "
-                  f"{res['device'].get('window_s')}", flush=True)
+                  f"{res['device'].get('window_s')} apps after "
+                  f"{rec['apps_after'] or 'none'}", flush=True)
     return 0
 
 
