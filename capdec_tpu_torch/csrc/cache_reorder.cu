@@ -183,17 +183,19 @@ __device__ __forceinline__ unsigned level_fma(float x, float s, float inv) {
 }
 
 // K3/K14 (kRowMajor: caches [B, L, E, D]) and K13 ([L, B, E, D]): warp
-// j of layer blockIdx.y takes row j >> 1 of that layer's K (j even) or V.
-template <int W, bool kRowMajor>
+// j of layer blockIdx.y takes row j >> 1 of that layer's K (j even) or V;
+// with kParts 1 (a cache of one tensor, the latent of models/mla_moe.py,
+// in k) row j of k.
+template <int W, bool kRowMajor, int kParts = 2>
 __global__ void __launch_bounds__(kSlotMaxWarps * 32)
 write_gen_slot_views(uint4* __restrict__ k, uint4* __restrict__ v,
                      const __grid_constant__ LayerSources src, int L, int B,
                      int E, int step, int row16) {
   const int l = blockIdx.y;
   const int j = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (j >= 2 * B) return;
-  const int b = j >> 1, lane = threadIdx.x & 31;
-  const bool is_v = j & 1;
+  if (j >= kParts * B) return;
+  const int b = kParts == 2 ? j >> 1 : j, lane = threadIdx.x & 31;
+  const bool is_v = kParts == 2 && (j & 1);
   const uint4* s = is_v ? src.v[l] + (size_t)b * src.v_row16[l]
                         : src.k[l] + (size_t)b * src.k_row16[l];
   const size_t slot_row = kRowMajor ? (size_t)b * L + l : (size_t)l * B + b;
@@ -214,8 +216,10 @@ write_gen_slot_views(uint4* __restrict__ k, uint4* __restrict__ v,
 // scripts/torch_fork_copy_steps.py).
 __global__ void empty_grid() {}
 
-// K4 on items * 32 lanes; slab16 = count·row16 words, tiles of 32·W.
-template <int W>
+// K4 on items * 32 lanes; slab16 = count·row16 words, tiles of 32·W; an
+// item's (row, layer) is rest >> 1 and its part (K or V) rest & 1, or
+// with kParts 1 (the one tensor in k) the (row, layer) is rest.
+template <int W, int kParts = 2>
 __global__ void __launch_bounds__(kForkWarps * 32)
 copy_forked_rows_bounded(uint4* __restrict__ k, uint4* __restrict__ v,
                          const int64_t* __restrict__ src, int L, int E,
@@ -223,12 +227,13 @@ copy_forked_rows_bounded(uint4* __restrict__ k, uint4* __restrict__ v,
   const long it = (long)blockIdx.x * kForkWarps + (threadIdx.x >> 5);
   if (it >= items) return;
   const long tile = it % tiles, rest = it / tiles;
-  const long b = (rest >> 1) / L;
+  const long rl = kParts == 2 ? rest >> 1 : rest;  // (row, layer)
+  const long b = rl / L;
   const int64_t s = src[b];
   if (s == b) return;  // the row kept its lane: nothing moves
   const long w0 = tile * 32 * W + (threadIdx.x & 31);  // the lane's word
-  const long slab = ((rest >> 1) % L) * E * row16 + w0;
-  uint4* cache = (rest & 1) ? v : k;
+  const long slab = (rl % L) * E * row16 + w0;
+  uint4* cache = (kParts == 2 && (rest & 1)) ? v : k;
   const uint4* from = cache + s * L * E * row16 + slab;
   uint4* to = cache + b * L * E * row16 + slab;
   uint4 w[W];
@@ -369,7 +374,7 @@ __global__ void copy_forked_rows(uint4* k, uint4* v,
 // K3/K14 (kRowMajor) or K13 on the plan's grid: `blocks` blocks of `warps`
 // warps for each of the L layers (grid.y), `words` 16-byte words a lane
 // (the plan must be this layout's).
-template <bool kRowMajor>
+template <bool kRowMajor, int kParts = 2>
 int launch_slot_write(void* k, void* v, const LayerSources* src, int L,
                       int B, int E, int step, long row_bytes, int warps,
                       int words, int blocks, cudaStream_t stream) {
@@ -377,7 +382,8 @@ int launch_slot_write(void* k, void* v, const LayerSources* src, int L,
   if (L < 1 || L > kSlotMaxLayers || B < 1 || B > INT_MAX / 2 ||
       row_bytes % 16 || row16 < 1 || row16 > INT_MAX || step < 0 ||
       step >= E || warps < 1 || warps > kSlotMaxWarps ||
-      blocks != (2L * B + warps - 1) / warps || words != slot_words(row16))
+      blocks != ((long)kParts * B + warps - 1) / warps ||
+      words != slot_words(row16))
     return static_cast<int>(cudaErrorInvalidValue);
   uint4* k4 = static_cast<uint4*>(k);
   uint4* v4 = static_cast<uint4*>(v);
@@ -385,19 +391,19 @@ int launch_slot_write(void* k, void* v, const LayerSources* src, int L,
   const int r = (int)row16;
   switch (words) {
     case 1:
-      write_gen_slot_views<1, kRowMajor><<<grid, block, 0, stream>>>(
+      write_gen_slot_views<1, kRowMajor, kParts><<<grid, block, 0, stream>>>(
           k4, v4, *src, L, B, E, step, r);
       break;
     case 2:
-      write_gen_slot_views<2, kRowMajor><<<grid, block, 0, stream>>>(
+      write_gen_slot_views<2, kRowMajor, kParts><<<grid, block, 0, stream>>>(
           k4, v4, *src, L, B, E, step, r);
       break;
     case 4:
-      write_gen_slot_views<4, kRowMajor><<<grid, block, 0, stream>>>(
+      write_gen_slot_views<4, kRowMajor, kParts><<<grid, block, 0, stream>>>(
           k4, v4, *src, L, B, E, step, r);
       break;
     default:
-      write_gen_slot_views<8, kRowMajor><<<grid, block, 0, stream>>>(
+      write_gen_slot_views<8, kRowMajor, kParts><<<grid, block, 0, stream>>>(
           k4, v4, *src, L, B, E, step, r);
   }
   return static_cast<int>(cudaGetLastError());
@@ -415,6 +421,18 @@ extern "C" int capdec_write_gen_slot(void* k, void* v,
   return capdec::launch_slot_write<true>(k, v, src, L, B, E, step,
                                          row_bytes, warps, words, blocks,
                                          stream);
+}
+
+// K3 on a row-major cache of one tensor [B, L, E, D] (the latent of
+// models/mla_moe.py): slot `step` takes src's k views; warps a row.
+extern "C" int capdec_write_gen_slot_one(void* kv,
+                                         const capdec::LayerSources* src,
+                                         int L, int B, int E, int step,
+                                         long row_bytes, int warps, int words,
+                                         int blocks, cudaStream_t stream) {
+  return capdec::launch_slot_write<true, 1>(kv, kv, src, L, B, E, step,
+                                            row_bytes, warps, words, blocks,
+                                            stream);
 }
 
 // K13: slot `step` of the seq-major caches [L, B, E, D].
@@ -454,6 +472,30 @@ extern "C" int capdec_copy_forked_rows_bounded(void* k, void* v,
   capdec::copy_forked_rows_bounded<W>
       <<<blocks, 32 * capdec::kForkWarps, 0, stream>>>(
           static_cast<uint4*>(k), static_cast<uint4*>(v), src, L, E, row16,
+          slab16, tiles, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 on a row-major cache of one tensor [B, L, E, D] (the latent of
+// models/mla_moe.py): B L tiles items, a warp each.
+extern "C" int capdec_copy_forked_rows_bounded_one(void* kv,
+                                                   const int64_t* src, int B,
+                                                   int L, int E, int count,
+                                                   long row_bytes, int blocks,
+                                                   cudaStream_t stream) {
+  constexpr int W = capdec::kForkWords;
+  const long row16 = row_bytes / 16;
+  if (B < 1 || L < 1 || count < 1 || count > E || row_bytes % 16 ||
+      row16 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long slab16 = (long)count * row16;
+  const long tiles = (slab16 + 32L * W - 1) / (32L * W);
+  const long items = (long)B * L * tiles;
+  if ((items + capdec::kForkWarps - 1) / capdec::kForkWarps != blocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  capdec::copy_forked_rows_bounded<W, 1>
+      <<<blocks, 32 * capdec::kForkWarps, 0, stream>>>(
+          static_cast<uint4*>(kv), static_cast<uint4*>(kv), src, L, E, row16,
           slab16, tiles, items);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,7 +45,15 @@
 // Each weight byte leaves device memory once; h (491 KB at B = 320) is
 // read from the L2 once per vocab tile: 393 x 491 KB = 193 MB of L2 reads
 // at the beam shape, 38.6 MB at greedy's. Where D / 64 slices of 128 rows
-// do not fit a block, the plan takes tile_n = 64 (the same kernel).
+// do not fit a block, the plan takes tile_n = 64 (the same kernel), and
+// where 64 do not either (D = 2048: 256 KB), tile_n = 48 (192 KB, a ring
+// of four). At 48 entries a tile h is read from the L2 once per 48 vocab
+// entries, 36 GB at (2560, 163840, 2048): the L2 bounds it (8.64 ms there
+// against cuBLAS's product alone, 2.26 ms). Not chosen, as measured on the
+// H100 (PERF.md §6 PR 22): clusters of four CTAs on neighbouring vocab
+// tiles sharing each h slice by a multicast TMA copy, each ring stage
+// released by all four CTAs' consumers (11.05 ms: the four-stage ring,
+// shared, stalls on the slowest CTA).
 //
 // Not chosen, as measured on the H100 (PERF.md §6): R rounds that each
 // filter and reduce all 32 values of a row (about twice the pairs' time
@@ -139,8 +147,23 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da,
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (BN == 48) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %26, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23},"
+        " %24, %25, p, 1, 1, 0, 0;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(scale_d));
   } else {
-    static_assert(BN == 64, "tile_n is 128 or 64");
+    static_assert(BN == 64, "tile_n is 128, 64 or 48");
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -223,6 +246,42 @@ __device__ __forceinline__ int tree_min(int (&x)[N]) {
   return x[0];
 }
 
+// The largest power of two <= n.
+__host__ __device__ constexpr int pow2_floor(int n) {
+  return n < 2 ? 1 : 2 * pow2_floor(n / 2);
+}
+
+// The trees over leaves 0..N-1 for any N: the leaves past the largest power
+// of two P <= N are folded onto 0..N-P-1 first (tile_n 48's 6 pairs a
+// row), then the tree of P leaves; for N a power of two, the tree itself.
+template <int N, int M>
+__device__ __forceinline__ void fold_best(float (&bv)[M], int (&bi)[M]) {
+  constexpr int P = pow2_floor(N);
+#pragma unroll
+  for (int n = 0; n < N - P; ++n) {
+    const bool take = ranks_before(bv[n + P], bi[n + P], bv[n], bi[n]);
+    bv[n] = take ? bv[n + P] : bv[n];
+    bi[n] = take ? bi[n + P] : bi[n];
+  }
+  if constexpr (P > 1) tree_best<P / 2>(bv, bi);
+}
+template <int N, int M>
+__device__ __forceinline__ float fold_max(float (&x)[M]) {
+  constexpr int P = pow2_floor(N);
+#pragma unroll
+  for (int n = 0; n < N - P; ++n) x[n] = fmaxf(x[n], x[n + P]);
+  if constexpr (P > 1) return tree_max<P / 2>(x);
+  return x[0];
+}
+template <int N, int M>
+__device__ __forceinline__ int fold_min(int (&x)[M]) {
+  constexpr int P = pow2_floor(N);
+#pragma unroll
+  for (int n = 0; n < N - P; ++n) x[n] = min(x[n], x[n + P]);
+  if constexpr (P > 1) return tree_min<P / 2>(x);
+  return x[0];
+}
+
 // One (64-row tile, vocab tile)'s partials from a warpgroup's
 // accumulators: warp wi holds rows row0 + 16 wi + lane / 4 (+ 8), lane
 // columns 8i + 2(lane % 4) + {0, 1} of the tile at v0, so a thread holds
@@ -231,7 +290,8 @@ __device__ __forceinline__ int tree_min(int (&x)[N]) {
 // tree), the sum-exp, then the same over the quad. R > 1: a thread's
 // values of a row go into BN / 8 pairs, each ordered once (head first);
 // a round takes the first head in selection order by a tree of depth
-// log2(BN / 8), then the first over the quad, and the pair that held the
+// log2(BN / 8) (tile_n 48: six pairs folded to four first), then the
+// first over the quad, and the pair that held the
 // pick moves its second value up. Both rows' rounds run together (their
 // trees interleave); the first round's pick is the row's max, which the
 // sum-exp uses. Columns >= V are -inf and never picked.
@@ -258,7 +318,7 @@ __device__ __forceinline__ void tile_partials(
       float t[NX];  // the tree overwrites its leaves
 #pragma unroll
       for (int n = 0; n < NX; ++n) t[n] = x[n];
-      float mx = tree_max<NX / 2>(t);
+      float mx = fold_max<NX>(t);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       float l = 0.f;
@@ -268,7 +328,7 @@ __device__ __forceinline__ void tile_partials(
         at[n] = x[n] == mx ? g : INT_MAX;
         l += exp2f((x[n] - mx) * kLog2e);  // exp2(-inf) = 0
       }
-      int first = tree_min<NX / 2>(at);
+      int first = fold_min<NX>(at);
       first = min(first, __shfl_xor_sync(0xffffffffu, first, 1));
       first = min(first, __shfl_xor_sync(0xffffffffu, first, 2));
       l += __shfl_xor_sync(0xffffffffu, l, 1);
@@ -313,7 +373,7 @@ __device__ __forceinline__ void tile_partials(
         tv[p] = hv[half][p];
         ti[p] = hi[half][p];
       }
-      tree_best<NP / 2>(tv, ti);
+      fold_best<NP>(tv, ti);
       best[half] = tv[0];
       at[half] = ti[0];
     }
@@ -738,7 +798,7 @@ cudaError_t launch_wgmma(const void* h, const void* w, int B, int V, int D,
 }  // namespace capdec
 
 // Both passes. The plan (tile_n, stages, threads, blocks, smem) is the
-// wrapper's: bf16 tile_n 128 or 64 on 384 threads over `blocks`
+// wrapper's: bf16 tile_n 128, 64 or 48 on 384 threads over `blocks`
 // persistent blocks; f32 tile_n 128, one stage, 256 threads, blocks = P
 // vocab chunks (by the row tiles), its static shared memory. P is
 // ceil(V / tile_n).
@@ -763,6 +823,10 @@ extern "C" int capdec_lm_head_topk(const void* h, const void* w, int B, int V,
         break;
       case 64:
         err = launch_wgmma<64>(h, w, B, V, D, R, P, stages, blocks, smem,
+                               part_m, part_l, part_v, part_i, stream);
+        break;
+      case 48:
+        err = launch_wgmma<48>(h, w, B, V, D, R, P, stages, blocks, smem,
                                part_m, part_l, part_v, part_i, stream);
         break;
       default:

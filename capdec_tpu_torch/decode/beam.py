@@ -39,6 +39,10 @@ Every path of the JAX engine (`_beam_search_impl`, beam.py:271-553):
     (`kv_cache_int8`, row-major lane mode), whose scales follow the row
     moves by indexing. With `int8_prefix` the prefix cache is quantised
     once after prefill.
+  * The decoder is GPT-2 or the MLA-MoE decoder, by the type of `cfg`
+    (models/decoders.py); the latter decodes on the lane-mode row-major
+    path only (K16 on its latent cache, K3/K4 moving the latent as one
+    tensor) and refuses the others.
   * Each step: decode_step (row-major: kernels K2 and the slot write K3
     or K14, or K6 and K5 over int8; with `fused_slot_chunks` the
     slot-bounded K8, or K9 over int8; seq-major and ancestry: the plain
@@ -56,7 +60,6 @@ cache buffers alternate.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import functools
 from typing import List, Optional, Tuple
@@ -65,7 +68,7 @@ import numpy as np
 import torch
 
 from . import staging
-from ..models import gpt2
+from ..models import decoders, gpt2
 from ..ops import cache_reorder, lm_head
 from ..utils import profiling
 from ..utils.tokenizer import GPT2_DOT_TOKEN
@@ -179,24 +182,25 @@ def resolve_config(bc: BeamConfig) -> BeamConfig:
     return bc
 
 
-def cast_params_for_decode(model: gpt2.GPT2LMHeadModel,
-                           cfg: gpt2.GPT2Config) -> gpt2.GPT2LMHeadModel:
-    """The decoder cast once for decode: matrices in the compute dtype, so
-    every step reads half the bytes in bf16; biases and layernorm
-    parameters rounded to the compute dtype (as the JAX reference casts
-    every leaf) but held in float32, the dtype they are applied in, so no
-    step converts them again. The model itself when it is already so (or
-    for float32 configs)."""
-    cdt = cfg.compute_dtype
-    if all(p.dtype == (cdt if p.dim() > 1 else torch.float32)
-           for p in model.parameters()):
-        return model
-    model = copy.deepcopy(model)
-    with torch.no_grad():
-        for p in model.parameters():
-            p.data = p.data.to(cdt) if p.dim() > 1 else \
-                p.data.to(cdt).float()
-    return model
+def cast_params_for_decode(model, cfg):
+    """The decoder cast once for decode, by its own rule
+    (models/decoders.py): GPT-2's matrices in the compute dtype and its
+    biases and layernorms in float32; the MLA-MoE decoder's matrices as
+    they are when already in the compute dtype."""
+    return decoders.of(cfg).cast_params_for_decode(model, cfg)
+
+
+def _check_decoder(dec, bc: BeamConfig) -> None:
+    """Refuse the paths a decoder other than GPT-2 does not take: it
+    runs the lane-mode row-major path with bounded fork copies only."""
+    if dec is gpt2:
+        return
+    if bc.kv_cache_int8 or not bc.rowmajor_cache or not _use_lanes(bc) \
+            or bc.fused_slot_chunks or not bc.bounded_fork_copy:
+        raise NotImplementedError(
+            f"{dec.__name__} decodes on the lane-mode row-major path with "
+            "bounded fork copies only (no int8 cache, seq-major cache, "
+            "non-lane beams, ancestry or slot-bounded kernels)")
 
 
 def _assign_lanes(src: torch.Tensor, R: int) -> torch.Tensor:
@@ -267,7 +271,8 @@ def _fork_copy(bc: BeamConfig):
         rows = lambda k, v, src, count: whole(k, v, src)
 
     def fork(cache, src, count):
-        rows(cache["k"], cache["v"], src, count)
+        # a cache of one tensor (the MLA latent) has no "v"
+        rows(cache["k"], cache.get("v"), src, count)
         if "ks" in cache:  # int8 scales: tiny, plain indexing
             cache["ks"] = cache["ks"][src]
             cache["vs"] = cache["vs"][src]
@@ -310,9 +315,11 @@ def _lane_fixup(bc: BeamConfig):
 
 
 @torch.no_grad()
-def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
-                      bc: BeamConfig, prefix_embeds: torch.Tensor):
+def _beam_search_impl(model, cfg, bc: BeamConfig,
+                      prefix_embeds: torch.Tensor, counters=None):
     N, K, D = prefix_embeds.shape
+    dec = decoders.of(cfg)
+    _check_decoder(dec, bc)
     R, E = bc.beam_size, bc.entry_length
     dev = prefix_embeds.device
     kernels = not bc.plain_ops
@@ -322,8 +329,10 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     fused_path = (bool(bc.fused_attention) and bc.rowmajor_cache
                   and not bc.ancestry)
     model = cast_params_for_decode(model, cfg)
-    wte = model.transformer.wte.weight
-    logits0, prefix_cache = gpt2.prefill(model, cfg, prefix_embeds)
+    wte = dec.lm_head_weight(model)
+    logits0, prefix_cache = dec.prefill(model, cfg, prefix_embeds)
+    if counters is not None:
+        counters.update({n: prefix_cache[n] for n in dec.DECODE_COUNTERS})
     if bc.kv_cache_int8 and bc.int8_prefix:
         prefix_cache = gpt2.quantize_prefix_cache(prefix_cache)
     inv_t = _inv_temperature(bc.temperature)
@@ -347,15 +356,15 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     if bc.kv_cache_int8:
         init_cache = gpt2.init_gen_cache_rowmajor_int8
     elif bc.rowmajor_cache:
-        init_cache = gpt2.init_gen_cache_rowmajor
+        init_cache = dec.init_gen_cache_rowmajor
     else:
         init_cache = gpt2.init_gen_cache
     # a tp rank's blocks hold n_head / tp heads: its cache is that wide
-    init_cache = functools.partial(init_cache, width=gpt2.kv_width(model))
+    init_cache = functools.partial(init_cache, width=dec.kv_width(model))
     gen_cache = init_cache(cfg, N * R,
                            buckets[-1] if bc.full_alloc else buckets[0],
                            device=dev)
-    cur = gpt2.embed_tokens(model, toks0.reshape(N * R))      # [B, D]
+    cur = dec.embed_tokens(model, toks0.reshape(N * R))       # [B, D]
     lane_fixup = _lane_fixup(bc)
     gather = _gather(bc)
     topk = lm_head.lm_head_topk if bc.fused_lm_head and kernels \
@@ -399,9 +408,9 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
                     gen_cache = lane_fixup(gen_cache, pending_src, i - 1)
                 anc_rows = None if anc is None else \
                     (image_base[:, :, None] + anc).reshape(N * R, E_pad)
-                out = gpt2.decode_step(model, cfg, cur, prefix_cache,
-                                       gen_cache, i - 1, e_cap=cap,
-                                       anc_rows=anc_rows, **step_kw)
+                out = dec.decode_step(model, cfg, cur, prefix_cache,
+                                      gen_cache, i - 1, e_cap=cap,
+                                      anc_rows=anc_rows, **step_kw)
                 # Per-beam shortlist: adding the beam's score and dividing by
                 # its length are monotonic within a beam, so the flat top-R
                 # over beam x vocab picks only from each beam's own top-R.
@@ -444,7 +453,7 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
                 scores = top_avg * seq_lengths
                 tokens[:, :, i] = nxt
                 is_stopped = is_stopped | (nxt == bc.stop_token)
-                cur = gpt2.embed_tokens(model, nxt.reshape(N * R))
+                cur = dec.embed_tokens(model, nxt.reshape(N * R))
                 i += 1
                 more = i < E and i <= cap and \
                     not staging.all_stopped(is_stopped)
@@ -459,16 +468,21 @@ def _beam_search_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     return tokens, seq_lengths, final_scores, order
 
 
-def beam_search(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
-                prefix_embeds: torch.Tensor, bc: BeamConfig = BeamConfig()
+def beam_search(model, cfg, prefix_embeds: torch.Tensor,
+                bc: BeamConfig = BeamConfig(), counters=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
-    """Decode a batch of prefix embeddings [N, K, D] on their device.
+    """Decode a batch of prefix embeddings [N, K, D] on their device with
+    the decoder `cfg` names (models/decoders.py: GPT-2's model and
+    GPT2Config, or the MLA-MoE decoder's).
 
     Returns (tokens [N,R,E] int64, seq_lengths [N,R], scores [N,R],
     order [N,R]) where `order` ranks beams by length-normalised score
-    descending."""
-    return _beam_search_impl(model, cfg, resolve_config(bc), prefix_embeds)
+    descending. `counters` (a dict), when given, takes the batch's device
+    counters by name (the decoder's DECODE_COUNTERS, filled as the steps
+    run; none for GPT-2)."""
+    return _beam_search_impl(model, cfg, resolve_config(bc), prefix_embeds,
+                             counters)
 
 
 def beam_texts(tokenizer, tokens, seq_lengths, order) -> List[List[str]]:

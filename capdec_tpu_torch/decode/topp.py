@@ -41,7 +41,7 @@ import torch
 
 from . import staging
 from .beam import SLOT_ALIGN, cast_params_for_decode
-from ..models import gpt2
+from ..models import decoders, gpt2
 from ..ops import lm_head
 from ..utils import profiling
 from ..utils.tokenizer import GPT2_DOT_TOKEN, GPT2_SPACE_DOT_TOKEN
@@ -123,6 +123,9 @@ def _greedy_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     if tc.kv_cache_int8 and tc.chunk_slot_write and not fused:
         raise ValueError("kv_cache_int8 on the XLA path is not combinable "
                          "with chunk_slot_write")
+    if decoders.of(cfg) is not gpt2:
+        raise NotImplementedError("greedy/top-p decoding takes the GPT-2 "
+                                  "decoder")
     model = cast_params_for_decode(model, cfg)
     wte = model.transformer.wte.weight
     logits0, prefix_cache = gpt2.prefill(model, cfg, prefix_embeds)

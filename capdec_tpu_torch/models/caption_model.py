@@ -23,7 +23,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from . import gpt2, mappers
+from . import gpt2, mappers, mla_moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,13 +40,21 @@ class CaptionModelConfig:
     # logits. 0 = single shot.
     ce_chunk_rows: int = 0
     gpt2: gpt2.GPT2Config = dataclasses.field(default_factory=gpt2.GPT2Config)
+    # The MLA-MoE decoder (models/mla_moe.py) in GPT-2's place when set:
+    # serving by beam search only (no training, greedy/top-p or int8).
+    mla_moe: Optional[mla_moe.MLAMoEConfig] = None
+
+    @property
+    def decoder(self):
+        """The decoder's configuration (models/decoders.py)."""
+        return self.gpt2 if self.mla_moe is None else self.mla_moe
 
     @property
     def mapper(self) -> mappers.MapperConfig:
         return mappers.MapperConfig(
             mapping_type=self.mapping_type,
             dim_clip=self.prefix_size,
-            dim_embedding=self.gpt2.n_embd,
+            dim_embedding=self.decoder.n_embd,
             prefix_length=self.prefix_length,
             clip_length=self.clip_length,
             num_layers=self.num_layers,
@@ -54,16 +62,30 @@ class CaptionModelConfig:
 
 
 class ClipCaptionModel(nn.Module):
+    """`gpt` is GPT-2, or with `cfg.mla_moe` the MLA-MoE decoder, which is
+    built on the meta device here and takes its weights in
+    `params_from_torch_state_dict`."""
+
     def __init__(self, cfg: CaptionModelConfig, device=None):
         super().__init__()
-        self.gpt = gpt2.GPT2LMHeadModel(cfg.gpt2, device=device)
+        self.gpt = gpt2.GPT2LMHeadModel(cfg.gpt2, device=device) \
+            if cfg.mla_moe is None else \
+            mla_moe.MLAMoEModel(cfg.mla_moe, device="meta")
         self.clip_project = mappers.build_mapper(cfg.mapper, device)
+
+
+def _gpt2_only(cfg: CaptionModelConfig, what: str) -> None:
+    if cfg.mla_moe is not None:
+        raise NotImplementedError(f"{what} takes the GPT-2 decoder; the "
+                                  "MLA-MoE decoder serves by beam search "
+                                  "only")
 
 
 def init_params(cfg: CaptionModelConfig, generator: torch.Generator,
                 device=None) -> ClipCaptionModel:
     """A caption model with random weights drawn from `generator` (a
     generator of `device`)."""
+    _gpt2_only(cfg, "init_params")
     model = ClipCaptionModel(cfg, device)
     gpt2.init_params(model.gpt, cfg.gpt2, generator)
     mappers.init_params(model.clip_project, generator)
@@ -80,6 +102,7 @@ def map_prefix(model: ClipCaptionModel, cfg: CaptionModelConfig,
 def _embeds(model: ClipCaptionModel, cfg: CaptionModelConfig,
             tokens: torch.Tensor, prefix: torch.Tensor) -> torch.Tensor:
     """[mapper(prefix) | wte(tokens)]: [B, K + T, D], with gradients."""
+    _gpt2_only(cfg, "training")
     tok = gpt2.embed_tokens(model.gpt, tokens)
     pre = model.clip_project(prefix).to(tok.dtype)
     return torch.cat([pre, tok], dim=1)
@@ -89,6 +112,7 @@ def forward(model: ClipCaptionModel, cfg: CaptionModelConfig,
             tokens: torch.Tensor, prefix: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Training forward: f32 logits [B, K+T, V]."""
+    _gpt2_only(cfg, "training")
     return gpt2.forward(model.gpt, cfg.gpt2,
                         _embeds(model, cfg, tokens, prefix), mask)
 
@@ -192,8 +216,22 @@ def params_to_torch_state_dict(model: ClipCaptionModel,
 def params_from_torch_state_dict(sd: Dict[str, Any], cfg: CaptionModelConfig,
                                  device=None) -> ClipCaptionModel:
     """Load a reference CapDec checkpoint (keys `gpt.*` + `clip_project.*`)
-    strictly. A tied `gpt.lm_head.weight` may be absent."""
+    strictly. A tied `gpt.lm_head.weight` may be absent. With `cfg.mla_moe`
+    the decoder holds the state dict's `gpt.*` tensors themselves (no
+    copy, whatever their dtype) and the mapper takes float32 copies."""
     sd = {k: torch.as_tensor(v) for k, v in sd.items()}
+    if cfg.mla_moe is not None:
+        model = ClipCaptionModel(cfg, device)
+        dec = {k[4:]: v for k, v in sd.items() if k.startswith("gpt.")}
+        pre = "clip_project."
+        rest = [k for k in sd if not k.startswith(("gpt.", pre))]
+        if rest:
+            raise KeyError(f"unexpected keys {rest[:4]}")
+        model.gpt = mla_moe.params_from_torch_state_dict(dec, cfg.mla_moe)
+        model.clip_project.load_state_dict(
+            {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)},
+            strict=True)
+        return model
     sd.setdefault("gpt.lm_head.weight", sd["gpt.transformer.wte.weight"])
     model = ClipCaptionModel(cfg, device)
     model.load_state_dict(sd, strict=True)

@@ -48,6 +48,8 @@ layernorms and the tied head stay whole, so K1 runs at full D.
 """
 from __future__ import annotations
 
+import copy
+
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
@@ -252,6 +254,36 @@ def _dense_out(x: torch.Tensor, layer: Conv1D, cdt: torch.dtype,
         return _dense(x, layer, cdt)
     y = torch.matmul(x.to(cdt), layer.weight.to(cdt)).float()
     return tp.reduce_out(y) + layer.bias.float()
+
+
+# The decoder interface (models/decoders.py): GPT-2 counts nothing on the
+# device in a decode step.
+DECODE_COUNTERS = ()
+
+
+def lm_head_weight(model: GPT2LMHeadModel) -> torch.Tensor:
+    """K1's weights: the tied embedding wte [V, D]."""
+    return model.transformer.wte.weight
+
+
+def cast_params_for_decode(model: GPT2LMHeadModel,
+                           cfg: GPT2Config) -> GPT2LMHeadModel:
+    """The decoder cast once for decode: matrices in the compute dtype, so
+    every step reads half the bytes in bf16; biases and layernorm
+    parameters rounded to the compute dtype (as the JAX reference casts
+    every leaf) but held in float32, the dtype they are applied in, so no
+    step converts them again. The model itself when it is already so (or
+    for float32 configs)."""
+    cdt = cfg.compute_dtype
+    if all(p.dtype == (cdt if p.dim() > 1 else torch.float32)
+           for p in model.parameters()):
+        return model
+    model = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(cdt) if p.dim() > 1 else \
+                p.data.to(cdt).float()
+    return model
 
 
 def kv_width(model: GPT2LMHeadModel) -> int:

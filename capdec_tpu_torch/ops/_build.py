@@ -31,7 +31,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 
 # The parameter struct of K3, K13 and K14 (csrc/cache_reorder.cu
 # LayerSources), passed by pointer and copied by value into the launch:
@@ -70,6 +70,17 @@ SIGNATURES = {
     "capdec_bias_act": [P, P, P, I, I, I, I, I, P],
     "capdec_residual_layernorm":
         [*[P] * 7, I, I, ctypes.c_float, I, I, I, P],
+    "capdec_write_gen_slot_one":
+        [P, ctypes.POINTER(LayerSources), I, I, I, I, L, I, I, I, P],
+    "capdec_copy_forked_rows_bounded_one": [P, P, I, I, I, I, L, I, P],
+    "capdec_mla_decode_attention":
+        [P, P, L, L, P, L, P, P, P, *[I] * 7, F, I, P],
+    "capdec_mla_prep": [P, L, P, L, P, P, P, F, P, L, I, I, P],
+    "capdec_moe_route": [P, P, I, I, I, I, F, P, P, P],
+    "capdec_moe_dispatch": [P, I, I, I, P, P, P, P, P],
+    "capdec_swiglu": [P, L, P, L, P, L, I, I, P],
+    "capdec_moe_combine": [P, P, P, P, I, I, I, P],
+    "capdec_residual_rmsnorm": [P, P, L, P, P, I, I, F, I, P],
 }
 
 build_seconds = 0.0  # wall time of the build this process ran (0: cached)

@@ -33,13 +33,16 @@ MOVABLE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
 def _check_cache(k, v, name):
-    if k.shape != v.shape or k.dtype != v.dtype or k.device != v.device \
+    """The row bytes of caches k/v [B, L, E, D] alike; v None for a cache
+    of one tensor (the latent of models/mla_moe.py)."""
+    w = k if v is None else v
+    if k.shape != w.shape or k.dtype != w.dtype or k.device != w.device \
             or k.dim() != 4:
         raise ValueError(f"{name}: k and v must be [B, L, E, D] alike")
-    if not (k.is_contiguous() and v.is_contiguous()):
+    if not (k.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name}: caches must be contiguous")
     row_bytes = k.shape[3] * k.element_size()
-    if row_bytes % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+    if row_bytes % 16 or k.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel moves 16-byte words "
                          "(D * itemsize % 16 == 0, aligned caches)")
     if k.dtype not in MOVABLE_DTYPES:
@@ -79,11 +82,14 @@ def _stacked(new, dim):
     return new if torch.is_tensor(new) else torch.stack(list(new), dim=dim)
 
 
-def write_gen_slot_chunk_plain(k: torch.Tensor, v: torch.Tensor, new_k,
-                               new_v, step: int) -> Dict[str, torch.Tensor]:
+def write_gen_slot_chunk_plain(k: torch.Tensor, v, new_k, new_v,
+                               step: int) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version: cache[:, :, step] = new (in place), new_k/
-    new_v each [B, L, D] or a sequence of L [B, D] (stacked first)."""
+    new_v each [B, L, D] or a sequence of L [B, D] (stacked first); v and
+    new_v None for a cache of one tensor."""
     k[:, :, step] = _stacked(new_k, 1)
+    if v is None:
+        return {"k": k}
     v[:, :, step] = _stacked(new_v, 1)
     return {"k": k, "v": v}
 
@@ -108,13 +114,14 @@ SLOT_WARPS = 4
 SLOT_WORDS = (1, 2, 4, 8)
 
 
-def slot_write_plan(L: int, B: int, D: int, itemsize: int, sms: int) -> dict:
+def slot_write_plan(L: int, B: int, D: int, itemsize: int, sms: int,
+                    parts: int = 2) -> dict:
     """The slot write's launch for L layers of B rows of D values of
     `itemsize` bytes on a card of `sms` SMs, either layout: `layer_blocks`
     blocks for each layer (`blocks` in all) of `warps` warps (`threads`
     threads), `words` 16-byte words a lane in `passes` passes over a row,
-    one warp for each of the 2 L B items. Raises for a shape the kernel
-    does not take."""
+    one warp for each of the `parts` L B items (parts 2: K and V; 1: a
+    cache of one tensor). Raises for a shape the kernel does not take."""
     row_bytes = D * itemsize
     if row_bytes <= 0 or row_bytes % 16:
         raise ValueError(f"the kernel moves 16-byte words: D * itemsize % "
@@ -126,12 +133,12 @@ def slot_write_plan(L: int, B: int, D: int, itemsize: int, sms: int) -> dict:
     row16 = row_bytes // 16
     words = next((w for w in SLOT_WORDS if 32 * w >= row16), SLOT_WORDS[-1])
     warps = SLOT_WARPS
-    while warps > 1 and L * -(-2 * B // warps) < sms:
+    while warps > 1 and L * -(-parts * B // warps) < sms:
         warps //= 2
-    layer_blocks = -(-2 * B // warps)
+    layer_blocks = -(-parts * B // warps)
     return dict(warps=warps, threads=32 * warps, words=words,
                 layer_blocks=layer_blocks, blocks=L * layer_blocks,
-                items=2 * L * B, row16=row16,
+                items=parts * L * B, row16=row16,
                 passes=-(-row16 // (32 * words)))
 
 
@@ -150,6 +157,7 @@ def _layer_views(new, k, v, L, B, axis, name):
                          f"{len(views)}")
     item, dtype, device = k.element_size(), k.dtype, k.device
     shape = torch.Size((B, D))
+    v = k if v is None else v
     k0, v0 = k.data_ptr(), v.data_ptr()  # contiguous caches (_check_cache)
     k1, v1 = k0 + k.numel() * item, v0 + v.numel() * item
     ptrs, rows = [], []
@@ -177,7 +185,8 @@ def _layer_views(new, k, v, L, B, axis, name):
 def _write_slot_views(k, v, new_k, new_v, step, name, rowmajor):
     """Launch the slot write on CUDA tensors: K3's C entry (K3 and K14)
     for the row-major caches [B, L, E, D], K13's for the seq-major
-    [L, B, E, D]."""
+    [L, B, E, D]; v and new_v None: K3's entry for a row-major cache of
+    one tensor."""
     row_bytes = _check_cache(k, v, name)
     A, C, E, D = k.shape
     L, B = (C, A) if rowmajor else (A, C)
@@ -189,10 +198,21 @@ def _write_slot_views(k, v, new_k, new_v, step, name, rowmajor):
     axis = 1 if rowmajor else 0
     src = _build.LayerSources()
     src.k[:L], src.k_row16[:L] = _layer_views(new_k, k, v, L, B, axis, name)
+    lib = _build.library()
+    if v is None:
+        if new_v is not None or not rowmajor:
+            raise ValueError(f"{name}: a cache of one tensor is row-major "
+                             "and takes new_k alone")
+        plan = slot_write_plan(L, B, D, k.element_size(),
+                               _build.sm_count(k.device), parts=1)
+        _build.check(lib.capdec_write_gen_slot_one(
+            k.data_ptr(), src, L, B, E, step, row_bytes, plan["warps"],
+            plan["words"], plan["layer_blocks"], _build.stream(k.device)),
+            name)
+        return {"k": k}
     src.v[:L], src.v_row16[:L] = _layer_views(new_v, k, v, L, B, axis, name)
     plan = slot_write_plan(L, B, D, k.element_size(),
                            _build.sm_count(k.device))
-    lib = _build.library()
     entry = (lib.capdec_write_gen_slot if rowmajor
              else lib.capdec_write_gen_slot_seqmajor)
     _build.check(entry(k.data_ptr(), v.data_ptr(), src, L, B, E, step,
@@ -201,13 +221,14 @@ def _write_slot_views(k, v, new_k, new_v, step, name, rowmajor):
     return {"k": k, "v": v}
 
 
-def write_gen_slot_chunk(k: torch.Tensor, v: torch.Tensor, new_k, new_v,
+def write_gen_slot_chunk(k: torch.Tensor, v, new_k, new_v,
                          step: int) -> Dict[str, torch.Tensor]:
     """Write the step's K/V into slot `step` of the row-major caches k/v
     [B, L, E, D], in place. Each of new_k/new_v is a sequence of L [B, D]
     views (decode_step's per-layer thirds of its qkv outputs, read where
     they lie) or a tensor [B, L, D] (the JAX signature), read as its L
-    strided [B, D] views; one launch either way."""
+    strided [B, D] views; one launch either way. A cache of one tensor
+    (the latent of models/mla_moe.py) comes as k with v and new_v None."""
     if _build.on_cpu(k):
         return write_gen_slot_chunk_plain(k, v, new_k, new_v, step)
     out = _write_slot_views(k, v, new_k, new_v, step,
@@ -339,17 +360,19 @@ def write_gen_slot_chunk_q(k: torch.Tensor, v: torch.Tensor,
 write_gen_slot_chunk_q.launches = 0
 
 
-def copy_forked_rows_bounded_plain(k: torch.Tensor, v: torch.Tensor,
+def copy_forked_rows_bounded_plain(k: torch.Tensor, v,
                                    src: torch.Tensor, count: int
                                    ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version: rows b with src[b] != b take row src[b]'s
-    slots < count (in place; the gather copies before it writes)."""
+    slots < count (in place; the gather copies before it writes); v None
+    for a cache of one tensor."""
     rows = torch.nonzero(src != torch.arange(src.shape[0],
                                              device=src.device)).flatten()
     if rows.numel() and count > 0:
         k[rows, :, :count] = k[src[rows], :, :count]
-        v[rows, :, :count] = v[src[rows], :, :count]
-    return {"k": k, "v": v}
+        if v is not None:
+            v[rows, :, :count] = v[src[rows], :, :count]
+    return {"k": k} if v is None else {"k": k, "v": v}
 
 
 # The launch plan of K4 (csrc/cache_reorder.cu copy_forked_rows_bounded):
@@ -361,12 +384,13 @@ FORK_WARPS = 4
 FORK_W = 4
 
 
-def fork_copy_plan(B: int, L: int, count: int, row_bytes: int) -> dict:
+def fork_copy_plan(B: int, L: int, count: int, row_bytes: int,
+                   parts: int = 2) -> dict:
     """K4's launch for caches of B rows and L layers, slots < count of
     `row_bytes` each: `tiles` tiles of 32 `words` 16-byte words over a
-    (row, layer) slab of `slab16` words, `items` warps (2 B L tiles) in
-    `blocks` blocks of `warps`. Raises for a shape the kernel does not
-    take."""
+    (row, layer) slab of `slab16` words, `items` warps (`parts` B L tiles:
+    2 for K and V, 1 for a cache of one tensor) in `blocks` blocks of
+    `warps`. Raises for a shape the kernel does not take."""
     if row_bytes <= 0 or row_bytes % 16:
         raise ValueError(f"the kernel moves 16-byte words: a slot row of "
                          f"{row_bytes} bytes is not a multiple of 16")
@@ -376,20 +400,20 @@ def fork_copy_plan(B: int, L: int, count: int, row_bytes: int) -> dict:
     row16 = row_bytes // 16
     slab16 = count * row16
     tiles = -(-slab16 // (32 * FORK_W))
-    items = 2 * B * L * tiles
+    items = parts * B * L * tiles
     return dict(words=FORK_W, row16=row16, slab16=slab16, tiles=tiles,
                 items=items, warps=FORK_WARPS, threads=32 * FORK_WARPS,
                 blocks=-(-items // FORK_WARPS))
 
 
-def copy_forked_rows_bounded(k: torch.Tensor, v: torch.Tensor,
-                             src: torch.Tensor, count: int
-                             ) -> Dict[str, torch.Tensor]:
+def copy_forked_rows_bounded(k: torch.Tensor, v, src: torch.Tensor,
+                             count: int) -> Dict[str, torch.Tensor]:
     """In-place fork copy for lane-assigned beam search: row b of k/v
     [B, L, E, D] takes row src[b]'s slots < count, only where
     src[b] != b. Requires the lane invariant (a row that is written is
     never a source). Slots >= count of a forked row keep stale bits; decode
-    attention never reads them. No launch for count 0: nothing moves."""
+    attention never reads them. No launch for count 0: nothing moves. v
+    None: a cache of one tensor (the latent of models/mla_moe.py)."""
     if _build.on_cpu(k):
         return copy_forked_rows_bounded_plain(k, v, src, count)
     row_bytes = _check_cache(k, v, "copy_forked_rows_bounded")
@@ -397,10 +421,19 @@ def copy_forked_rows_bounded(k: torch.Tensor, v: torch.Tensor,
     _check_src(src, k)
     if not 0 <= count <= E:
         raise ValueError(f"count {count} out of range for E={E}")
+    out = {"k": k} if v is None else {"k": k, "v": v}
     if count == 0:
-        return {"k": k, "v": v}
-    plan = fork_copy_plan(B, L, count, row_bytes)
+        return out
     lib = _build.library()
+    if v is None:
+        plan = fork_copy_plan(B, L, count, row_bytes, parts=1)
+        _build.check(lib.capdec_copy_forked_rows_bounded_one(
+            k.data_ptr(), src.data_ptr(), B, L, E, count, row_bytes,
+            plan["blocks"], _build.stream(k.device)),
+            "copy_forked_rows_bounded")
+        copy_forked_rows_bounded.launches += 1
+        return out
+    plan = fork_copy_plan(B, L, count, row_bytes)
     _build.check(lib.capdec_copy_forked_rows_bounded(
         k.data_ptr(), v.data_ptr(), src.data_ptr(), B, L, E, count,
         row_bytes, plan["blocks"], _build.stream(k.device)),

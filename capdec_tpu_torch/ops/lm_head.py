@@ -24,7 +24,9 @@ from . import _build
 # The launch plan of csrc/lm_head.cu.
 TILE_M = 64        # rows of h a warpgroup multiplies (wgmma's M)
 TILE_K = 64        # depth of a slice: one 128-byte swizzled row of bf16
-WGMMA_TILE_N = (128, 64)  # vocab entries a block holds, widest that fits
+# vocab entries a block holds, the widest that fits: 128 up to D 832, 64 up
+# to D 1664, 48 beyond (D 2048: a weight tile of 64 needs 256 KB)
+WGMMA_TILE_N = (128, 64, 48)
 WGMMA_THREADS = 384  # two consumer warpgroups and a producer one
 MAX_STAGES = 8     # h slices in the ring
 CONSUMERS = 2      # consumer warpgroups (an mbarrier each)
@@ -55,8 +57,7 @@ def lm_head_plan(B: int, V: int, D: int, R: int, itemsize: int,
     slices) in `smem` bytes while every 64-row tile of h passes through a
     ring of `stages` slices; tile_n is the widest of WGMMA_TILE_N that
     fits, the ring the deepest (up to MAX_STAGES). f32 (itemsize 4): the
-    FMA kernel, a grid of (row tiles of 64, `blocks` vocab chunks of 128).
-    Either writes one partial (max, sum-exp, top-R) per (row, vocab
+    FMA kernel, a grid of (row tiles of 64, `blocks` vocab chunks of 128). Either writes one partial (max, sum-exp, top-R) per (row, vocab
     tile): `partials` = ceil(V / tile_n), which the second pass merges.
     `r_max` is the largest R the plan takes. Raises if R is out of range
     or the weight tile does not fit a block."""
@@ -107,9 +108,9 @@ def lm_head_topk(hidden: torch.Tensor, wte: torch.Tensor, r: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused `top_k(hidden @ wte^T, r)` + logsumexp.
 
-    hidden: [B, D] (post-final-layernorm); wte: [V, D] (tied LM head),
-    both float32 or both bfloat16. Returns (vals [B, r] f32, idx [B, r]
-    int64, lse [B] f32)."""
+    hidden: [B, D] (post-final-norm); wte: [V, D] (GPT-2's tied LM head,
+    or an untied `lm_head.weight`), both float32 or both bfloat16. Returns
+    (vals [B, r] f32, idx [B, r] int64, lse [B] f32)."""
     if _build.on_cpu(hidden):
         return lm_head_topk_plain(hidden, wte, r)
     B, D = hidden.shape

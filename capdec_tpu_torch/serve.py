@@ -20,7 +20,10 @@ batches:
     thread's time in `_decode`), `batch_span_s` (launch -> finish, summed
     over batches), `decode_steps` (the engine's steps, summed over
     batches) and `captions_stopped` (captions that ended at the stop
-    token before entry_length).
+    token before entry_length); and the decoder's own device counters,
+    copied to the host with the lengths in each batch's finish and summed
+    (the MLA-MoE decoder's `expert_rows` [routed layers, experts]: the
+    rows each expert took over the decode steps).
   * Spans (utils/profiling.py, recorded while a profiler is open), each
     with its batch's id: `serve.collect` (the queue reads, the batch
     build and its launch), `serve.finish` (the wait, the copy to the host
@@ -55,7 +58,7 @@ from .decode import (BeamConfig, ToppConfig, beam_search, beam_top_select,
                      greedy_topp_search)
 from .decode import staging
 from .decode.beam import cast_params_for_decode
-from .models import caption_model
+from .models import caption_model, decoders
 from .parallel import mesh as mesh_lib
 from .utils import profiling
 from .utils.torch_setup import resolve_device
@@ -123,7 +126,8 @@ class CaptionServer:
         self._device = resolve_device(device)
         self._model = model.to(self._device).eval()
         # the decoder's weights in the compute dtype, cast once
-        self._gpt = cast_params_for_decode(self._model.gpt, model_cfg.gpt2)
+        self._gpt = cast_params_for_decode(self._model.gpt,
+                                           model_cfg.decoder)
         self._model_cfg = model_cfg
         self._tokenizer = tokenizer
         self._cfg = cfg
@@ -144,12 +148,13 @@ class CaptionServer:
         self._waits = []
 
     def _decode(self, x: np.ndarray, batch: int = 0
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
         """Caption tokens [N, E] and lengths [N] of the padded batch: the
-        rank-0 beams, selected on the device, or the greedy rows. Under a
-        mesh, rank 0 hands the batch to the followers first. Its time is
-        `stats["decode_s"]` (the engine reads a flag back every step, so
-        it returns within a step's device time of the decode's end)."""
+        rank-0 beams, selected on the device, or the greedy rows; and the
+        decoder's device counters of the batch. Under a mesh, rank 0 hands
+        the batch to the followers first. Its time is `stats["decode_s"]`
+        (the engine reads a flag back every step, so it returns within a
+        step's device time of the decode's end)."""
         t0 = time.perf_counter()
         with profiling.span("decode.batch", batch=batch):
             x = torch.from_numpy(x).to(self._device)
@@ -161,27 +166,31 @@ class CaptionServer:
         return out
 
     def _decode_rows(self, x: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
         """_decode of the padded batch on the device: this dp rank's rows,
-        gathered back over dp under a mesh."""
+        gathered back over dp under a mesh, and this rank's counters."""
         mesh = self._mesh
         rows = x if mesh is None else mesh_lib.shard_batch(x, mesh)
         steps = staging.steps_run()
         prefix = caption_model.map_prefix(self._model, self._model_cfg,
                                           rows)
+        counters: Dict[str, Any] = {}
+        dcfg = self._model_cfg.decoder
         if not self._cfg.beam:
             toks, lens = greedy_topp_search(self._gpt, self._model_cfg.gpt2,
                                             prefix, self._cfg.topp_config)
         else:
+            # GPT-2 counts nothing on the device: its call is as it was
+            kw = {"counters": counters} \
+                if decoders.of(dcfg).DECODE_COUNTERS else {}
             toks, lens, _, order = beam_search(
-                self._gpt, self._model_cfg.gpt2, prefix,
-                self._cfg.beam_config)
+                self._gpt, dcfg, prefix, self._cfg.beam_config, **kw)
             toks, lens = beam_top_select(toks, lens, order)
         self.stats["decode_steps"] += staging.steps_run() - steps
         if mesh is None:
-            return toks, lens
+            return toks, lens, counters
         return (mesh_lib.gather_batch(toks, mesh),
-                mesh_lib.gather_batch(lens, mesh))
+                mesh_lib.gather_batch(lens, mesh), counters)
 
     def _broadcast_header(self, command: int, n: int) -> torch.Tensor:
         """Rank 0's (command, n) to every rank; the followers' receive."""
@@ -237,10 +246,15 @@ class CaptionServer:
         E = (cfg.beam_config if cfg.beam else cfg.topp_config).entry_length
 
         def finish() -> List[str]:
-            top_toks, top_lens = result()
+            top_toks, top_lens, counters = result()
             t = top_toks.cpu().numpy()
             ln = top_lens.cpu().numpy()
             self.stats["captions_stopped"] += int((ln[:n] < E).sum())
+            for name, c in counters.items():  # the decoder's, e.g.
+                c = c.cpu().numpy()           # expert_rows [layers, E]
+                prev = self.stats.get(name)
+                self.stats[name] = (c if prev is None
+                                    else np.asarray(prev) + c).tolist()
             with profiling.span("serve.detokenize"):
                 return [self._tokenizer.decode(t[i, :int(ln[i])])
                         for i in range(n)]

@@ -4,7 +4,8 @@ profiling.py's jax.profiler trace).
 
 `span(name, **meta)` marks a region of the host's work: the serve loop's
 batch build and finish, the decode engine's batches, steps and stop-flag
-reads, the train step's forward, backward and optimizer. A span records
+reads, the train step's forward, backward and optimizer, and the MLA-MoE
+decoder's attention and expert layers (models/mla_moe.py). A span records
 its name, start and end (`time.time_ns()`, the clock on which
 torch.profiler stamps host and device events, so each kernel can be set
 beside what the host was doing), the host thread's native id, its own id,

@@ -36,6 +36,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      must build without spills) at B 2560, 5 and 333 in bf16 and f32
      against the op chains they replace, timed in bf16 at B 2560 (rotated
      past the L2, and warm) and B 5, each with its wrapper's host µs.
+     Then the MLA-MoE decoder (models/mla_moe.py, Kimi-VL-A3B's text
+     model; check_mla_moe) at its served shapes, batch 512 x beam 5:
+     K16 (mla_decode_attention) at steps 0, 33, 66 and 71 and at one
+     image, timed beside its plain version, its bound and SDPA over the
+     gathered latent; mla_prep, residual_rmsnorm, moe_route,
+     moe_dispatch, swiglu and moe_combine at 2560 rows; the grouped
+     expert products (torch._grouped_mm) over 15360 rows against the
+     per-expert loop, beside cuBLAS's dense products; K1 at (2560,
+     163840, 2048) (the `d2048` key of its row); K3 and K4 on the
+     one-tensor latent cache [2560, 27, 72, 576] (the `latent` key of
+     their rows); the new kernels' instances without spills. Then the
+     decoder served (mla_moe_path): full width, 1 dense + 1 routed
+     layer, 512 requests as one batch through CaptionServer, its
+     kernels launched and no other, the expert_rows counter full.
   3. The served paths: a CaptionServer on full-width weights made from a
      seed (GPT-2 124M + the 8-layer TransformerMapper, prefix 640 -> 40,
      bf16, batch 64, entry_length 67) serves 128 requests on each path;
@@ -1623,6 +1637,420 @@ def host_us(fn) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the MLA-MoE decoder (models/mla_moe.py)
+# ---------------------------------------------------------------------------
+
+# Its served shapes: Kimi-VL-A3B's text model at batch 512 images x beam 5
+# (the offline cell's), prefix 40, hidden 2048, 16 heads over a latent of
+# 512 + a rope part of 64, 64 routed experts of 1408 top-6 (15360
+# token-expert rows a layer) and 2 shared, a dense layer of 11264, vocab
+# 163840, 27 layers (the served check keeps 1 dense + 1 routed).
+MLA = dict(N=512, R=5, K=40, E=72, L=27, H=16, D=2048, V=163840, Dl=512,
+           Dr=64, nope=128, experts=64, top=6, I=1408, dense_I=11264,
+           entry_length=67, prefix_size=640, mapper_layers=8, stop_token=13)
+MLA_STEPS = (0, 33, MLA["entry_length"] - 1)
+MLA_SOURCE = "capdec_tpu_torch/csrc/mla_attention.cu"
+MOE_SOURCE = "capdec_tpu_torch/csrc/moe.cu"
+# The kernels a decode of the MLA-MoE decoder launches, and none other.
+MLA_PATH = ("lm_head_topk", "write_gen_slot_chunk", "copy_forked_rows_bounded",
+            "mla_decode_attention", "mla_prep", "residual_rmsnorm",
+            "moe_route", "moe_dispatch", "expert_products", "swiglu",
+            "moe_combine")
+
+
+def _bf(gen, shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=DEVICE) * scale).to(
+        torch.bfloat16)
+
+
+def _within(got, want, frac: float, what: str) -> float:
+    """got within `frac` of want's largest magnitude; the error."""
+    torch.cuda.synchronize()
+    scale = float(want.float().abs().max())
+    err = max_err(got, want)
+    require(err <= frac * scale, f"{what}: max abs err {err} > {frac} of "
+                                 f"the scale {scale}")
+    return err
+
+
+def _ulp1(got, want, what: str) -> float:
+    """got at most one unit in the last place from want; the error."""
+    torch.cuda.synchronize()
+    require(int(ulps(got, want).max()) <= 1,
+            f"{what}: {int(ulps(got, want).max())} ulps")
+    return max_err(got, want)
+
+
+def _row(name, source, ms, plain_ms, nbytes, flops, **more) -> dict:
+    b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+    return dict(name=name, route="cuda", source=source,
+                replaces=f"{name}'s plain version (no TPU kernel)", ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **more)
+
+
+def mla_slots(prefix, gen, lat_new, step, layer, R):
+    """Every row's latent slots [B, S, Dl + Dr]: its image's prefix, its
+    generated rows below `step` and the step's own (the keys, and their
+    first Dl values the values, of the library route)."""
+    return torch.cat([prefix[layer].repeat_interleave(R, 0),
+                      gen[:, layer, :step], lat_new[:, None]], 1)
+
+
+def check_mla_attention(gen) -> dict:
+    """K16 against its plain version: batch 512 x beam 5 at steps 0, 33,
+    66 and 71 (the last slot), one image at steps 0 and 66, within 2 % of
+    the plain output's largest magnitude (the kernel rounds the softmax's
+    numerators to bf16 before the value product, the plain version keeps
+    them in f32). Timed at MLA_STEPS over two layers' caches and query
+    sets (a pass reads more than the L2), beside the plain version, the
+    bound and the library route: scaled_dot_product_attention of each
+    row's 16 heads as 16 queries over its latent slots gathered before
+    (MQA: one key row serves every head), checked against the plain
+    version too."""
+    from capdec_tpu_torch.ops import mla_attention as ma
+    N, R, K, E, H, Dl, Dr = (MLA[k] for k in
+                             ("N", "R", "K", "E", "H", "Dl", "Dr"))
+    C, scale = Dl + Dr, ma.softmax_scale(MLA["nope"] + Dr)
+    kw = dict(beams_per_image=R, scale=scale)
+
+    def inputs(n):
+        """Two layers' prefix and generated latent and two query sets."""
+        B = n * R
+        return _bf(gen, (2, n, K, C)), _bf(gen, (B, 2, E, C)), [
+            (_bf(gen, (H, B, Dl)),
+             _bf(gen, (B, H, MLA["nope"] + Dr))[..., MLA["nope"]:],
+             _bf(gen, (B, C))) for _ in range(2)]
+    err = 0.0
+    for n, steps in ((1, (0, E - 6)), (N, MLA_STEPS + (E - 1,))):
+        prefix, cache, sets = inputs(n)
+        for step in steps:
+            err = max(err, _within(
+                ma.mla_decode_attention(*sets[0], prefix, cache, step, 1,
+                                        **kw),
+                ma.mla_decode_attention_plain(*sets[0], prefix, cache, step,
+                                              1, **kw),
+                0.02, f"K16 N={n} step {step}"))
+    times = {}
+    for step in MLA_STEPS:
+        slots = [mla_slots(prefix, cache, s[2], step, i, R)
+                 for i, s in enumerate(sets)]
+        qs = [torch.cat([s[0].transpose(0, 1), s[1]], -1)[:, None]
+              for s in sets]
+        keys = [s[:, None] for s in slots]
+        vals = [s[:, None, :, :Dl].contiguous() for s in slots]
+
+        def library(i):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs[i], keys[i], vals[i], scale=scale)
+        _within(library(0)[:, 0].transpose(0, 1),
+                ma.mla_decode_attention_plain(*sets[0], prefix, cache, step,
+                                              0, **kw),
+                0.02, f"K16's library route, step {step}")
+        B, S = N * R, K + step + 1
+        b_ms, b_by = bound_ms(
+            ((N * K + B * step + B) * C + B * H * C + B * H * Dl) * 2,
+            2.0 * B * H * S * (C + Dl), torch.bfloat16)
+        times[step] = dict(
+            ms=time_ms(rotating(lambda i: ma.mla_decode_attention(
+                *sets[i], prefix, cache, step, i, **kw), 2)),
+            plain_ms=time_ms(rotating(
+                lambda i: ma.mla_decode_attention_plain(
+                    *sets[i], prefix, cache, step, i, **kw), 2)),
+            library_ms=time_ms(rotating(library, 2)),
+            bound_ms=b_ms, bound_by=b_by)
+        del slots, qs, keys, vals
+    last = times[MLA_STEPS[-1]]
+    return dict(name="mla_decode_attention", route="cuda", source=MLA_SOURCE,
+                replaces="mla_decode_attention's plain version (no TPU "
+                         "kernel)", max_abs_err=err, **last,
+                steps=times, shape=f"N={N} R={R} K={K} H={H} Dl={Dl} "
+                                   f"Dr={Dr} E={E} bf16")
+
+
+def check_mla_glue(gen) -> list:
+    """mla_prep, residual_rmsnorm, the routing (moe_route, moe_dispatch),
+    swiglu and moe_combine against their plain versions at the decode
+    step's B 2560 rows (15360 expert rows), each timed beside it and its
+    bound: mla_prep, residual_rmsnorm and swiglu within one bf16 unit in
+    the last place (the same f32 math; rsqrtf and expf may differ in the
+    last bit), the residual bit-exact; the same experts chosen, weights
+    within 1e-6 relative; the same offsets and row sets, the counter the
+    counts; the combine within 1e-5 of the scale (its sum's order)."""
+    from capdec_tpu_torch.ops import mla_attention as ma, moe, rmsnorm
+    B, D, H, C = MLA["N"] * MLA["R"], MLA["D"], MLA["H"], MLA["Dl"] + MLA["Dr"]
+    E, k, I = MLA["experts"], MLA["top"], MLA["I"]
+    qk = MLA["nope"] + MLA["Dr"]
+    rows = []
+    q, kv = _bf(gen, (B, H * qk), 2.0), _bf(gen, (B, C), 2.0)
+    w = torch.rand(MLA["Dl"], generator=gen, device=DEVICE) + 0.5
+    cos, sin = ma.rope_tables(256, MLA["Dr"], 800000.0, DEVICE)
+    q2 = q.clone()
+    err = _ulp1(ma.mla_prep(q, kv, w, cos[77], sin[77], 1e-6, qk),
+                ma.mla_prep_plain(q2, kv, w, cos[77], sin[77], 1e-6, qk),
+                "mla_prep")
+    _ulp1(q, q2, "mla_prep's q")
+    rows.append(_row(
+        "mla_prep", MLA_SOURCE,
+        time_ms(lambda: ma.mla_prep(q, kv, w, cos[77], sin[77], 1e-6, qk)),
+        time_ms(lambda: ma.mla_prep_plain(q, kv, w, cos[77], sin[77], 1e-6,
+                                          qk)),
+        (B * H * MLA["Dr"] * 2 + 2 * B * C) * 2, 0.0, max_abs_err=err,
+        shape=f"B={B} H={H} qk_head={qk} C={C} bf16"))
+    x = torch.randn(B, D, generator=gen, device=DEVICE) * 3
+    y, wn = _bf(gen, (B, D)), torch.rand(D, generator=gen, device=DEVICE) + .5
+    err = 0.0
+    for assign in (False, True):
+        x1, x2 = x.clone(), x.clone()
+        got = rmsnorm.residual_rmsnorm(x1, y, wn, 1e-5, torch.bfloat16,
+                                       assign)
+        want = rmsnorm.residual_rmsnorm_plain(x2, y.float(), wn, 1e-5,
+                                              torch.bfloat16, assign)
+        torch.cuda.synchronize()
+        require(torch.equal(x1, x2), "residual_rmsnorm: the residual")
+        err = max(err, _ulp1(got, want, "residual_rmsnorm"))
+    rows.append(_row(
+        "residual_rmsnorm", "capdec_tpu_torch/csrc/rmsnorm.cu",
+        time_ms(lambda: rmsnorm.residual_rmsnorm(x1, y, wn, 1e-5,
+                                                 torch.bfloat16)),
+        time_ms(lambda: rmsnorm.residual_rmsnorm_plain(
+            x2, y.float(), wn, 1e-5, torch.bfloat16)),
+        B * D * (4 + 4 + 2 + 2), 0.0, max_abs_err=err,
+        shape=f"B={B} D={D} f32 residual, bf16 h"))
+    logits = torch.randn(B, E, generator=gen, device=DEVICE)
+    bias = torch.randn(E, generator=gen, device=DEVICE) * 0.1
+    idx, wt = moe.route(logits, bias, k, True, 2.446)
+    idx_p, wt_p = moe.route_plain(logits, bias, k, True, 2.446)
+    s, o = idx.sort(-1)
+    s_p, o_p = idx_p.sort(-1)
+    torch.cuda.synchronize()
+    require(torch.equal(s, s_p), "moe_route: other experts chosen")
+    a, b = wt.gather(-1, o), wt_p.gather(-1, o_p)
+    require(bool(((a - b).abs() <= 1e-6 * b.abs()).all()),
+            f"moe_route: weights {max_err(a, b)} apart")
+    rows.append(_row(
+        "moe_route", MOE_SOURCE,
+        time_ms(lambda: moe.route(logits, bias, k, True, 2.446)),
+        time_ms(lambda: moe.route_plain(logits, bias, k, True, 2.446)),
+        B * E * 4 + B * k * 8, 0.0, max_abs_err=max_err(a, b),
+        shape=f"T={B} E={E} k={k}"))
+    counter = torch.zeros(E, dtype=torch.int32, device=DEVICE)
+    offs, pos, token_of = moe.dispatch(idx, E, counter)
+    offs_p, _, _ = moe.dispatch_plain(idx, E)
+    flat = torch.arange(B * k, device=DEVICE)
+    torch.cuda.synchronize()
+    require(torch.equal(offs, offs_p), "moe_dispatch: the offsets")
+    require(torch.equal(counter, torch.diff(offs, prepend=offs[:1] * 0)),
+            "moe_dispatch: the counter")
+    require(torch.equal(token_of[pos.long()].long(), flat // k)
+            and torch.equal(torch.sort(pos).values.long(), flat),
+            "moe_dispatch: a pair's row does not hold its token")
+    rows.append(_row(
+        "moe_dispatch", MOE_SOURCE, time_ms(lambda: moe.dispatch(idx, E)),
+        time_ms(lambda: moe.dispatch_plain(idx, E)), B * k * 4 * 3, 0.0,
+        max_abs_err=0.0, shape=f"T={B} k={k} E={E}"))
+    gu = _bf(gen, (B * k, 2 * I), 2.0)
+    g, u = gu[:, :I], gu[:, I:]
+    err = _ulp1(moe.swiglu(g, u), moe.swiglu_plain(g, u), "swiglu")
+    rows.append(_row(
+        "swiglu", MOE_SOURCE, time_ms(lambda: moe.swiglu(g, u)),
+        time_ms(lambda: moe.swiglu_plain(g, u)), B * k * 3 * I * 2, 0.0,
+        max_abs_err=err, shape=f"rows={B * k} I={I} bf16"))
+    ye = _bf(gen, (B * k, D))
+    x1 = torch.randn(B, D, generator=gen, device=DEVICE)
+    x2 = x1.clone()
+    moe.combine(x1, ye, pos, wt)
+    moe.combine_plain(x2, ye, pos, wt)
+    err = _within(x1, x2, 1e-5, "moe_combine")
+    rows.append(_row(
+        "moe_combine", MOE_SOURCE,
+        time_ms(lambda: moe.combine(x1, ye, pos, wt)),
+        time_ms(lambda: moe.combine_plain(x2, ye, pos, wt)),
+        B * k * D * 2 + 2 * B * D * 4, 0.0, max_abs_err=err,
+        shape=f"T={B} k={k} D={D}"))
+    return rows
+
+
+def check_expert_products(gen) -> dict:
+    """The routed experts' grouped products (ops/moe.py expert_products:
+    torch._grouped_mm for gate|up over all 64 experts, swiglu, the grouped
+    down product) against the per-expert loop at one layer's 15360 rows
+    (an expert left without rows), within 1 % of the scale (both sum in
+    f32 and round to bf16, in other tilings). Timed over two sets of
+    weights (2.2 GB, far past the L2), beside the loop, the bound (the 64
+    experts' weights, the rows in and out) and cuBLAS's dense products of
+    the same rows and widths (one expert's weights for all: the rate the
+    grouped route would reach as one product)."""
+    from capdec_tpu_torch.ops import moe
+    E, D, I = MLA["experts"], MLA["D"], MLA["I"]
+    M = MLA["N"] * MLA["R"] * MLA["top"]
+    counts = torch.multinomial(torch.ones(E, device=DEVICE), M, True,
+                               generator=gen).bincount(minlength=E)
+    counts[3] += counts[5]
+    counts[5] = 0                          # an expert no row chose
+    offs = counts.cumsum(0).to(torch.int32)
+    x = _bf(gen, (M, D))
+    sets = [(_bf(gen, (E, 2 * I, D), 0.03), _bf(gen, (E, D, I), 0.03))
+            for _ in range(2)]
+    err = _within(moe.expert_products(x, *sets[0], offs),
+                  moe.expert_products_plain(x, *sets[0], offs), 0.01,
+                  "expert_products")
+    wgu, wd = sets[0][0][0], sets[0][1][0]
+    act = _bf(gen, (M, I))
+
+    def dense():
+        torch.mm(x, wgu.t())
+        torch.mm(act, wd.t())
+    return _row(
+        "expert_products", "torch._grouped_mm (capdec_tpu_torch/ops/moe.py)",
+        time_ms(rotating(lambda i: moe.expert_products(x, *sets[i], offs),
+                         2)),
+        time_ms(rotating(lambda i: moe.expert_products_plain(
+            x, *sets[i], offs), 2), iters=5, warmup=1),
+        E * 3 * I * D * 2 + 2 * M * D * 2, 2.0 * M * D * 3 * I,
+        max_abs_err=err, cublas_ms=time_ms(dense),
+        shape=f"rows={M} E={E} D={D} I={I} bf16")
+
+
+def latent_cache_times(gen) -> dict:
+    """K3 (write_gen_slot_chunk) and K4 (copy_forked_rows_bounded) on the
+    MLA-MoE decoder's one-tensor latent cache [2560, 27, 72, 576] at step
+    33, bit-exact against their plain versions (they move bytes), timed
+    beside them and their bounds (K3 over two sets of the step's rows; K4
+    forking a third of the rows, each from another row of the batch)."""
+    from capdec_tpu_torch.ops import cache_reorder as cr
+    B, L, E, C = MLA["N"] * MLA["R"], MLA["L"], MLA["E"], MLA["Dl"] + MLA["Dr"]
+    step = MLA_STEPS[1]
+    c1 = _bf(gen, (B, L, E, C))
+    c2 = c1.clone()
+    news = [_bf(gen, (L, B, C)).unbind(0) for _ in range(2)]
+    cr.write_gen_slot_chunk(c1, None, news[0], None, step)
+    cr.write_gen_slot_chunk_plain(c2, None, news[0], None, step)
+    torch.cuda.synchronize()
+    require(torch.equal(c1, c2), "K3 on the latent: not bit-exact")
+    src = torch.arange(B, device=DEVICE)
+    fork = torch.randperm(B, generator=gen, device=DEVICE)[:B // 3]
+    keep = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    keep[fork] = False
+    sources = src[keep]
+    src[fork] = sources[torch.randint(len(sources), (len(fork),),
+                                      generator=gen, device=DEVICE)]
+    cr.copy_forked_rows_bounded(c1, None, src, step + 1)
+    cr.copy_forked_rows_bounded_plain(c2, None, src, step + 1)
+    torch.cuda.synchronize()
+    require(torch.equal(c1, c2), "K4 on the latent: not bit-exact")
+    del c2
+    k3_ms, k3_by = bound_ms(2 * L * B * C * 2, 0.0, torch.bfloat16)
+    k4_ms, k4_by = bound_ms(2 * (B // 3) * L * (step + 1) * C * 2, 0.0,
+                            torch.bfloat16)
+    shape = f"B={B} L={L} E={E} C={C} step={step} bf16"
+    out = {"write_gen_slot_chunk": dict(
+        ms=time_ms(rotating(lambda i: cr.write_gen_slot_chunk(
+            c1, None, news[i], None, step), 2)),
+        plain_ms=time_ms(rotating(lambda i: cr.write_gen_slot_chunk_plain(
+            c1, None, news[i], None, step), 2)),
+        bound_ms=k3_ms, bound_by=k3_by, shape=shape),
+        "copy_forked_rows_bounded": dict(
+        ms=time_ms(lambda: cr.copy_forked_rows_bounded(c1, None, src,
+                                                       step + 1)),
+        plain_ms=time_ms(lambda: cr.copy_forked_rows_bounded_plain(
+            c1, None, src, step + 1)),
+        bound_ms=k4_ms, bound_by=k4_by, shape=shape)}
+    return out
+
+
+class IdTokenizer:
+    """Token ids joined by commas (random weights choose from all 163840
+    tokens, which the byte tokenizer cannot spell)."""
+
+    def decode(self, ids) -> str:
+        return ",".join(map(str, ids.tolist()))
+
+
+def mla_moe_model(gen, layers: int = 2):
+    """The MLA-MoE caption model at full width with `layers` decoder
+    layers (one dense, the rest routed), its bf16 weights drawn from gen
+    (matrices N(0, 0.05), the correction bias N(0, 0.05), norms 1) in the
+    reference layout and held without a copy, and the 8-layer mapper at
+    width 2048 in f32."""
+    from capdec_tpu_torch.models import caption_model, mappers, mla_moe
+    c = mla_moe.MLAMoEConfig(
+        num_hidden_layers=layers, vocab_size=MLA["V"], hidden_size=MLA["D"],
+        intermediate_size=MLA["dense_I"], moe_intermediate_size=MLA["I"],
+        n_routed_experts=MLA["experts"], num_experts_per_tok=MLA["top"],
+        compute_dtype=torch.bfloat16)
+    cfg = caption_model.CaptionModelConfig(
+        prefix_length=MLA["K"], clip_length=MLA["K"],
+        prefix_size=MLA["prefix_size"], num_layers=MLA["mapper_layers"],
+        mapping_type="transformer", mla_moe=c)
+    model = caption_model.ClipCaptionModel(cfg, DEVICE)
+    mappers.init_params(model.clip_project, gen)
+    sd = {}
+    for name, t in mla_moe.MLAMoEModel(c, device="meta").state_dict().items():
+        sd[name] = torch.ones(t.shape, device=DEVICE, dtype=torch.bfloat16) \
+            if name.endswith("norm.weight") else _bf(
+                gen, t.shape, 1.0 if "embed_tokens" in name else 0.05)
+    model.gpt = mla_moe.params_from_torch_state_dict(sd, c)
+    return model, cfg
+
+
+def mla_moe_path(gen) -> dict:
+    """The MLA-MoE decoder served through CaptionServer (lane-mode beam 5,
+    the row-major latent cache) at full width, 1 dense + 1 routed layer:
+    512 requests as one batch of 512, the launch counters zeroed just
+    before and read just after (MLA_PATH launched, no other kernel), every
+    request captioned, and the expert_rows counter [1, 64] holding every
+    decode step's 2560 rows x 6 experts."""
+    from capdec_tpu_torch import serve
+    model, cfg = mla_moe_model(gen)
+    dc = serve.BeamConfig(beam_size=MLA["R"],
+                          entry_length=MLA["entry_length"],
+                          stop_token=MLA["stop_token"])
+    server = serve.CaptionServer(
+        model, cfg, IdTokenizer(),
+        serve.ServeConfig(batch_size=MLA["N"], beam_config=dc),
+        device=DEVICE)
+    server.warmup()
+    embeds = np.random.RandomState(SEED).randn(
+        MLA["N"], MLA["prefix_size"]).astype(np.float32)
+    out = serve_path(server, embeds, MLA_PATH)
+    rows = np.asarray(server.stats["expert_rows"])
+    steps = server.stats["decode_steps"]
+    require(rows.shape == (1, MLA["experts"]) and int(rows.sum()) == steps
+            * MLA["N"] * MLA["R"] * MLA["top"],
+            f"expert_rows {rows.shape} sums to {rows.sum()} over {steps} "
+            "steps")
+    out.update(decode_steps=steps, expert_rows_max_over_mean=float(
+        rows.max() / rows.mean()))
+    return out
+
+
+def check_mla_moe(gen, ptxas) -> tuple:
+    """Phase 2b: the MLA-MoE decoder's kernels against their plain versions
+    (K16, its glue, the grouped expert products, K1 at (2560, 163840,
+    2048), K3/K4 on the latent), their instances built without spills, and
+    the decoder served. Returns (the new kernels' rows, K1's D 2048 times,
+    K3/K4's latent times, the served path)."""
+    new = {name: rep for name, rep in ptxas.items()
+           if any(s in name for s in ("mla_", "moe_", "swiglu",
+                                      "residual_rmsnorm"))}
+    for name, rep in new.items():
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"{name} spills: {rep}")
+    rows = [check_mla_attention(gen), *check_mla_glue(gen),
+            check_expert_products(gen)]
+    torch.cuda.empty_cache()
+    k1 = lm_head_times(gen, {"d2048": (MLA["N"] * MLA["R"], MLA["R"])},
+                       V=MLA["V"], D=MLA["D"])["d2048"]
+    require(k1["plan"]["tile_n"] == 48, f"K1 at D 2048: plan {k1['plan']}")
+    torch.cuda.empty_cache()
+    latent = latent_cache_times(gen)
+    torch.cuda.empty_cache()
+    served = mla_moe_path(gen)
+    torch.cuda.empty_cache()
+    return rows, k1, latent, served
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
 
@@ -1671,7 +2099,8 @@ def build_server(gen, model=None, beam=True, beam_size=MAIN["R"], cfg=None,
 
 def counters():
     from capdec_tpu_torch.ops import (cache_reorder, decode_attention,
-                                      epilogue, lm_head)
+                                      epilogue, lm_head, mla_attention, moe,
+                                      rmsnorm)
     return {"lm_head_topk": lm_head.lm_head_topk,
             "beam_decode_attention_rowmajor":
                 decode_attention.beam_decode_attention_rowmajor,
@@ -1694,7 +2123,13 @@ def counters():
                 cache_reorder.reorder_cache_rows_bounded,
             "write_gen_slot": cache_reorder.write_gen_slot,
             "beam_decode_attention": decode_attention.beam_decode_attention,
-            **{name: getattr(epilogue, name) for name in EPILOGUES}}
+            **{name: getattr(epilogue, name) for name in EPILOGUES},
+            "mla_decode_attention": mla_attention.mla_decode_attention,
+            "mla_prep": mla_attention.mla_prep,
+            "residual_rmsnorm": rmsnorm.residual_rmsnorm,
+            "moe_route": moe.route, "moe_dispatch": moe.dispatch,
+            "expert_products": moe.expert_products, "swiglu": moe.swiglu,
+            "moe_combine": moe.combine}
 
 
 # decode_step's fused epilogues, which every decode on the card launches
@@ -1749,6 +2184,13 @@ PATHS = (
     ("ancestry_path", True, dict(ancestry=True),
      ("lm_head_topk", "write_gen_slot_chunk") + EPILOGUES),
 )
+
+
+def launch_sites() -> dict:
+    """Each counted kernel's wrapper as "module:function" (a kernel's name
+    may differ from its wrapper's), for LAUNCH_SITECUSTOMIZE."""
+    return {name: f"{fn.__module__}:{fn.__name__}"
+            for name, fn in counters().items()}
 
 
 def zero_counters() -> None:
@@ -2650,7 +3092,7 @@ def lifecycle_phase(ckpt: str, corpus: str, embeds, tmp: str) -> dict:
     inputs = predict_inputs(embeds, f"{tmp}/lifecycle_inputs", n=n)
     site = f"{tmp}/lifecycle_site"
     os.makedirs(site)
-    kernels = {name: fn.__module__ for name, fn in counters().items()}
+    kernels = launch_sites()
     with open(f"{site}/sitecustomize.py", "w") as f:
         f.write(LAUNCH_SITECUSTOMIZE.format(kernels=kernels))
     log_dir, out = f"{tmp}/lifecycle", f"{tmp}/lifecycle_out"
@@ -3158,7 +3600,9 @@ PROBE_PATH = BEAM_PATH + INT8_PATH[1:]
 
 # sitecustomize.py for the zoo chain's python processes (its directory
 # first on PYTHONPATH): at exit each appends its kernel launch counts to
-# $CAPDEC_SMOKE_LAUNCHES; it first runs any sitecustomize it shadows
+# $CAPDEC_SMOKE_LAUNCHES; it first runs any sitecustomize it shadows.
+# `kernels` maps each kernel's name to its wrapper's "module:function"
+# (launch_sites()), or to the module alone where the two names agree
 LAUNCH_SITECUSTOMIZE = """import atexit, json, os, sys
 import importlib.machinery, importlib.util
 
@@ -3167,9 +3611,10 @@ KERNELS = {kernels!r}
 
 def dump():
     counts = {{}}
-    for name, module in KERNELS.items():
+    for name, where in KERNELS.items():
+        module, _, attr = where.partition(":")
         mod = sys.modules.get(module)
-        counts[name] = getattr(mod, name).launches if mod else 0
+        counts[name] = getattr(mod, attr or name).launches if mod else 0
     with open(os.environ["CAPDEC_SMOKE_LAUNCHES"], "a") as f:
         f.write(json.dumps(counts) + "\\n")
 
@@ -3276,7 +3721,7 @@ def zoo_chain(arts: dict, tmp: str) -> dict:
     ins = arts["ins"]
     site = f"{tmp}/zoo_site"
     os.makedirs(site)
-    kernels = {name: fn.__module__ for name, fn in counters().items()}
+    kernels = launch_sites()
     with open(f"{site}/sitecustomize.py", "w") as f:
         f.write(LAUNCH_SITECUSTOMIZE.format(kernels=kernels))
     repo_module("scripts/torch_make_zoo_dryrun_fixtures.py").byte_vocab(
@@ -3528,12 +3973,23 @@ def main() -> int:
             k["ptxas"] = {t: rep for t, rep in async_attn.items()
                           if t.endswith(" inreg") == k6}
         log(json.dumps({"phase": "kernel_check", **k}))
+    mla_rows, k1_d2048, latent, mla_served = check_mla_moe(gen, ptxas)
+    for k in kernels:
+        if k["name"] == "lm_head_topk":
+            k["d2048"] = k1_d2048
+        if k["name"] in latent:
+            k["latent"] = latent[k["name"]]
+    for k in mla_rows:
+        log(json.dumps({"phase": "kernel_check", **k}))
+    kernels += mla_rows
+    log(json.dumps({"phase": "mla_moe_path", **mla_served,
+                    "k1_d2048": k1_d2048, "latent": latent}))
 
     # the weights have a generator of their own, so the checks above do
     # not change them (scripts/torch_serve_profile.py builds the same)
     embeds = np.random.RandomState(SEED).randn(
         MAIN["requests"], MAIN["prefix_size"]).astype(np.float32)
-    model, configs, served = None, {}, {}
+    model, configs, served = None, {}, {"mla_moe_path": mla_served}
     for phase, beam, knobs, path in PATHS:
         server, model, cfg, dc = build_server(
             torch.Generator(device=DEVICE).manual_seed(SEED) if model is None
@@ -3675,7 +4131,8 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {
             phase: run["launches"][k["name"]]
-            for phase, run in served.items() if run["launches"][k["name"]]}
+            for phase, run in served.items()
+            if run["launches"].get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_path"].values())
 
     name = torch.cuda.get_device_name(0)
@@ -3685,7 +4142,7 @@ def main() -> int:
             "greedy_r1", "rotated_ms", "library_rotated_ms", "floor_ms",
             "tensor_form_ms", "steps", "r33", "tp2", "demo", "n512", "probe",
             "warm_ms", "host_us", "plain_host_us", "b5", "ulp_share",
-            "ulp_share_f32", "ptxas", "shape")
+            "ulp_share_f32", "ptxas", "d2048", "latent", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]
                        for phase, run in served.items()},

@@ -130,8 +130,10 @@ def test_wide_models_take_a_narrower_tile(width, tile_n, stages):
 
 
 def test_plan_refuses_what_no_block_holds_and_r_out_of_range():
+    # D 2048 (Kimi-VL-A3B's) takes a 48-entry tile; 2240 fits none
+    assert lm_head.lm_head_plan(64, 50257, 2048, 1, 2)["tile_n"] == 48
     with pytest.raises(ValueError, match="does not fit"):
-        lm_head.lm_head_plan(64, 50257, 2048, 1, 2)
+        lm_head.lm_head_plan(64, 50257, 2240, 1, 2)
     for R in (0, 129):
         with pytest.raises(ValueError, match="out of range"):
             lm_head.lm_head_plan(64, 50257, D, R, 2)

@@ -288,3 +288,29 @@ def test_smoke_launch_sitecustomize_counts_each_process(tmp_path):
     assert all(set(p) == set(kernels) for p in procs)
     assert sum(sum(p.values()) for p in procs) == 6
     assert marker.read_text() == "xxx"
+
+
+def test_smoke_launch_sitecustomize_counts_kernels_named_apart(tmp_path):
+    """A kernel whose name is not its wrapper's (`moe_route`, counted on
+    ops/moe.py's `route`) is counted through chip_smoke.launch_sites(),
+    in a process that imports that module."""
+    smoke = module(ROOT / "chip_smoke.py")
+    kernels = smoke.launch_sites()
+    assert kernels["moe_route"] == "capdec_tpu_torch.ops.moe:route"
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        smoke.LAUNCH_SITECUSTOMIZE.format(kernels=kernels))
+    counts = tmp_path / "launches.jsonl"
+    env = dict(os.environ, CAPDEC_SMOKE_LAUNCHES=str(counts),
+               OMP_NUM_THREADS="1", PYTHONPATH=str(site))
+    bump = ("from capdec_tpu_torch.ops import lm_head, moe\n"
+            "moe.route.launches = 2\n"
+            "lm_head.lm_head_topk.launches = 3\n")
+    res = subprocess.run([sys.executable, "-c", bump], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    (proc,) = [json.loads(line) for line in counts.read_text().splitlines()]
+    assert set(proc) == set(kernels)
+    assert (proc["moe_route"], proc["lm_head_topk"]) == (2, 3)
+    assert sum(proc.values()) == 5
