@@ -57,9 +57,15 @@
 // on neighbouring addresses; values kept in their stored type), each lane
 // arriving on the stage's "full" mbarrier once its copies have landed
 // (`cp.async.mbarrier.arrive.noinc`). The stages are the prefix K (with q,
-// k_new, v_new), the K of chunks of `tile` = 2 ceil(K / rows) generated
-// slots (twice that for int8 levels) of the block's rows, then the prefix V
-// and the V chunks (K6: the V chunks, then the prefix V). The other three
+// k_new, v_new), the K of chunks of `tile` generated slots of the block's
+// rows, then the prefix V and the V chunks (K6: the V chunks, then the
+// prefix V). The wrapper's plan sizes a chunk at 2 ceil(K / rows) slots
+// (twice that for int8 levels), but never below the flagship's served
+// stage (R 5 x 16 slots of bf16: 160 bytes of each head dimension) in
+// whole 16-slot tensor-core units: at a short prefix (K 10) the prefix's
+// measure gave 4 slots a row, stages of 2.5 KB whose mbarrier round trips
+// and quarter-full units made the call 2.3x slower than at tile 16
+// (PERF.md §6). Any tile runs; the layout follows from it. The other three
 // warps consume each stage as it lands and release it on its "empty"
 // mbarrier: they score the K stages, take one exact softmax over all of a
 // row's scores (while the producer refills the freed ring with V), then sum

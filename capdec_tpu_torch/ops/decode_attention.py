@@ -167,6 +167,15 @@ ATTN_ROW_GROUP = 16  # rows a block serves (two tensor-core row tiles)
 # wave on the H100's 132 SMs; then two, then one block an SM
 ATTN_SMEM_BUDGETS = (37 * 1024, 112 * 1024, 227 * 1024)
 SMEM_MAX = ATTN_SMEM_BUDGETS[-1]  # shared memory a block can have
+# The least bytes of one head dimension in a chunk of generated slots:
+# the flagship's served stage, R 5 x 16 slots in bf16 (10 KB at head_dim
+# 64). A smaller stage pays a ring round trip for fewer bytes and, in
+# bf16, a tensor-core unit of ATTN_MMA_SLOTS slots of one row that it
+# fills only in part: at N 512 x R 5, step 66 on the H100 a tile of 4
+# took 0.52 ms at K 10 and at K 40 alike, one of 16 0.23 ms
+# (scripts/torch_attn_sweep.py; PERF.md §6)
+ATTN_STAGE_DIM_BYTES = 5 * 16 * 2
+ATTN_MMA_SLOTS = 16  # a bf16 score or value unit: 16 slots of one row
 
 
 def _up16(x: int) -> int:
@@ -206,6 +215,17 @@ def _attention_smem(R, K, hd, itemsize, tile, nbuf, threads, n_gen,
             + sums + _up16(R * 4))
 
 
+def _chunk_floor(rows: int, itemsize: int, csize: int, inreg: bool) -> int:
+    """The fewest generated slots a row of a widened chunk: `rows` rows of
+    them hold ATTN_STAGE_DIM_BYTES of each head dimension, in whole
+    tensor-core units where bf16 products read them (not K6's int8 slots,
+    which its CUDA cores read)."""
+    floor = -(-ATTN_STAGE_DIM_BYTES // (rows * csize))
+    if itemsize == 2 and not inreg:
+        floor = -(-floor // ATTN_MMA_SLOTS) * ATTN_MMA_SLOTS
+    return floor
+
+
 @functools.lru_cache(maxsize=512)
 def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
                    itemsize: int, cache_size: Optional[int] = None,
@@ -217,39 +237,64 @@ def attention_plan(N: int, R: int, K: int, D: int, hd: int, n_gen: int,
     group's rows. The block streams 2 * (1 + nchunks) stages through a
     ring of `nbuf` (ATTN_STAGES) buffers in `smem` bytes: the prefix K,
     the K of `nchunks` chunks of `tile` generated slots (the current token
-    in the last) of the group's rows, then the same for V. A chunk holds
-    about twice the prefix's slices (tile = 2 ceil(K / rows);
-    on the H100 this beat chunks of one prefix and rings of three to eight
-    stages, and tied with three prefixes: scripts/torch_attn_sweep.py), so
-    a chunk of int8 levels (`cache_size` 1: K6, K9) starts at twice the
-    slots; `inreg`: K6's policy (`_attention_smem`). The tile shrinks until
-    the block fits the first budget of ATTN_SMEM_BUDGETS that can hold it.
-    Raises if nothing fits a block."""
+    in the last) of the group's rows, then the same for V.
+
+    A chunk holds about twice the prefix's slices (2 ceil(K / rows) slots
+    a row, twice that for int8 levels: `cache_size` 1, K6 and K9; at K 40
+    on the H100 this beat chunks of one prefix and rings of three to
+    eight stages, and tied with three prefixes). Where that stage holds
+    fewer than ATTN_STAGE_DIM_BYTES of a head dimension (a short prefix:
+    at K 10 and R 5 a quarter of it), the chunk is widened to
+    `_chunk_floor`'s slots (scripts/torch_attn_sweep.py: a tile of 4 as
+    slow at K 40 as at K 10; a third or fourth ring stage gained
+    nothing): its tile, from the floor down to one above the prefix's
+    measure, is the first whose block fits ATTN_SMEM_BUDGETS[0] (six
+    blocks an SM), and the plan is `widened`; if none fits, the prefix's
+    plan stands. Every other shape keeps the prefix's plan (every shape
+    at K >= 40), whose tile shrinks until the block fits the first
+    budget of ATTN_SMEM_BUDGETS that can hold it. `inreg`: K6's policy
+    (`_attention_smem`). Raises if nothing fits a block."""
     G = n_gen + 1
     csize = cache_size or itemsize
     rows = min(R, ATTN_ROW_GROUP)
     start = 2 * -(-K // rows) * (2 if csize == 1 else 1)
+
+    def plan(tile, budget, widened):
+        smem = _attention_smem(R, K, hd, itemsize, tile, ATTN_STAGES,
+                               ATTN_THREADS, n_gen, cache_size, prefix_size,
+                               inreg)
+        if smem > budget:
+            return None
+        return dict(grid=(D // hd, N, -(-R // ATTN_ROW_GROUP)),
+                    threads=ATTN_THREADS, tile=tile, nbuf=ATTN_STAGES,
+                    nchunks=-(-G // tile), smem=smem, widened=widened)
+
+    if rows * start * csize < ATTN_STAGE_DIM_BYTES:
+        # from the floor down to one slot above the prefix's measure (or
+        # all G slots, where they are fewer)
+        floor = _chunk_floor(rows, itemsize, csize, inreg)
+        for tile in range(min(G, floor), min(G, start + 1) - 1, -1):
+            found = plan(tile, ATTN_SMEM_BUDGETS[0], True)
+            if found:
+                return found
     for budget in ATTN_SMEM_BUDGETS:
         for tile in range(max(1, min(G, start)), 0, -1):
-            smem = _attention_smem(R, K, hd, itemsize, tile, ATTN_STAGES,
-                                   ATTN_THREADS, n_gen, cache_size,
-                                   prefix_size, inreg)
-            if smem <= budget:
-                return dict(grid=(D // hd, N, -(-R // ATTN_ROW_GROUP)),
-                            threads=ATTN_THREADS, tile=tile,
-                            nbuf=ATTN_STAGES, nchunks=-(-G // tile),
-                            smem=smem)
+            found = plan(tile, budget, False)
+            if found:
+                return found
     raise ValueError(f"decode attention: R={R}, K={K}, head_dim={hd} in "
                      f"{itemsize}-byte values does not fit one block's "
                      f"{SMEM_MAX} bytes of shared memory")
 
 
-def _attend_async(entry: str, q, k_new, v_new, pk, pv, gk, gv, layer, R,
-                  hd, n_gen, scales=(), inreg=False) -> torch.Tensor:
+def _attend_async(wrapper, entry: str, q, k_new, v_new, pk, pv, gk, gv,
+                  layer, R, hd, n_gen, scales=(), inreg=False
+                  ) -> torch.Tensor:
     """One launch of csrc/decode_attention_async.cu through C entry
-    `entry`: every head slice, q/k_new/v_new's included, travels in
-    16-byte copies. `scales`: K9's (pks, pvs, gks, gvs), pks/pvs None for
-    a prefix of q's type, or K6's (gks, gvs); the C entry takes the
+    `entry`, counted on `wrapper` (`launches`, and `widened_launches` for
+    a widened plan): every head slice, q/k_new/v_new's included, travels
+    in 16-byte copies. `scales`: K9's (pks, pvs, gks, gvs), pks/pvs None
+    for a prefix of q's type, or K6's (gks, gvs); the C entry takes the
     prefix's after pk/pv and the cache's after gk/gv. `inreg`: K6's
     policy."""
     if any(t.data_ptr() % 16 for t in (q, k_new, v_new, pk, pv, gk, gv)) \
@@ -270,6 +315,8 @@ def _attend_async(entry: str, q, k_new, v_new, pk, pv, gk, gv, layer, R,
         *prefix, *cache, out.data_ptr(), N, R, L, K, gk.shape[2], D, hd,
         layer, n_gen, plan["tile"], plan["nbuf"], plan["threads"],
         plan["smem"], _build.dtype_code(q), _build.stream(q.device)), entry)
+    wrapper.launches += 1
+    wrapper.widened_launches += plan["widened"]
     return out
 
 
@@ -292,13 +339,13 @@ def beam_decode_attention_rowmajor(
     R, hd = beams_per_image, head_dim
     n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
                         hd, e_cap, q.dtype)
-    out = _attend_async("capdec_beam_decode_attention_rowmajor", q, k_new,
-                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen)
-    beam_decode_attention_rowmajor.launches += 1
-    return out
+    return _attend_async(beam_decode_attention_rowmajor,
+                         "capdec_beam_decode_attention_rowmajor", q, k_new,
+                         v_new, pk, pv, gk, gv, layer, R, hd, n_gen)
 
 
 beam_decode_attention_rowmajor.launches = 0
+beam_decode_attention_rowmajor.widened_launches = 0
 
 
 def beam_decode_attention_rowmajor_q_plain(
@@ -335,14 +382,14 @@ def beam_decode_attention_rowmajor_q(
     n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R,
                         hd, e_cap, torch.int8)
     _check_gen_scales(q, gk, gks, gvs)
-    out = _attend_async("capdec_beam_decode_attention_rowmajor_q", q, k_new,
-                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen,
-                        scales=(gks, gvs), inreg=True)
-    beam_decode_attention_rowmajor_q.launches += 1
-    return out
+    return _attend_async(beam_decode_attention_rowmajor_q,
+                         "capdec_beam_decode_attention_rowmajor_q", q, k_new,
+                         v_new, pk, pv, gk, gv, layer, R, hd, n_gen,
+                         scales=(gks, gvs), inreg=True)
 
 
 beam_decode_attention_rowmajor_q.launches = 0
+beam_decode_attention_rowmajor_q.widened_launches = 0
 
 
 def _check_chunks(q, gk, R, chunk, pks=None, pvs=None):
@@ -397,13 +444,13 @@ def beam_decode_attention_chunked(
     n_gen = _check_args(q, k_new, v_new, pk, pv, gk, gv, step, layer, R, hd,
                         None, q.dtype)
     _check_chunks(q, gk, R, chunk)
-    out = _attend_async("capdec_beam_decode_attention_chunked", q, k_new,
-                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen)
-    beam_decode_attention_chunked.launches += 1
-    return out
+    return _attend_async(beam_decode_attention_chunked,
+                         "capdec_beam_decode_attention_chunked", q, k_new,
+                         v_new, pk, pv, gk, gv, layer, R, hd, n_gen)
 
 
 beam_decode_attention_chunked.launches = 0
+beam_decode_attention_chunked.widened_launches = 0
 
 
 def beam_decode_attention_chunked_q_plain(
@@ -451,14 +498,14 @@ def beam_decode_attention_chunked_q(
         if s.shape != (L, N, 1, K) or s.dtype != torch.float32 or \
                 s.device != q.device or not s.is_contiguous():
             raise ValueError("pks/pvs must be contiguous f32 [L, N, 1, K]")
-    out = _attend_async("capdec_beam_decode_attention_chunked_q", q, k_new,
-                        v_new, pk, pv, gk, gv, layer, R, hd, n_gen,
-                        scales=(pks, pvs, gks, gvs))
-    beam_decode_attention_chunked_q.launches += 1
-    return out
+    return _attend_async(beam_decode_attention_chunked_q,
+                         "capdec_beam_decode_attention_chunked_q", q, k_new,
+                         v_new, pk, pv, gk, gv, layer, R, hd, n_gen,
+                         scales=(pks, pvs, gks, gvs))
 
 
 beam_decode_attention_chunked_q.launches = 0
+beam_decode_attention_chunked_q.widened_launches = 0
 
 
 def beam_decode_attention_plain(
@@ -512,11 +559,12 @@ def beam_decode_attention(
                 raise ValueError("K15 writes gk/gv in place: they must not "
                                  "overlap each other or the other inputs")
     # one layer: the caches [B, E, D] are the row-major [B, 1, E, D]
-    out = _attend_async("capdec_beam_decode_attention", q, k_new, v_new,
+    out = _attend_async(beam_decode_attention,
+                        "capdec_beam_decode_attention", q, k_new, v_new,
                         pk[None], pv[None], gk[:, None], gv[:, None], 0, R,
                         hd, n_gen)
-    beam_decode_attention.launches += 1
     return out, gk, gv
 
 
 beam_decode_attention.launches = 0
+beam_decode_attention.widened_launches = 0

@@ -30,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      instances must build without spills) and their SDPA yardstick at
      steps 1, 33 and 66, on one layer and rotated over the layers or
      cache sets (SDPA over key sets); K9 at R = 5 with both prefix kinds
-     and at R = 1 with the int8 prefix. Then decode_step's fused
+     and at R = 1 with the int8 prefix; K2 at ClipCap's served shape
+     (N 512 x R 5, a prefix of 10 slots) on its widened plan, checked with
+     NaN in the slots it must not read and timed at steps 0, 33 and 66
+     (check_short_prefix_attention). Then decode_step's fused
      epilogues (csrc/epilogue.cu: bias_cast, bias_gelu_cast,
      bias_residual_layernorm, embed_layernorm; their twelve instances
      must build without spills) at B 2560, 5 and 333 in bf16 and f32
@@ -56,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the kernels' launch counters are zeroed just before each and read
      just after, and each path must have launched its kernels and no
      other, the four epilogues on every path (each decodes GPT-2 124M at
-     one rank): beam 5 (K1-K4); int8 KV (K1, K5-K7); (a) slot-bounded beam,
+     one rank), and no attention kernel on a widened plan (the prefix is
+     40 slots): beam 5 (K1-K4); int8 KV (K1, K5-K7); (a) slot-bounded beam,
      fused_slot_chunks=8 (K1, K8, K3, K4); (b) its int8 form with the
      int8 prefix (K1, K9, K5, K4); (c) greedy, the default ToppConfig
      (K1); (d) greedy with chunk_slot_write (K1, K13); (e) greedy's fused
@@ -325,9 +329,9 @@ ATTN_STEPS = (1, 33, MAIN["entry_length"] - 1)
 
 
 def attention_step_times(call, q, kn, vn, pk, pv, gk, gv, R, H,
-                         scales=None, write=None) -> dict:
-    """An attention kernel's bf16 times at each of ATTN_STEPS beside
-    SDPA's and the bound. `call(step, layer)` runs the kernel. `ms`
+                         scales=None, write=None, steps=ATTN_STEPS) -> dict:
+    """An attention kernel's bf16 times at each of `steps` beside SDPA's
+    and the bound. `call(step, layer)` runs the kernel. `ms`
     repeats one layer (part of its 50-75 MB stays in the L2); `rotated_ms`
     walks the layers i mod L, and `library_rotated_ms` SDPA over at least
     two key sets of other layers (each pass over more than twice the L2),
@@ -341,7 +345,7 @@ def attention_step_times(call, q, kn, vn, pk, pv, gk, gv, R, H,
     B, layer = q.shape[0], L // 2
     pks, pvs, gks, gvs = scales or (None,) * 4
     out = {}
-    for step in ATTN_STEPS:
+    for step in steps:
         S = K + step + 1
 
         def joined(l):
@@ -572,6 +576,68 @@ def check_decode_attention(gen):
         library_note="scaled_dot_product_attention on keys concatenated "
                      "beforehand",
         shape=f"N={N} R={R} K={K} step={step} e_cap={E} D={D} bf16")
+
+
+# ClipCap's served shape: the MLP mapper's prefix of 10 slots at batch 512
+# x beam 5, where K2's plan widens its chunks (ops/decode_attention.py
+# attention_plan)
+SHORT = dict(N=512, K=10)
+SHORT_STEPS = (0, 33, MAIN["entry_length"] - 1)
+
+
+def check_short_prefix_attention(gen) -> dict:
+    """K2 at ClipCap's served shape (N 512 x R 5, K 10, bf16): against its
+    plain version at steps 0, 16, 17 and 66 under e_cap 16 and 72, NaN in
+    the slots it must not read, every call on a widened plan; timed at
+    SHORT_STEPS, one layer and rotated, beside its bytes bound, the plain
+    version and SDPA on keys concatenated beforehand (the `k10` key of
+    K2's row)."""
+    from capdec_tpu_torch.ops import decode_attention as da
+    R, L, E, D, H = (MAIN[k] for k in ("R", "L", "E", "D", "H"))
+    N, K = SHORT["N"], SHORT["K"]
+    B, hd, layer = N * R, D // H, L // 2
+    rand = lambda *s: torch.randn(*s, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    q, kn, vn = rand(B, 3 * D).split(D, dim=-1)
+    pk, pv = rand(L, N, K, D), rand(L, N, K, D)
+    gk, gv = rand(B, L, E, D), rand(B, L, E, D)
+    k2 = da.beam_decode_attention_rowmajor
+    err, calls, w0 = 0.0, 0, k2.widened_launches
+    for step in (0, 16, 17, MAIN["entry_length"] - 1):
+        sk, sv = gk.clone(), gv.clone()
+        sk[:, :, step:] = float("nan")  # stale slots must never be read
+        sv[:, :, step:] = float("nan")
+        sk[:, layer + 1, 0] = float("nan")  # nor the next layer's
+        sv[:, layer + 1, 0] = float("nan")
+        for e_cap in (16, E):
+            args = (q, kn, vn, pk, pv, sk, sv, step, layer)
+            kw = dict(beams_per_image=R, head_dim=hd, e_cap=e_cap)
+            out = k2(*args, **kw)
+            ref = da.beam_decode_attention_rowmajor_plain(*args, **kw)
+            torch.cuda.synchronize()
+            calls += 1
+            require(bool(torch.isfinite(out).all()) and
+                    torch.allclose(out, ref, atol=2e-2, rtol=2e-2),
+                    f"K2 at K {K}, step {step} e_cap {e_cap}: max abs err "
+                    f"{max_err(out, ref)}")
+            err = max(err, max_err(out, ref))
+        del sk, sv
+    require(k2.widened_launches - w0 == calls,
+            f"K2 at K {K}: {k2.widened_launches - w0} of {calls} calls "
+            f"on a widened plan")
+    step = MAIN["entry_length"] - 1
+    kw = dict(beams_per_image=R, head_dim=hd, e_cap=E)
+    steps = attention_step_times(
+        lambda s, l: k2(q, kn, vn, pk, pv, gk, gv, s, l, **kw),
+        q, kn, vn, pk, pv, gk, gv, R, H, steps=SHORT_STEPS)
+    for s in SHORT_STEPS:
+        steps[s]["plain_ms"] = time_ms(
+            lambda: da.beam_decode_attention_rowmajor_plain(
+                q, kn, vn, pk, pv, gk, gv, s, layer, **kw))
+        steps[s]["plan"] = da.attention_plan(N, R, K, D, hd, s, 2)
+    return dict(max_abs_err=err, widened_calls=calls, **steps[step],
+                steps=steps, shape=f"N={N} R={R} K={K} step={step} "
+                                   f"e_cap={E} D={D} bf16")
 
 
 def _lane_src(gen, N, R):
@@ -2196,6 +2262,15 @@ def launch_sites() -> dict:
 def zero_counters() -> None:
     for fn in counters().values():
         fn.launches = 0
+        if hasattr(fn, "widened_launches"):
+            fn.widened_launches = 0
+
+
+def widened_launches() -> int:
+    """The attention kernels' launches on a widened plan since
+    zero_counters()."""
+    return sum(getattr(fn, "widened_launches", 0)
+               for fn in counters().values())
 
 
 def launch_set(path, what: str) -> dict:
@@ -2232,6 +2307,7 @@ def serve_path(server, embeds, path, keep_captions=False):
                 captions_per_s=len(got) / wall, latency_p50_s=pct["p50"],
                 latency_p95_s=pct["p95"], latency_p99_s=pct["p99"],
                 batches=server.stats["batches"], launches=launches,
+                widened_launches=widened_launches(),
                 **({"captions": got} if keep_captions else {}))
 
 
@@ -3973,6 +4049,10 @@ def main() -> int:
             k["ptxas"] = {t: rep for t, rep in async_attn.items()
                           if t.endswith(" inreg") == k6}
         log(json.dumps({"phase": "kernel_check", **k}))
+    k2 = next(k for k in kernels
+              if k["name"] == "beam_decode_attention_rowmajor")
+    k2["k10"] = check_short_prefix_attention(gen)
+    log(json.dumps({"phase": "short_prefix", **k2["k10"]}))
     mla_rows, k1_d2048, latent, mla_served = check_mla_moe(gen, ptxas)
     for k in kernels:
         if k["name"] == "lm_head_topk":
@@ -3999,6 +4079,9 @@ def main() -> int:
                     "v3 int8 path: int8_prefix must resolve on")
         server.warmup()
         served[phase] = serve_path(server, embeds, path)
+        require(served[phase]["widened_launches"] == 0,
+                f"{phase}: the attention at K {MAIN['K']} ran a widened "
+                f"plan")
         if phase == "greedy_k13_path":  # K13's path: one launch a step
             n = served[phase]["launches"]
             require(n["write_gen_slot_chunk_seqmajor"] == n["lm_head_topk"],
@@ -4140,8 +4223,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cublas_ms", "max_abs_err_f32", "launches_by_path", "bf16_prefix",
             "greedy_r1", "rotated_ms", "library_rotated_ms", "floor_ms",
-            "tensor_form_ms", "steps", "r33", "tp2", "demo", "n512", "probe",
-            "warm_ms", "host_us", "plain_host_us", "b5", "ulp_share",
+            "tensor_form_ms", "steps", "r33", "k10", "tp2", "demo", "n512",
+            "probe", "warm_ms", "host_us", "plain_host_us", "b5", "ulp_share",
             "ulp_share_f32", "ptxas", "d2048", "latent", "shape")
     log(json.dumps({"card": name, "nvidia_smi": smi,
                     **{f"{phase}_captions_per_s": run["captions_per_s"]

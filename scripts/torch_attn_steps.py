@@ -2,22 +2,24 @@
 """Times of the bf16 decode-attention kernels K2, K8, K9 and K15 against
 the step, on one NVIDIA GPU, and the registers and spills of every kernel.
 
-    python3 scripts/torch_attn_steps.py [--tree DIR]
+    python3 scripts/torch_attn_steps.py [--images N] [--prefix K]
+        [--steps 1,33,66] [--tree DIR]
 
-At the served shape (N = 64 images x R = 5 beams, L = 12, K = 40 prefix
-slots, E = 72, D = 768, 12 heads x 64) it times
+At the served shape (N = 64 images (`--images`) x R = 5 beams, L = 12,
+K = 40 prefix slots (`--prefix`; ClipCap serves 10 at N 512), E = 72,
+D = 768, 12 heads x 64) it times
 `beam_decode_attention_rowmajor` (K2, e_cap = E),
 `beam_decode_attention_chunked` (K8, chunk 8),
 `beam_decode_attention_chunked_q` (K9, chunk 8, an int8 cache: R = 5 with
 an int8 prefix as path (b) serves it and with a bf16 prefix, and R = 1
 with the int8 prefix as path (e) serves it) and `beam_decode_attention`
 (K15 over L cache sets [B, E, D], its slot write included) at
-chip_smoke.ATTN_STEPS, beside SDPA on keys joined beforehand (dequantised
-for K9; followed by `index_copy_` of the slot for K15) and the bound: each
-once on one layer and once rotated over the layers or cache sets (SDPA
-over key sets), so that the reads come from device memory
-(chip_smoke.attention_step_times). It prints the card's name and power
-limit, then one JSON line.
+chip_smoke.ATTN_STEPS (or `--steps`), beside SDPA on keys joined
+beforehand (dequantised for K9; followed by `index_copy_` of the slot for
+K15) and the bound: each once on one layer and once rotated over the
+layers or cache sets (SDPA over key sets), so that the reads come from
+device memory (chip_smoke.attention_step_times). It prints the card's
+name and power limit, then one JSON line.
 
 `--tree DIR` also loads the `capdec_tpu_torch` of another checkout (e.g.
 an exported parent commit) in the same process, as a package of another
@@ -57,11 +59,11 @@ def load_tree(tree: str):
             importlib.import_module("tree_capdec_tpu_torch.ops._build"))
 
 
-def attention_calls(da, cs, gen):
+def attention_calls(da, cs, gen, N, K):
     """name -> (call(step, layer), attention_step_times' inputs, options)
-    for the kernels of module `da`, on inputs made from `gen`."""
-    N, R, L, K, E, D, H = (cs.MAIN[k] for k in ("N", "R", "L", "K", "E", "D",
-                                                "H"))
+    for the kernels of module `da`, on inputs made from `gen`, at N images
+    and K prefix slots."""
+    R, L, E, D, H = (cs.MAIN[k] for k in ("R", "L", "E", "D", "H"))
     B, hd = N * R, D // H
     rand = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -116,6 +118,11 @@ def attention_calls(da, cs, gen):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--images", type=int, default=64, help="N")
+    p.add_argument("--prefix", type=int, default=40, help="K prefix slots")
+    p.add_argument("--steps", default=None,
+                   help="decode steps, comma-separated (default "
+                        "chip_smoke.ATTN_STEPS)")
     p.add_argument("--tree", default=None,
                    help="another checkout whose capdec_tpu_torch is timed "
                         "beside this one's")
@@ -148,20 +155,23 @@ def main(argv=None) -> int:
                            ptxas=cs.ptxas_report(log.read_text())
                            if log.exists() else {})
     H = cs.MAIN["H"]
+    steps = tuple(int(x) for x in args.steps.split(",")) if args.steps \
+        else cs.ATTN_STEPS
     order = ["tree", "this", "this", "tree"] if args.tree else ["this"]
     times = {}
     for i, name in enumerate(order):
         calls = attention_calls(versions[name][0], cs, torch.Generator(
-            device="cuda").manual_seed(cs.SEED))
+            device="cuda").manual_seed(cs.SEED), args.images, args.prefix)
         times[f"{name}_{i}"] = {
             kernel: cs.attention_step_times(call, *inputs[:7], inputs[7], H,
-                                            **opts)
+                                            steps=steps, **opts)
             for kernel, (call, inputs, opts) in calls.items()}
         del calls
         torch.cuda.empty_cache()
     print(smi)
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "tree": args.tree, "built": built,
+                      "images": args.images, "prefix": args.prefix,
                       "steps": times}))
     return 0
 

@@ -78,8 +78,8 @@ def int8_times(da, cr, cs, tas, gen) -> dict:
                                                v, ks, vs, sets)),
         bound_ms=b_ms, bound_by=b_by, sets=len(sets))
     del k, v, ks, vs, sets
-    for name, (call, inputs, opts) in tas.attention_calls(da, cs,
-                                                          gen).items():
+    for name, (call, inputs, opts) in tas.attention_calls(
+            da, cs, gen, cs.MAIN["N"], cs.MAIN["K"]).items():
         if name.startswith("beam_decode_attention_chunked_q"):
             out[name] = cs.attention_step_times(call, *inputs[:7], inputs[7],
                                                 H, **opts)

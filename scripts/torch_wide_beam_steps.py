@@ -106,7 +106,7 @@ def main() -> int:
                 return dict(grid=(D_ // hd_, N_, -(-R_ // rows)),
                             threads=da.ATTN_THREADS, tile=tile,
                             nbuf=da.ATTN_STAGES, nchunks=-(-G // tile),
-                            smem=smem)
+                            smem=smem, widened=False)
             p = plan(N, R, K, D, hd, step, 2)
             if p is None:
                 continue

@@ -517,3 +517,196 @@ def test_k6_refuses_before_any_launch(library):
     wrapper(*_k6_inputs(33, torch.bfloat16, n=1), 3, 1,
             beams_per_image=33, head_dim=HD)
     assert len(library.calls) == 1 and library.calls[0][1][12] == 33
+
+
+# Short prefixes (ClipCap's MLP mapper serves K 10): the plan widens the
+# chunk that twice the prefix's slices would give to a stage of at least
+# ATTN_STAGE_DIM_BYTES of each head dimension, within six blocks an SM
+SHORT_K = (1, 4, 10, 20)
+SHORT_R = (1, 5, 16, 33)
+# (itemsize, cache_size, prefix_size, inreg): bf16 and f32 caches (K2, K8,
+# K15), K6's int8 cache read in place, K9's int8 cache under a bf16 and
+# under an int8 prefix
+SHORT_KINDS = [(2, None, None, False), (4, None, None, False),
+               (2, 1, 2, True), (2, 1, 2, False), (2, 1, 1, False)]
+CHUNK_EDGES = (0, 15, 16, 17, 33, 66, 71)
+
+
+@pytest.mark.parametrize("kind", SHORT_KINDS)
+@pytest.mark.parametrize("K", SHORT_K)
+@pytest.mark.parametrize("R", SHORT_R)
+@pytest.mark.parametrize("step", CHUNK_EDGES)
+def test_short_prefix_plan_meets_the_floor_and_covers_the_slots(kind, K, R,
+                                                                step):
+    """A widened tile holds the floor's slots (or all G, where fewer) or
+    is the largest whose block fits the six-blocks budget, and never fewer
+    slots than the prefix's measure; the chunks cover every generated slot
+    and the current token once; shared memory within a block's 227 KB and
+    equal to the layout's total."""
+    itemsize, cache_size, prefix_size, inreg = kind
+    plan = da.attention_plan(N, R, K, D, HD, step, *kind)
+    csize = cache_size or itemsize
+    rows = min(R, da.ATTN_ROW_GROUP)
+    G = step + 1
+    start = 2 * -(-K // rows) * (2 if csize == 1 else 1)
+    tile = plan["tile"]
+    assert plan["smem"] <= BLOCK_SMEM
+    assert plan["smem"] == da._attention_smem(
+        R, K, HD, itemsize, tile, plan["nbuf"], plan["threads"], step,
+        cache_size, prefix_size, inreg)
+    assert (plan["nchunks"] - 1) * tile < G <= plan["nchunks"] * tile
+    assert plan["nbuf"] == 2
+    assert plan["widened"] == (rows * start * csize
+                               < da.ATTN_STAGE_DIM_BYTES
+                               and plan["smem"] <= da.ATTN_SMEM_BUDGETS[0]
+                               and tile >= min(G, start + 1))
+    if plan["widened"]:
+        floor = da._chunk_floor(rows, itemsize, csize, inreg)
+        assert rows * floor * csize >= da.ATTN_STAGE_DIM_BYTES
+        if itemsize == 2 and not inreg:
+            assert floor % da.ATTN_MMA_SLOTS == 0
+        assert min(G, start + 1) <= tile <= min(G, floor)
+        if tile < min(G, floor):  # the budget stopped it
+            assert da._attention_smem(
+                R, K, HD, itemsize, tile + 1, 2, plan["threads"], step,
+                cache_size, prefix_size, inreg) > da.ATTN_SMEM_BUDGETS[0]
+    else:
+        assert tile <= min(G, start)
+
+
+@pytest.mark.parametrize("kind", SHORT_KINDS)
+def test_clipcap_served_plan_is_widened_and_keeps_six_blocks(kind):
+    """ClipCap's served call (N 512 x R 5, K 10, head_dim 64) in every
+    cache kind: widened at every step, six blocks an SM, and at step 66 a
+    bf16 stage of the flagship's 10 KB in whole 16-slot units (K2, K8,
+    K15), K6's 32 int8 slots and K9's tile cut by the budget."""
+    n, K = 512, 10
+    for step in range(E):
+        plan = da.attention_plan(n, 5, K, D, HD, step, *kind)
+        per_sm = min(SM_SMEM // (plan["smem"] + BLOCK_RESERVED),
+                     2048 // plan["threads"])
+        assert plan["widened"] and per_sm >= 6, step
+    tile = da.attention_plan(n, 5, K, D, HD, 66, *kind)["tile"]
+    assert tile == {(2, None, None, False): 16, (4, None, None, False): 8,
+                    (2, 1, 2, True): 32}.get(kind, 24)
+
+
+def _parent_plan(N_, R, K_, D_, hd, n_gen, itemsize, cache_size=None,
+                 prefix_size=None, inreg=False):
+    """The plan before short prefixes were widened: twice the prefix's
+    slices a chunk, shrunk into the first budget that holds the block."""
+    G = n_gen + 1
+    csize = cache_size or itemsize
+    rows = min(R, da.ATTN_ROW_GROUP)
+    start = 2 * -(-K_ // rows) * (2 if csize == 1 else 1)
+    for budget in da.ATTN_SMEM_BUDGETS:
+        for tile in range(max(1, min(G, start)), 0, -1):
+            smem = da._attention_smem(R, K_, hd, itemsize, tile, 2, 128,
+                                      n_gen, cache_size, prefix_size, inreg)
+            if smem <= budget:
+                return tile, 2, smem
+
+
+# every cache kind the kernel takes: (itemsize, cache_size, prefix_size,
+# inreg)
+ALL_KINDS = [(2, None, None, False), (4, None, None, False),
+             (2, 1, 2, False), (2, 1, 1, False), (4, 1, 4, False),
+             (4, 1, 1, False), (2, 1, 2, True), (4, 1, 4, True)]
+# sha-256 of the JSON list of (hd, R, itemsize, cache_size, prefix_size,
+# inreg, n_gen, tile, nbuf, smem) (None as -1) of the plans at K 40 before
+# short prefixes were widened
+K40_PLANS_SHA256 = \
+    "63bb159ebd4409e997d4a25aa4c616c8e94addfa248b6f6344129b085d93d2db"
+
+
+def test_every_k40_plan_is_the_parents():
+    """At K 40 (the flagship, greedy, the wide beams, the int8 paths, a
+    tp=2 rank's head_dim 64) no plan is widened and every (tile, nbuf,
+    smem) at every step, head_dim, beam width and cache kind is the
+    frozen table's: the rule before widening names the first mismatch,
+    the digest of the whole table freezes its numbers."""
+    import hashlib
+    import json
+    rows = []
+    for hd in (32, 64, 128):
+        for R in (1, 2, 5, 8, 16, 17, 24, 32, 33):
+            for kind in ALL_KINDS:
+                for n_gen in range(E):
+                    plan = da.attention_plan(N, R, K, 12 * hd, hd, n_gen,
+                                             *kind)
+                    got = (plan["tile"], plan["nbuf"], plan["smem"])
+                    assert not plan["widened"]
+                    assert got == _parent_plan(N, R, K, 12 * hd, hd, n_gen,
+                                               *kind), (hd, R, kind, n_gen)
+                    rows.append((hd, R, *[-1 if k is None else int(k)
+                                          for k in kind], n_gen, *got))
+    digest = hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+    assert digest == K40_PLANS_SHA256
+
+
+@pytest.mark.parametrize("K,widened", [(10, True), (40, False)])
+@pytest.mark.parametrize("entry,wrapper,kw", WRAPPERS)
+def test_widened_launches_count_the_widened_plans(library, entry, wrapper,
+                                                  kw, K, widened):
+    """Each wrapper counts a launch under a widened plan in
+    `widened_launches` beside `launches`: at K 10 every call, at K 40
+    none; the launch passes the widened plan's tile and shared memory."""
+    n, R, L, d = 2, 5, 3, D
+    q, kn, vn = torch.zeros(n * R, 3 * d, dtype=torch.bfloat16).split(
+        d, dim=-1)
+    pk, pv = (torch.zeros(L, n, K, d, dtype=torch.bfloat16)
+              for _ in range(2))
+    gk, gv = (torch.zeros(n * R, L, E, d, dtype=torch.bfloat16)
+              for _ in range(2))
+    for step in (0, 16, 66):
+        n0, w0 = wrapper.launches, wrapper.widened_launches
+        wrapper(q, kn, vn, pk, pv, gk, gv, step, 1, beams_per_image=R,
+                head_dim=HD, **kw)
+        assert wrapper.launches == n0 + 1
+        assert wrapper.widened_launches == w0 + widened
+        n_gen = min(step, kw.get("e_cap") or E)
+        plan = da.attention_plan(n, R, K, d, HD, n_gen, 2)
+        assert plan["widened"] == widened
+        assert library.calls[-1][0] == entry
+        assert library.calls[-1][1][18:20] == (plan["tile"], plan["nbuf"])
+        assert library.calls[-1][1][21] == plan["smem"]
+
+
+@pytest.mark.parametrize("K,widened", [(10, True), (40, False)])
+@pytest.mark.parametrize("kernel", ["K6", "K9", "K9 int8 prefix", "K15"])
+def test_widened_launches_of_the_int8_and_v1_wrappers(library, kernel, K,
+                                                      widened):
+    """K6, K9 (both prefix kinds) and K15 count their widened launches as
+    K2 does: every call at K 10, none at K 40."""
+    n, R, L = 2, 5, 3
+    bf = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    i8 = lambda *s: torch.zeros(*s, dtype=torch.int8)
+    q, kn, vn = bf(n * R, 3 * D).split(D, dim=-1)
+    pk, pv = bf(L, n, K, D), bf(L, n, K, D)
+    gks, gvs = torch.zeros(n * R, L, 1, E), torch.zeros(n * R, L, 1, E)
+    if kernel == "K6":
+        wrapper = da.beam_decode_attention_rowmajor_q
+        call = lambda step: wrapper(q, kn, vn, pk, pv, i8(n * R, L, E, D),
+                                    i8(n * R, L, E, D), gks, gvs, step, 1,
+                                    beams_per_image=R, head_dim=HD)
+    elif kernel == "K15":
+        wrapper = da.beam_decode_attention
+        call = lambda step: wrapper(q, kn, vn, pk[0], pv[0], bf(n * R, E, D),
+                                    bf(n * R, E, D), step, beams_per_image=R,
+                                    head_dim=HD)
+    else:
+        wrapper = da.beam_decode_attention_chunked_q
+        pre = {}
+        if kernel.endswith("prefix"):
+            pk, pv = i8(L, n, K, D), i8(L, n, K, D)
+            pre = dict(pks=torch.zeros(L, n, 1, K),
+                       pvs=torch.zeros(L, n, 1, K))
+        call = lambda step: wrapper(q, kn, vn, pk, pv, i8(n * R, L, E, D),
+                                    i8(n * R, L, E, D), gks, gvs, step, 1,
+                                    beams_per_image=R, head_dim=HD, chunk=8,
+                                    **pre)
+    for step in (0, 16, 33, 66):
+        n0, w0 = wrapper.launches, wrapper.widened_launches
+        call(step)
+        assert wrapper.launches == n0 + 1
+        assert wrapper.widened_launches == w0 + widened

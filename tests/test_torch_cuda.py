@@ -11,7 +11,10 @@ its vocab tiles and of its persistent blocks' ranges; the attention kernels
 K2, K6, K8 and K9 within 2e-2 (bf16) or 1e-4 (f32), with NaN in the slots
 (K2, K8) or scales (K6, K9) they must not read; K2, K8, K9 and K15 (one
 kernel) at R = 1, 2, 5 and 8, in two row groups (R = 17, 24, 32; K9
-up to 24) and, with K6, in three and four (R = 33, 48), steps at the ends and at its chunk tile's edges, e_cap below
+up to 24) and, with K6, in three and four (R = 33, 48), steps at the ends and at its chunk tile's edges,
+at a prefix of 10 slots (N 8 and 512 x R 5) under the widened plans, each
+call counted in `widened_launches` (and decode_step's K2 calls widened at
+K 10, none at K 40), e_cap below
 the step, head_dim 32, 64 and 128, NaN also in the next layer's slot 0
 (K9: scale), both K9 prefix kinds, one launch per call; K6 (the
 in-register int8 policy of the same kernel) at R = 1, 2, 5, 8, 16, 17 and
@@ -842,6 +845,104 @@ def test_attention_kernels_beyond_32_beams(dev, gen, dtype, _, tol, R, step,
     assert fn.launches == n0 + 1
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+# K 10 (ClipCap's MLP prefix) at R 5: each kernel's widened plan (tile 16
+# for K2/K8/K15 in bf16, 8 in f32, 32 for K6, 24 for K9), at its chunk's
+# edges; N 512 is ClipCap's served batch
+SHORT_KERNELS = ["K2", "K6", "K8", "K9", "K9 int8 prefix", "K15"]
+
+
+def _short_steps(N, dtype, kernel):
+    cache = None if kernel in ("K2", "K8", "K15") else 1
+    prefix = 1 if kernel.endswith("prefix") else None
+    tile = decode_attention.attention_plan(
+        N, 5, 10, 768, 64, 71, dtype.itemsize, cache, prefix,
+        kernel == "K6")["tile"]
+    return sorted({s for s in (0, 1, tile - 1, tile, tile + 1, 2 * tile,
+                               2 * tile + 1, 33, 66, 71) if 0 <= s < 72})
+
+
+@pytest.mark.parametrize("dtype,_,tol", DTYPES)
+@pytest.mark.parametrize("N", [8, 512])
+@pytest.mark.parametrize("kernel", SHORT_KERNELS)
+def test_attention_kernels_at_a_short_prefix(dev, gen, dtype, _, tol, N,
+                                             kernel):
+    """K2, K6, K8, K9 (both prefix kinds) and K15 at a prefix of 10 slots,
+    R 5, under their widened plans: against their plain versions at the
+    plan's chunk edges, NaN in the slots (K2, K8, K15) or scales (K6, K9)
+    they must not read, one widened launch per call; K15's slot write bit
+    for bit, every other slot untouched."""
+    da, R, K = decode_attention, 5, 10
+    kw = dict(beams_per_image=R, head_dim=64)
+    for step in _short_steps(N, dtype, kernel):
+        more = {}
+        if kernel in ("K2", "K8", "K15"):
+            args = _async_inputs(gen, dev, dtype, N, R, 64, step, K=K)
+            fn, plain, more = {
+                "K2": (da.beam_decode_attention_rowmajor,
+                       da.beam_decode_attention_rowmajor_plain, {}),
+                "K8": (da.beam_decode_attention_chunked,
+                       da.beam_decode_attention_chunked_plain,
+                       dict(chunk=8)),
+                "K15": (da.beam_decode_attention,
+                        da.beam_decode_attention_plain, {})}[kernel]
+        else:
+            args, more = _int8_inputs(gen, dev, dtype, N, R, 64, step,
+                                      kernel.endswith("prefix"), K=K)
+            if kernel == "K6":
+                fn, plain = (da.beam_decode_attention_rowmajor_q,
+                             da.beam_decode_attention_rowmajor_q_plain)
+            else:
+                more = dict(chunk=8, **more)
+                fn, plain = (da.beam_decode_attention_chunked_q,
+                             da.beam_decode_attention_chunked_q_plain)
+        n0, w0 = fn.launches, fn.widened_launches
+        if kernel == "K15":
+            q, kn, vn, pk, pv, gk, gv, _, _ = args
+            gk0, gv0 = gk[:, 1].contiguous(), gv[:, 1].contiguous()
+            wk, wv = gk0.clone(), gv0.clone()
+            out = fn(q, kn, vn, pk[1], pv[1], wk, wv, step, **kw)[0]
+            ref, rk, rv = plain(q, kn, vn, pk[1], pv[1], gk0.clone(),
+                                gv0.clone(), step, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(wk[:, step], kn) and \
+                torch.equal(wv[:, step], vn)
+            other = torch.arange(72, device=dev) != step
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            for a, b in ((wk, gk0), (wv, gv0), (rk, gk0)):
+                assert torch.equal(a[:, other].view(bits),
+                                   b[:, other].view(bits))
+        else:
+            out = fn(*args, **kw, **more)
+            ref = plain(*args, **kw, **more)
+        assert fn.launches == n0 + 1 and fn.widened_launches == w0 + 1
+        assert torch.isfinite(out).all(), step
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("K,widened", [(10, True), (40, False)])
+def test_decode_step_takes_the_widened_plan_at_a_short_prefix(dev, gen, K,
+                                                              widened):
+    """decode_step at N 512 x R 5 in bf16 (GPT-2 124M's widths, two
+    layers): at ClipCap's prefix of 10 every K2 launch runs a widened
+    plan, at the flagship's 40 none does."""
+    cfg = gpt2.GPT2Config(vocab_size=1000, n_layer=2,
+                          compute_dtype=torch.bfloat16)
+    model = beam.cast_params_for_decode(gpt2.init_params(
+        gpt2.GPT2LMHeadModel(cfg, device=dev), cfg, gen), cfg)
+    N, R, E = 512, 5, 72
+    _, pc = gpt2.prefill(model, cfg, torch.randn(N, K, cfg.n_embd,
+                                                 generator=gen, device=dev))
+    cache = gpt2.init_gen_cache_rowmajor(cfg, N * R, E, device=dev)
+    tok = model.transformer.wte.weight[torch.randint(
+        0, cfg.vocab_size, (N * R,), generator=gen, device=dev)]
+    k2 = decode_attention.beam_decode_attention_rowmajor
+    for step in (0, 16, 33, 66):
+        n0, w0 = k2.launches, k2.widened_launches
+        gpt2.decode_step(model, cfg, tok, pc, cache, step, e_cap=E)
+        assert k2.launches == n0 + cfg.n_layer
+        assert k2.widened_launches == w0 + widened * cfg.n_layer
 
 
 @pytest.mark.parametrize("knobs", [{}, dict(kv_cache_int8=True),
