@@ -69,7 +69,7 @@ import torch
 
 from . import staging
 from ..models import decoders, gpt2
-from ..ops import cache_reorder, lm_head
+from ..ops import _build, cache_reorder, lm_head
 from ..utils import profiling
 from ..utils.tokenizer import GPT2_DOT_TOKEN
 
@@ -126,8 +126,8 @@ class BeamConfig:
     # same one-slot update as K3). None = auto (False, as in JAX).
     pallas_slot_write: Optional[bool] = None
     # Run every chosen op's plain PyTorch version instead of its kernel
-    # wrapper: the card's reference path (counterpart of the JAX engine's
-    # fused_interpret).
+    # (the engine runs inside `_build.plain_ops`): the card's reference
+    # path (counterpart of the JAX engine's fused_interpret).
     plain_ops: bool = False
 
     def plain(self) -> "BeamConfig":
@@ -261,18 +261,15 @@ def _fork_copy(bc: BeamConfig):
     """The fork fix-up of the row-major lane path: fork(cache, src, count)
     updates the generated cache in place (count = live slots) and returns
     it."""
-    kernels = not bc.plain_ops
     cr = cache_reorder
-    if bc.bounded_fork_copy:
-        rows = (cr.copy_forked_rows_bounded if kernels
-                else cr.copy_forked_rows_bounded_plain)
-    else:
-        whole = cr.copy_forked_rows if kernels else cr.copy_forked_rows_plain
-        rows = lambda k, v, src, count: whole(k, v, src)
 
     def fork(cache, src, count):
         # a cache of one tensor (the MLA latent) has no "v"
-        rows(cache["k"], cache.get("v"), src, count)
+        k, v = cache["k"], cache.get("v")
+        if bc.bounded_fork_copy:
+            cr.copy_forked_rows_bounded(k, v, src, count)
+        else:
+            cr.copy_forked_rows(k, v, src)
         if "ks" in cache:  # int8 scales: tiny, plain indexing
             cache["ks"] = cache["ks"][src]
             cache["vs"] = cache["vs"][src]
@@ -284,15 +281,13 @@ def _gather(bc: BeamConfig):
     """The whole-cache gather of the configuration (JAX
     `_reorder_gen_cache`, beam.py:53-77): gather(cache, src) returns a new
     cache whose row b is row src[b]. K10 on the row-major cache, K11 on
-    the seq-major one, or their plain versions (`pallas_reorder=False` or
-    `plain_ops`)."""
+    the seq-major one, or their plain versions (`pallas_reorder=False`)."""
     cr = cache_reorder
-    kernels = bool(bc.pallas_reorder) and not bc.plain_ops
     if bc.rowmajor_cache:
-        rows = cr.reorder_rows_leading if kernels \
+        rows = cr.reorder_rows_leading if bc.pallas_reorder \
             else cr.reorder_rows_leading_plain
     else:
-        rows = cr.reorder_cache_rows if kernels \
+        rows = cr.reorder_cache_rows if bc.pallas_reorder \
             else cr.reorder_cache_rows_plain
 
     def gather(cache, src):
@@ -322,7 +317,6 @@ def _beam_search_impl(model, cfg, bc: BeamConfig,
     _check_decoder(dec, bc)
     R, E = bc.beam_size, bc.entry_length
     dev = prefix_embeds.device
-    kernels = not bc.plain_ops
     use_lanes = _use_lanes(bc)
     # the fused row-major route (JAX beam.py:284-285); the seq-major cache
     # and ancestry attention run the plain attention math
@@ -367,17 +361,12 @@ def _beam_search_impl(model, cfg, bc: BeamConfig,
     cur = dec.embed_tokens(model, toks0.reshape(N * R))       # [B, D]
     lane_fixup = _lane_fixup(bc)
     gather = _gather(bc)
-    topk = lm_head.lm_head_topk if bc.fused_lm_head and kernels \
-        else lm_head.lm_head_topk_plain
     step_kw = dict(
-        rowmajor=bc.rowmajor_cache, fused_attention=fused_path and kernels,
-        chunk_slot_write=kernels and (
-            (bool(bc.chunk_slot_write) and bc.rowmajor_cache)
-            or bc.kv_cache_int8),
-        slot_write_kernel=kernels and bool(bc.pallas_slot_write)
-        and bc.rowmajor_cache,
-        fused_slot_chunks=chunks, return_hidden=bool(bc.fused_lm_head),
-        fused_epilogues=kernels)
+        rowmajor=bc.rowmajor_cache, fused_attention=fused_path,
+        chunk_slot_write=(bool(bc.chunk_slot_write) and bc.rowmajor_cache)
+        or bc.kv_cache_int8,
+        slot_write_kernel=bool(bc.pallas_slot_write) and bc.rowmajor_cache,
+        fused_slot_chunks=chunks, return_hidden=bool(bc.fused_lm_head))
     # rank -> lane map of the latest selection (identity at step 0, where
     # ranks ARE lanes, and outside lane mode); restores rank order at the
     # end.
@@ -415,7 +404,8 @@ def _beam_search_impl(model, cfg, bc: BeamConfig,
                 # its length are monotonic within a beam, so the flat top-R
                 # over beam x vocab picks only from each beam's own top-R.
                 if bc.fused_lm_head:
-                    cand_val, cand_tok, lse = topk(out, wte, R)
+                    cand_val, cand_tok, lse = lm_head.lm_head_topk(
+                        out, wte, R)
                 else:  # `out` is the f32 logits
                     logits = out if inv_t is None else out * inv_t
                     lse = torch.logsumexp(logits, dim=-1)
@@ -480,9 +470,11 @@ def beam_search(model, cfg, prefix_embeds: torch.Tensor,
     order [N,R]) where `order` ranks beams by length-normalised score
     descending. `counters` (a dict), when given, takes the batch's device
     counters by name (the decoder's DECODE_COUNTERS, filled as the steps
-    run; none for GPT-2)."""
-    return _beam_search_impl(model, cfg, resolve_config(bc), prefix_embeds,
-                             counters)
+    run; none for GPT-2). With `bc.plain_ops` the whole search runs
+    inside `_build.plain_ops`."""
+    with _build.plain_ops(bc.plain_ops):
+        return _beam_search_impl(model, cfg, resolve_config(bc),
+                                 prefix_embeds, counters)
 
 
 def beam_texts(tokenizer, tokens, seq_lengths, order) -> List[List[str]]:

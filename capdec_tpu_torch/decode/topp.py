@@ -28,8 +28,9 @@ Routes of the decode step:
 The next token comes from the fused LM head with top-1 (kernel K1) unless
 `sample` or a temperature other than 1 asks for the logits.
 `plain_ops` runs every chosen op's plain PyTorch version (the card's
-reference path). The JAX engine's `fused_block_beams` (a TPU block size)
-and `fused_interpret` have no counterpart here.
+reference path: the decode runs inside `_build.plain_ops`). The JAX
+engine's `fused_block_beams` (a TPU block size) and `fused_interpret`
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ import torch
 from . import staging
 from .beam import SLOT_ALIGN, cast_params_for_decode
 from ..models import decoders, gpt2
-from ..ops import lm_head
+from ..ops import _build, lm_head
 from ..utils import profiling
 from ..utils.tokenizer import GPT2_DOT_TOKEN, GPT2_SPACE_DOT_TOKEN
 
@@ -115,7 +116,6 @@ def _greedy_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     N = prefix_embeds.shape[0]
     E = tc.entry_length
     dev = prefix_embeds.device
-    kernels = not tc.plain_ops
     fused = bool(tc.fused_attention)
     # the JAX engine's refusals (capdec_tpu/decode/topp.py:138-142)
     if tc.kv_cache_int8 and fused and not tc.fused_slot_chunks:
@@ -151,7 +151,6 @@ def _greedy_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     staging.check_chunks(buckets, chunks)
     gen_cache = init_cache(cfg, N, buckets[0], device=dev)
     cur = gpt2.embed_tokens(model, tok0)
-    topk = lm_head.lm_head_topk if kernels else lm_head.lm_head_topk_plain
 
     i = 1
     for cap in buckets:
@@ -165,13 +164,12 @@ def _greedy_impl(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
             with profiling.span("decode.step", step=i):
                 out = gpt2.decode_step(
                     model, cfg, cur, prefix_cache, gen_cache, i - 1,
-                    rowmajor=fused, fused_attention=fused and kernels,
-                    chunk_slot_write=bool(tc.chunk_slot_write) and kernels,
+                    rowmajor=fused, fused_attention=fused,
+                    chunk_slot_write=bool(tc.chunk_slot_write),
                     fused_slot_chunks=chunks,
-                    return_hidden=bool(tc.fused_lm_head),
-                    fused_epilogues=kernels)
+                    return_hidden=bool(tc.fused_lm_head))
                 if tc.fused_lm_head:
-                    nxt = topk(out, wte, 1)[1][:, 0]
+                    nxt = lm_head.lm_head_topk(out, wte, 1)[1][:, 0]
                 else:
                     nxt = _pick(out, tc, generator)
                 alive = ~stopped
@@ -219,8 +217,9 @@ def greedy_topp_search(model: gpt2.GPT2LMHeadModel, cfg: gpt2.GPT2Config,
     if generator is None:
         generator = torch.Generator(device=prefix_embeds.device)
         generator.manual_seed(0)
-    return _greedy_impl(model, cfg, resolve_config(tc), prefix_embeds,
-                        generator)
+    with _build.plain_ops(tc.plain_ops):
+        return _greedy_impl(model, cfg, resolve_config(tc), prefix_embeds,
+                            generator)
 
 
 def topp_texts(tokenizer, tokens, lengths) -> List[str]:

@@ -225,13 +225,6 @@ def final_logits(model: GPT2LMHeadModel, cfg: GPT2Config,
                         model.transformer.wte.weight.to(cdt).t()).float()
 
 
-def final_hidden(model: GPT2LMHeadModel, cfg: GPT2Config,
-                 x: torch.Tensor) -> torch.Tensor:
-    """ln_f only, in the compute dtype: the input of the LM-head kernel
-    (ops/lm_head.py), which does the tied-head product itself."""
-    return _layer_norm(x, model.transformer.ln_f).to(cfg.compute_dtype)
-
-
 def embed_tokens(model: GPT2LMHeadModel, tokens: torch.Tensor
                  ) -> torch.Tensor:
     """Token embedding lookup (reference `gpt.transformer.wte(tokens)`)."""
@@ -708,8 +701,7 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
                 rowmajor: bool = True,
                 slot_write_kernel: bool = False,
                 anc_rows: Optional[torch.Tensor] = None,
-                return_hidden: bool = True,
-                fused_epilogues: bool = True) -> torch.Tensor:
+                return_hidden: bool = True) -> torch.Tensor:
     """One decode step over split caches.
 
     token_embed: [B, D] embeddings of the tokens decoded at generated
@@ -740,12 +732,10 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     the attention is the plain math with that gather
     (decode_attention._attention_plain).
 
-    `fused_epilogues` runs each block by `_decode_block`, whose bias adds,
-    casts, GELU, residual sums and layernorms are the kernels of
-    ops/epilogue.py (their plain versions on the CPU; on the card they
-    raise for a width or dtype they do not take), but for a tp rank's
-    c_projs, whose bias follows the tp sum; False runs `_block`'s op
-    chain (`plain_ops`).
+    Each block runs by `_decode_block`, whose bias adds, casts, GELU,
+    residual sums and layernorms are the epilogues of ops/epilogue.py
+    (on the card they raise for a width or dtype they do not take), but
+    for a tp rank's c_projs, whose bias follows the tp sum.
     """
     B = token_embed.shape[0]
     L, N, K, _ = prefix_cache["k"].shape
@@ -768,20 +758,7 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         return attend(q, k_new, v_new, pk, pv, *att_caches, step, layer,
                       beams_per_image=R, head_dim=cfg.head_dim, **kw)
 
-    if fused_epilogues:
-        h, ks, vs = _decode_blocks(t, cdt, token_embed, K + step, attention)
-    else:
-        x = (token_embed + t.wpe.weight[K + step]).to(cdt)
-        ks, vs = [], []
-        for layer, blk in enumerate(t.h):
-            h = _layer_norm(x, blk.ln_1)
-            qkv = _dense_in(h, blk.attn.c_attn, cdt, blk.tp).to(cdt)
-            q, k_new, v_new = qkv.split(qkv.shape[-1] // 3, dim=-1)
-            out = attention(q, k_new, v_new, layer)
-            out = _dense_out(out.to(cdt), blk.attn.c_proj, cdt, blk.tp)
-            x = _block_mlp(x + out.to(x.dtype), blk, cdt)
-            ks.append(k_new)
-            vs.append(v_new)
+    h, ks, vs = _decode_blocks(t, cdt, token_embed, K + step, attention)
     if scales:  # int8: K5 (or the plain write) quantises them stacked
         axis = 1 if rowmajor else 0  # [B, L, D] or [L, B, D]
         write(gk, gv, *scales, torch.stack(ks, dim=axis),
@@ -790,12 +767,9 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         # K3, K13 and K14 read the per-layer views where they lie: no
         # stacking copy (the plain versions stack them themselves)
         write(gk, gv, ks, vs, step)
-    if fused_epilogues:  # h is ln_f's output already
-        return h if return_hidden else torch.matmul(
-            h, t.wte.weight.to(cdt).t()).float()
-    if return_hidden:
-        return final_hidden(model, cfg, x)
-    return final_logits(model, cfg, x)
+    # h is ln_f's output already
+    return h if return_hidden else torch.matmul(
+        h, t.wte.weight.to(cdt).t()).float()
 
 
 # ---------------------------------------------------------------------------

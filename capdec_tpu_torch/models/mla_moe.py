@@ -35,23 +35,23 @@ routed experts sorted by expert and multiplied by one grouped product a
 projection (ops/moe.py). The beam engine reaches this module through
 models/decoders.py; greedy/top-p decoding, int8 caches, the seq-major
 cache, ancestry, a tp mesh and training are GPT-2's alone and raise here.
+Which of the kernels or their plain versions run is the wrappers' choice
+(ops/_build.py `run_plain`); this module names only the routes. The
+kernels take bf16 alone, so an f32 model runs on the card only inside a
+`plain_ops` scope (`BeamConfig.plain()`), and raises outside one.
 
-Spans (utils/profiling.py): `mla.attention` around K16's call, and
-`moe.route`, `moe.dispatch`, `moe.experts`, `moe.combine` in each routed
-layer, timed on the device (a decode step's carry its `step`). Counter:
-the prefix cache's "expert_rows" int32 [routed layers, E], the rows each
-expert took over the batch's decode steps.
+Counter: the prefix cache's "expert_rows" int32 [routed layers, E], the
+rows each expert took over the batch's decode steps.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import cache_reorder, mla_attention, moe, rmsnorm
-from ..utils import profiling
 
 Cache = Dict[str, torch.Tensor]
 # What decode_step counts on the device, read from the prefix cache by
@@ -304,58 +304,40 @@ def _refuse(what: str):
 # The blocks
 # ---------------------------------------------------------------------------
 
-def _norm(x, y, w, eps, cdt, kernels, assign=False, out=None):
-    """x += y (x = y with assign), then rmsnorm(x) * w in cdt: the kernel
-    where it takes y, else its plain version."""
-    if kernels and x.is_cuda and y.dtype == torch.bfloat16:
-        return rmsnorm.residual_rmsnorm(x, y, w, eps, cdt, assign, out)
-    return rmsnorm.residual_rmsnorm_plain(x, y, w, eps, cdt, assign, out)
-
-
 def _mm(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return torch.mm(x, lin.weight.t())
 
 
-def _mlp(h: torch.Tensor, mlp: MLP, kernels: bool) -> torch.Tensor:
-    act = (moe.swiglu if kernels else moe.swiglu_plain)(
-        _mm(h, mlp.gate_proj), _mm(h, mlp.up_proj))
+def _mlp(h: torch.Tensor, mlp: MLP) -> torch.Tensor:
+    act = moe.swiglu(_mm(h, mlp.gate_proj), _mm(h, mlp.up_proj))
     return _mm(act, mlp.down_proj)
 
 
 def _moe(x: torch.Tensor, h: torch.Tensor, mlp: MoE, lp: _Layer,
-         cfg: MLAMoEConfig, kernels: bool, counter: Optional[torch.Tensor],
-         meta: Dict[str, Any]) -> torch.Tensor:
+         cfg: MLAMoEConfig, counter: Optional[torch.Tensor]) -> torch.Tensor:
     """The routed experts of h [T, D] added into x [T, D] (f32) in place;
     returns the shared experts' output."""
     E, k = cfg.n_routed_experts, cfg.num_experts_per_tok
     ex = mlp.experts
-    with profiling.span("moe.route", **meta):
-        logits = torch.mm(h.float(), lp.router.t())
-        idx, w = (moe.route if kernels else moe.route_plain)(
-            logits, lp.router_bias, k, cfg.norm_topk_prob,
-            cfg.routed_scaling_factor)
-    with profiling.span("moe.dispatch", **meta):
-        offs, pos, token_of = (moe.dispatch if kernels else moe.dispatch_plain)(
-            idx, E, counter)
-        xs = h.index_select(0, token_of)
-    with profiling.span("moe.experts", **meta):
-        ys = moe.expert_products(xs, ex.gate_up_proj, ex.down_proj, offs,
-                                 kernels)
-    with profiling.span("moe.combine", **meta):
-        (moe.combine if kernels else moe.combine_plain)(x, ys, pos, w)
-    return _mlp(h, mlp.shared_experts, kernels)
+    logits = torch.mm(h.float(), lp.router.t())
+    idx, w = moe.route(logits, lp.router_bias, k, cfg.norm_topk_prob,
+                       cfg.routed_scaling_factor)
+    offs, pos, token_of = moe.dispatch(idx, E, counter)
+    ys = moe.expert_products(h.index_select(0, token_of), ex.gate_up_proj,
+                             ex.down_proj, offs)
+    moe.combine(x, ys, pos, w)
+    return _mlp(h, mlp.shared_experts)
 
 
 def _mlp_block(x, h, layer: Layer, i: int, lp: _Layer, cfg: MLAMoEConfig,
-               kernels: bool, counters: Optional[torch.Tensor],
-               meta: Dict[str, Any]) -> torch.Tensor:
+               counters: Optional[torch.Tensor]) -> torch.Tensor:
     """The layer's MLP on h: the dense SwiGLU's output, or the routed
     experts added into x and the shared experts' output."""
     if not cfg.is_moe(i):
-        return _mlp(h, layer.mlp, kernels)
+        return _mlp(h, layer.mlp)
     row = None if counters is None else \
         counters[i - cfg.first_k_dense_replace]
-    return _moe(x, h, layer.mlp, lp, cfg, kernels, row, meta)
+    return _moe(x, h, layer.mlp, lp, cfg, row)
 
 
 def _latent(kv_a: torch.Tensor, lp: _Layer, cfg: MLAMoEConfig,
@@ -376,12 +358,9 @@ def prefill(model: MLAMoEModel, cfg: MLAMoEConfig,
     """Run the prefix [N, K, D] once at positions 0..K-1 (expanded
     attention, causal); return (last-position logits [N, V] f32, the
     prefix cache {"k": latent rows [L, N, K, Dl + Dr], "expert_rows":
-    int32 zeros [routed layers, E]}). On the card in bf16 the norms, the
-    experts' glue and the grouped products run by their kernels, else by
-    their plain versions."""
+    int32 zeros [routed layers, E]})."""
     N, K, D = inputs_embeds.shape
     cdt = cfg.compute_dtype
-    kernels = inputs_embeds.is_cuda and cdt == torch.bfloat16
     p = decode_params(model, cfg)
     H, nope, v = cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     Dr, eps = cfg.qk_rope_head_dim, cfg.rms_norm_eps
@@ -412,10 +391,11 @@ def prefill(model: MLAMoEModel, cfg: MLAMoEConfig,
         s = s.masked_fill(~causal, float("-inf"))
         o = torch.matmul(torch.softmax(s, -1).to(cdt), vv)
         o = o.transpose(1, 2).reshape(T, H * v)
-        h = _norm(x, _mm(o, a.o_proj), lp.ln_post, eps, cdt, kernels)
-        y = _mlp_block(x, h, layer, i, lp, cfg, kernels, None, {})
+        h = rmsnorm.residual_rmsnorm(x, _mm(o, a.o_proj), lp.ln_post, eps,
+                                     cdt)
+        y = _mlp_block(x, h, layer, i, lp, cfg, None)
         nxt = p.layers[i + 1].ln_in if i + 1 < len(layers) else p.norm
-        h = _norm(x, y, nxt, eps, cdt, kernels)
+        h = rmsnorm.residual_rmsnorm(x, y, nxt, eps, cdt)
     last = h.view(N, K, D)[:, -1]
     logits = torch.matmul(last, model.lm_head.weight.t()).float()
     n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
@@ -436,8 +416,7 @@ def decode_step(model: MLAMoEModel, cfg: MLAMoEConfig,
                 rowmajor: bool = True,
                 slot_write_kernel: bool = False,
                 anc_rows: Optional[torch.Tensor] = None,
-                return_hidden: bool = True,
-                fused_epilogues: bool = True) -> torch.Tensor:
+                return_hidden: bool = True) -> torch.Tensor:
     """One decode step of B = N x R beam rows at generated position `step`
     (position K + step): attends over the prefix latent, the row's latent
     slots < step and the step's own, and writes each layer's latent row
@@ -445,13 +424,10 @@ def decode_step(model: MLAMoEModel, cfg: MLAMoEConfig,
     PLACE (K3, or the plain write). Returns the final-normed hidden state
     [B, D] in the compute dtype (K1's input), or with
     `return_hidden=False` the f32 logits [B, V]. `fused_attention` runs
-    K16 (else its plain version), `chunk_slot_write` / `slot_write_kernel`
-    K3 / K14's route, and `fused_epilogues` the norms, the latent's entry,
-    the router, the expert sort, the grouped products, the SwiGLU and the
-    combine by their kernels (else the plain versions and the per-expert
-    loop). The routed layers add their rows per expert into
-    prefix_cache["expert_rows"]. The seq-major cache, ancestry, the
-    slot-bounded kernels and int8 caches raise."""
+    K16 (else its plain version) and `chunk_slot_write` /
+    `slot_write_kernel` K3 / K14's route. The routed layers add their
+    rows per expert into prefix_cache["expert_rows"]. The seq-major
+    cache, ancestry, the slot-bounded kernels and int8 caches raise."""
     if not rowmajor:
         _refuse("the seq-major cache")
     if anc_rows is not None:
@@ -465,7 +441,6 @@ def decode_step(model: MLAMoEModel, cfg: MLAMoEConfig,
     L, N, K, C = pk.shape
     R = B // N
     cdt = cfg.compute_dtype
-    kernels = fused_epilogues
     p = decode_params(model, cfg)
     H, nope = cfg.num_attention_heads, cfg.qk_nope_head_dim
     eps, pos = cfg.rms_norm_eps, K + step
@@ -473,30 +448,29 @@ def decode_step(model: MLAMoEModel, cfg: MLAMoEConfig,
     scale = mla_attention.softmax_scale(cfg.qk_head_dim)
     attend = mla_attention.mla_decode_attention if fused_attention \
         else mla_attention.mla_decode_attention_plain
-    prep = mla_attention.mla_prep if kernels else mla_attention.mla_prep_plain
     counters = prefix_cache.get("expert_rows")
-    meta = {"step": step}
     x = torch.empty(B, cfg.hidden_size, dtype=torch.float32,
                     device=token_embed.device)
-    h = _norm(x, token_embed, p.layers[0].ln_in, eps, cdt, kernels,
-              assign=True)
+    h = rmsnorm.residual_rmsnorm(x, token_embed, p.layers[0].ln_in, eps, cdt,
+                                 assign=True)
     lats = torch.empty(L, B, C, dtype=cdt, device=x.device)
     layers = list(model.model.layers)
     for i, (layer, lp) in enumerate(zip(layers, p.layers)):
         a = layer.self_attn
         q = _mm(h, a.q_proj)                                # [B, H qk]
-        prep(q, _mm(h, a.kv_a_proj_with_mqa), lp.kv_norm, cos, sin,
-             cfg.kv_norm_eps, cfg.qk_head_dim, out=lats[i])
+        mla_attention.mla_prep(q, _mm(h, a.kv_a_proj_with_mqa), lp.kv_norm,
+                               cos, sin, cfg.kv_norm_eps, cfg.qk_head_dim,
+                               out=lats[i])
         qv = q.view(B, H, cfg.qk_head_dim)
         q_lat = torch.bmm(qv[..., :nope].transpose(0, 1), lp.w_uk)
-        with profiling.span("mla.attention", **meta):
-            o_lat = attend(q_lat, qv[..., nope:], lats[i], pk, gk, step, i,
-                           beams_per_image=R, scale=scale)
+        o_lat = attend(q_lat, qv[..., nope:], lats[i], pk, gk, step, i,
+                       beams_per_image=R, scale=scale)
         o = torch.bmm(o_lat, lp.w_uv_t).transpose(0, 1).reshape(B, -1)
-        h = _norm(x, _mm(o, a.o_proj), lp.ln_post, eps, cdt, kernels)
-        y = _mlp_block(x, h, layer, i, lp, cfg, kernels, counters, meta)
+        h = rmsnorm.residual_rmsnorm(x, _mm(o, a.o_proj), lp.ln_post, eps,
+                                     cdt)
+        y = _mlp_block(x, h, layer, i, lp, cfg, counters)
         nxt = p.layers[i + 1].ln_in if i + 1 < len(layers) else p.norm
-        h = _norm(x, y, nxt, eps, cdt, kernels)
+        h = rmsnorm.residual_rmsnorm(x, y, nxt, eps, cdt)
     cr = cache_reorder
     if chunk_slot_write:
         cr.write_gen_slot_chunk(gk, None, lats.unbind(0), None, step)

@@ -10,9 +10,15 @@ shared memory, spills) is kept beside the library as `<name>.log`.
 
 Every C entry launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises on a non-zero code.
+
+Every kernel has a plain PyTorch version beside it, and `run_plain` is
+the one place that chooses between them: each wrapper under ops/ asks it
+and launches its kernel only where it answers False, on a CUDA tensor
+outside a `plain_ops` scope.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -158,10 +165,33 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def on_cpu(t) -> bool:
-    """True for a CPU tensor (the wrapper runs its plain version), False
-    for a CUDA tensor (the wrapper launches its kernel); raises for any
-    other device."""
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def plain_ops(on: bool = True):
+    """Within it, on this thread, every wrapper runs its plain version if
+    `on`, and chooses by device as outside any scope if not. The engines
+    open it with their `plain_ops` switch: the card's reference path."""
+    was = in_plain_ops()
+    _scope.on = on
+    try:
+        yield
+    finally:
+        _scope.on = was
+
+
+def in_plain_ops() -> bool:
+    """Whether this thread is inside a `plain_ops(True)` scope."""
+    return getattr(_scope, "on", False)
+
+
+def run_plain(t) -> bool:
+    """True where a wrapper runs its plain version: inside a `plain_ops`
+    scope, or for a CPU tensor; False for a CUDA tensor outside one (the
+    wrapper launches its kernel); raises for any other device."""
+    if in_plain_ops():
+        return True
     if t.is_cuda:
         return False
     if not t.is_cpu:

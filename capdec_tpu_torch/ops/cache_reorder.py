@@ -14,10 +14,10 @@ capdec_tpu/ops/cache_reorder.py):
     [0, B): the plain versions raise on the CPU (`index_select`), and the
     kernel trips a device-side assert (as `index_select` does on the card;
     a host check would wait for the device at every step).
-Each returns the caches in a dict. On CUDA tensors the wrappers launch
+Each returns the caches in a dict. The wrappers launch
 csrc/cache_reorder.cu or csrc/cache_gather.cu (their notes say what bounds
-each on the H100 and how the design answers); on CPU tensors they run the
-plain PyTorch versions beside them.
+each on the H100 and how the design answers), or the plain PyTorch
+versions beside them where `_build.run_plain` says so.
 """
 from __future__ import annotations
 
@@ -229,7 +229,7 @@ def write_gen_slot_chunk(k: torch.Tensor, v, new_k, new_v,
     they lie) or a tensor [B, L, D] (the JAX signature), read as its L
     strided [B, D] views; one launch either way. A cache of one tensor
     (the latent of models/mla_moe.py) comes as k with v and new_v None."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return write_gen_slot_chunk_plain(k, v, new_k, new_v, step)
     out = _write_slot_views(k, v, new_k, new_v, step,
                             "write_gen_slot_chunk", rowmajor=True)
@@ -248,7 +248,7 @@ def write_gen_slot_chunk_seqmajor(k: torch.Tensor, v: torch.Tensor,
     new_k/new_v is a sequence of L [B, D] views (decode_step's per-layer
     thirds of its qkv outputs, read where they lie) or a tensor [L, B, D]
     (the JAX signature), read as its L rows; one launch either way."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return write_gen_slot_chunk_seqmajor_plain(k, v, new_k, new_v, step)
     out = _write_slot_views(k, v, new_k, new_v, step,
                             "write_gen_slot_chunk_seqmajor", rowmajor=False)
@@ -269,7 +269,7 @@ def write_gen_slot(k: torch.Tensor, v: torch.Tensor, new_k, new_v,
     (`BeamConfig.pallas_slot_write`): the same one-slot update of the
     row-major caches k/v [B, L, E, D] by new_k/new_v (L [B, D] views or
     [B, L, D]), in place, with a launch count of its own."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return write_gen_slot_plain(k, v, new_k, new_v, step)
     out = _write_slot_views(k, v, new_k, new_v, step, "write_gen_slot",
                             rowmajor=True)
@@ -326,7 +326,7 @@ def write_gen_slot_chunk_q(k: torch.Tensor, v: torch.Tensor,
     (row, layer) and writes the levels into slot `step` of k/v int8
     [B, L, E, D] and the f32 scales into ks/vs [B, L, 1, E], in place.
     Bit-identical to the plain version."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return write_gen_slot_chunk_q_plain(k, v, ks, vs, new_k, new_v,
                                             step)
     _check_cache(k, v, "write_gen_slot_chunk_q")
@@ -414,7 +414,7 @@ def copy_forked_rows_bounded(k: torch.Tensor, v, src: torch.Tensor,
     never a source). Slots >= count of a forked row keep stale bits; decode
     attention never reads them. No launch for count 0: nothing moves. v
     None: a cache of one tensor (the latent of models/mla_moe.py)."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return copy_forked_rows_bounded_plain(k, v, src, count)
     row_bytes = _check_cache(k, v, "copy_forked_rows_bounded")
     B, L, E, D = k.shape
@@ -458,7 +458,7 @@ def copy_forked_rows(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor
     [B, ...] becomes row src[b], only where src[b] != b; rows that keep
     their lane move no byte. Requires the lane invariant. Any dtype of
     `MOVABLE_DTYPES`."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return copy_forked_rows_plain(k, v, src)
     row_bytes = _check_cache(k, v, "copy_forked_rows")
     _check_src(src, k)
@@ -519,7 +519,7 @@ def reorder_rows_leading(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor,
     """Gather the rows of the row-major caches k/v [B, L, E, D] by `src`
     [B] int64 into out_k/out_v (fresh caches when not given): out row b is
     row src[b], whole. Any dtype of `MOVABLE_DTYPES`, bit for bit."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return reorder_rows_leading_plain(k, v, src, out_k, out_v)
     row_bytes = _check_cache(k, v, "reorder_rows_leading")
     _check_src(src, k)
@@ -588,7 +588,7 @@ def reorder_cache_rows(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor,
     1 by `src` [B] int64 into out_k/out_v (fresh caches when not given):
     out[:, b] is in[:, src[b]]. Any dtype of `MOVABLE_DTYPES`, bit for
     bit."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return reorder_cache_rows_plain(k, v, src, out_k, out_v)
     out, launched = _gather_seqmajor(k, v, src, k.shape[2], out_k, out_v,
                                      "reorder_cache_rows")
@@ -605,7 +605,7 @@ def reorder_cache_rows_bounded(k: torch.Tensor, v: torch.Tensor,
     """`reorder_cache_rows` over the slots below `count` only (the written
     ones): the output's slots at or above `count` are left as they were,
     uninitialised in fresh caches; decode attention never reads them."""
-    if _build.on_cpu(k):
+    if _build.run_plain(k):
         return reorder_cache_rows_bounded_plain(k, v, src, count, out_k,
                                                 out_v)
     out, launched = _gather_seqmajor(k, v, src, count, out_k, out_v,

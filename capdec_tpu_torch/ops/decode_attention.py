@@ -15,11 +15,11 @@ scales. K15 (the v1 kernel, which no path of the JAX package calls)
 attends over one layer's caches [B, E, D] and also writes the step's K/V
 into slot `step`, in place.
 
-On a CUDA tensor a wrapper launches csrc/decode_attention_async.cu (one
-kernel fed by asynchronous copies, launched with the plan of
-`attention_plan`; K6 and K9 are its int8 policies, K15 its slot-write
-policy); its note says what bounds the kernel on the H100 and how the
-design answers. On a CPU tensor it runs its plain version, the un-fused
+A wrapper launches csrc/decode_attention_async.cu (one kernel fed by
+asynchronous copies, launched with the plan of `attention_plan`; K6 and
+K9 are its int8 policies, K15 its slot-write policy); its note says what
+bounds the kernel on the H100 and how the design answers. Where
+`_build.run_plain` says so it runs its plain version, the un-fused
 attention math of the JAX reference's decode_step (gpt2.py:612-664).
 
 Generated slots at or above `step` may hold stale or NaN bits after a
@@ -332,7 +332,7 @@ def beam_decode_attention_rowmajor(
     gk/gv: [B, L, E, D] (read-only); every row 16-byte aligned; head_dim
     32, 64 or 128; step/layer: ints. Returns f32 [B, D].
     `e_cap`: read at most the first e_cap generated slots."""
-    if _build.on_cpu(q):
+    if _build.run_plain(q):
         return beam_decode_attention_rowmajor_plain(
             q, k_new, v_new, pk, pv, gk, gv, step, layer,
             beams_per_image=beams_per_image, head_dim=head_dim, e_cap=e_cap)
@@ -374,7 +374,7 @@ def beam_decode_attention_rowmajor_q(
     cache_reorder.write_gen_slot_chunk_q. The prefix cache and q/k/v stay
     in float32 or bfloat16. `e_cap` bounds the slot reads; the scales are
     indexed at their full width E either way. Returns f32 [B, D]."""
-    if _build.on_cpu(q):
+    if _build.run_plain(q):
         return beam_decode_attention_rowmajor_q_plain(
             q, k_new, v_new, pk, pv, gk, gv, gks, gvs, step, layer,
             beams_per_image=beams_per_image, head_dim=head_dim, e_cap=e_cap)
@@ -436,7 +436,7 @@ def beam_decode_attention_chunked(
     generated cache is read in `chunk`-slot tiles, only below `step`, with
     an online softmax. E must be a multiple of `chunk` and the batch of
     `beams_per_image`. Returns f32 [B, D]."""
-    if _build.on_cpu(q):
+    if _build.run_plain(q):
         return beam_decode_attention_chunked_plain(
             q, k_new, v_new, pk, pv, gk, gv, step, layer,
             beams_per_image=beams_per_image, head_dim=head_dim, chunk=chunk)
@@ -482,7 +482,7 @@ def beam_decode_attention_chunked_q(
     prefix pk/pv is int8 levels too: its K scale multiplies the score
     after the head sum and its V scale folds into the prefix probability.
     Returns f32 [B, D]."""
-    if _build.on_cpu(q):
+    if _build.run_plain(q):
         return beam_decode_attention_chunked_q_plain(
             q, k_new, v_new, pk, pv, gk, gv, gks, gvs, step, layer,
             beams_per_image=beams_per_image, head_dim=head_dim, chunk=chunk,
@@ -543,7 +543,7 @@ def beam_decode_attention(
     The caches are updated IN PLACE and returned, the counterpart of the
     JAX kernel's donated, aliased buffers: returns (out f32 [B, D], gk,
     gv)."""
-    if _build.on_cpu(q):
+    if _build.run_plain(q):
         return beam_decode_attention_plain(
             q, k_new, v_new, pk, pv, gk, gv, step,
             beams_per_image=beams_per_image, head_dim=head_dim)

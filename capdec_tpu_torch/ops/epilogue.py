@@ -14,10 +14,10 @@ fused this work inside the jitted step.
 
 T is the compute dtype of y (float32 or bfloat16); b, weight and bias are
 float32. Each plain version is the op chain the kernel replaces, as
-`gpt2._block` runs it, and rounds where it rounds. On a CUDA tensor a
-wrapper checks its arguments and launches the kernel, one launch a call,
-counted in `launches`; on a CPU tensor it runs its plain version. The
-kernels take rows of whole 16-byte vectors (a multiple of 8 values in
+`gpt2._block` runs it, and rounds where it rounds. A wrapper checks
+its arguments and launches the kernel, one launch a call, counted in
+`launches`, or runs its plain version where `_build.run_plain` says so.
+The kernels take rows of whole 16-byte vectors (a multiple of 8 values in
 bfloat16, of 4 in float32), the layernorms up to MAX_WIDTH values (GPT-2
 XL's 1600 fits); they raise on anything else. An `out` (bias_gelu_cast's
 tensor, or the residual layernorm's pair) takes the results in place of
@@ -214,7 +214,7 @@ def _residual_layernorm(name, x, y, add, weight, bias, eps, entry,
 def bias_cast(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """T(f32(y) + b), a new tensor: y [rows, width] a product's output in
     the compute dtype T, b float32 [width]."""
-    if _build.on_cpu(y):
+    if _build.run_plain(y):
         return bias_cast_plain(y, b)
     out = _bias_act("bias_cast", y, b, 0, None)
     bias_cast.launches += 1
@@ -229,7 +229,7 @@ def bias_gelu_cast(y: torch.Tensor, b: torch.Tensor,
     """T(gelu_tanh(f32(y) + b)), as `bias_cast`; GELU is GPT-2's tanh
     form in float32. Written into `out` (like y; y itself, or no tensor
     that overlaps it) where given."""
-    if _build.on_cpu(y):
+    if _build.run_plain(y):
         return bias_gelu_cast_plain(y, b, out)
     out = _bias_act("bias_gelu_cast", y, b, 1, out)
     bias_gelu_cast.launches += 1
@@ -250,7 +250,7 @@ def bias_residual_layernorm(x: torch.Tensor, y: torch.Tensor,
     y [rows, width] of T. Written into the pair
     `out` where given (its x' may be x itself, updated in place; its h
     must not overlap x, y or its x'), else into new tensors."""
-    if _build.on_cpu(y):
+    if _build.run_plain(y):
         return bias_residual_layernorm_plain(x, y, b, weight, bias, eps,
                                              out)
     out = _residual_layernorm("bias_residual_layernorm", x, y, b, weight,
@@ -269,7 +269,7 @@ def embed_layernorm(e: torch.Tensor, p: torch.Tensor, weight: torch.Tensor,
     row p [width] (a position's wpe row), and h = T(layernorm(f32(x))),
     as `bias_residual_layernorm`. On the card e and p must both be of
     the compute dtype `dtype`."""
-    if _build.on_cpu(e):
+    if _build.run_plain(e):
         return embed_layernorm_plain(e, p, weight, bias, eps, dtype)
     if e.dtype is not dtype:
         raise ValueError(f"embed_layernorm: e must be {dtype}, got "

@@ -5,10 +5,10 @@
 `lax.top_k`) and the row logsumexp, without the [B, V] logits ever
 reaching device memory on the card.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/lm_head.cu; its note says what bounds it on the H100 and how the
-design answers) with the launch plan `lm_head_plan`; on a CPU tensor it
-runs `lm_head_topk_plain`, the same function in plain PyTorch. The TPU
+The wrapper launches the hand-written kernel (csrc/lm_head.cu; its note
+says what bounds it on the H100 and how the design answers) with the
+launch plan `lm_head_plan`, or where `_build.run_plain` says so
+`lm_head_topk_plain`, the same function in plain PyTorch. The TPU
 kernel's grid-order (`vocab_outer`) and lane-merge (`merge="lanes"`)
 variants give the same output and are not ported.
 """
@@ -111,7 +111,7 @@ def lm_head_topk(hidden: torch.Tensor, wte: torch.Tensor, r: int
     hidden: [B, D] (post-final-norm); wte: [V, D] (GPT-2's tied LM head,
     or an untied `lm_head.weight`), both float32 or both bfloat16. Returns
     (vals [B, r] f32, idx [B, r] int64, lse [B] f32)."""
-    if _build.on_cpu(hidden):
+    if _build.run_plain(hidden):
         return lm_head_topk_plain(hidden, wte, r)
     B, D = hidden.shape
     V, Dw = wte.shape

@@ -13,9 +13,9 @@ and the row-major generated cache [B, L, E, Dl + Dr].
 latent row from the kv_a product (c_kv's RMSNorm, k_pe's rotary
 embedding) and rotates each head's q_pe in place in q.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(csrc/mla_attention.cu, whose note says what bounds K16 and how its
-design answers); on a CPU tensor it runs its plain PyTorch version.
+Each wrapper launches its hand-written kernel (csrc/mla_attention.cu,
+whose note says what bounds K16 and how its design answers), or its
+plain PyTorch version where `_build.run_plain` says so.
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def mla_decode_attention(q_lat: torch.Tensor, q_pe: torch.Tensor,
     contiguous last dimension), lat_new [B, Dl + Dr] (the step's latent,
     rows contiguous), prefix [L, N, K, Dl + Dr] and gen [B, L, E, Dl + Dr]
     (contiguous), all bf16. Returns [H, B, Dl] bf16."""
-    if _build.on_cpu(q_lat):
+    if _build.run_plain(q_lat):
         return mla_decode_attention_plain(q_lat, q_pe, lat_new, prefix, gen,
                                           step, layer,
                                           beams_per_image=beams_per_image,
@@ -167,7 +167,7 @@ def mla_prep(q: torch.Tensor, kv_a: torch.Tensor, norm_w: torch.Tensor,
     [Dr / 2] of the step's position), and each head's rope part (the last
     Dr of its qk_head values) rotated in place in q [B, H qk_head]. Into
     `out` when given (a [B, Dl + Dr] view with contiguous rows)."""
-    if _build.on_cpu(q):
+    if _build.run_plain(q):
         return mla_prep_plain(q, kv_a, norm_w, cos, sin, eps, qk_head, out)
     B, C = kv_a.shape
     if q.dtype != torch.bfloat16 or kv_a.dtype != torch.bfloat16 \

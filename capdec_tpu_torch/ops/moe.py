@@ -15,9 +15,9 @@ stream.
   combine          x[t] += sum_j w[t, j] y[pos[t, j]] (f32)
 
 route, dispatch, swiglu and combine launch the hand-written kernels of
-csrc/moe.cu on a CUDA tensor and run their plain versions on a CPU
-tensor; `expert_products_plain` is the per-expert loop the grouped
-products replace (the CPU's route, and the card's reference path).
+csrc/moe.cu, or their plain versions where `_build.run_plain` says so.
+`expert_products_plain` is the per-expert loop the grouped products
+replace.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def route(logits: torch.Tensor, bias: torch.Tensor, k: int, norm: bool,
     """The router's choice of k experts a token from f32 logits [T, E] and
     the f32 e_score_correction_bias [E]: (expert ids int32 [T, k], their
     weights f32 [T, k])."""
-    if _build.on_cpu(logits):
+    if _build.run_plain(logits):
         return route_plain(logits, bias, k, norm, scaling)
     T, E = logits.shape
     if logits.dtype != torch.float32 or bias.dtype != torch.float32 \
@@ -92,7 +92,7 @@ def dispatch(idx: torch.Tensor, E: int,
     expert's end in the sorted rows; pos int32 [T k], pair (t, j)'s row;
     token_of int32 [T k], each row's token). `counter` int32 [E] (a layer's
     row of the expert_rows counter) takes the counts, added."""
-    if _build.on_cpu(idx):
+    if _build.run_plain(idx):
         return dispatch_plain(idx, E, counter)
     T, k = idx.shape
     if idx.dtype != torch.int32 or not idx.is_contiguous() \
@@ -123,7 +123,7 @@ def swiglu_plain(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def swiglu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """silu(g) * u in f32, in g's dtype: g and u [M, I] views with
     contiguous rows (bf16 on the card)."""
-    if _build.on_cpu(g):
+    if _build.run_plain(g):
         return swiglu_plain(g, u)
     M, I = g.shape
     if g.dtype != torch.bfloat16 or u.dtype != torch.bfloat16 \
@@ -168,9 +168,8 @@ def expert_products(x: torch.Tensor, w_gate_up: torch.Tensor,
     """Every expert's SwiGLU MLP over its rows of x [M, D] (sorted by
     expert, expert e's ending at offs[e]): one grouped gate|up product over
     all experts ([E, 2 I, D] weights), the SwiGLU, one grouped down
-    product ([E, D, I]). `kernels=False` (or a CPU tensor) runs the
-    per-expert loop."""
-    if not kernels or _build.on_cpu(x):
+    product ([E, D, I]). `kernels=False` runs the per-expert loop."""
+    if not kernels or _build.run_plain(x):
         return expert_products_plain(x, w_gate_up, w_down, offs)
     I = w_down.shape[2]
     gu = torch._grouped_mm(x, w_gate_up.transpose(-2, -1), offs=offs)
@@ -193,7 +192,7 @@ def combine(x: torch.Tensor, y: torch.Tensor, pos: torch.Tensor,
             w: torch.Tensor) -> torch.Tensor:
     """x [T, D] f32 += sum_j w[t, j] y[pos[t k + j]] (y [T k, D] the expert
     rows in sorted order, w f32 [T, k]), in place; returns x."""
-    if _build.on_cpu(x):
+    if _build.run_plain(x):
         return combine_plain(x, y, pos, w)
     T, D = x.shape
     k = w.shape[1]

@@ -1,8 +1,8 @@
 """The residual sum and RMSNorm of models/mla_moe.py's blocks in one pass:
 x (f32, the residual stream) += y, or x = y (the step's entry), then
-h = x / sqrt(mean(x^2) + eps) * w in f32, in the compute dtype. On a CUDA
-tensor (bf16 y and h) the hand-written kernel of csrc/rmsnorm.cu; on a
-CPU tensor, its plain version."""
+h = x / sqrt(mean(x^2) + eps) * w in f32, in the compute dtype. The
+hand-written kernel of csrc/rmsnorm.cu (bf16 y and h), or its plain
+version where `_build.run_plain` says so."""
 from __future__ import annotations
 
 from typing import Optional
@@ -35,7 +35,7 @@ def residual_rmsnorm(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, D] f32 += y [B, D] (x = y with `assign`), in place; returns
     h = rmsnorm(x) * w (w f32 [D]) in `dtype`, into `out` when given."""
-    if _build.on_cpu(x):
+    if _build.run_plain(x):
         return residual_rmsnorm_plain(x, y, w, eps, dtype, assign, out)
     B, D = x.shape
     if x.dtype != torch.float32 or y.dtype != torch.bfloat16 \

@@ -4,15 +4,17 @@ checked on the CPU:
   * each plain version is bit-identical to the op chain of gpt2's blocks
     it replaces (`_dense`, `gelu_new`, the residual sum, `_layer_norm`),
     in bf16 and f32, at small widths and ragged row counts;
-  * decode_step through the epilogues (`fused_epilogues`, the default)
-    equals the op chain bit for bit on the CPU on every cache route, with
-    the hidden state and with the logits, and writes the same K/V;
+  * decode_step through the epilogues equals the op chain (`_chain_blocks`,
+    `_block`'s ops in decode_step's place) bit for bit on the CPU on every
+    cache route, with the hidden state and with the logits, and writes the
+    same K/V;
   * the route: the blocks call the epilogues (one entry, then four a
-    block), and not under `fused_epilogues=False`; a tp rank's c_projs
-    keep the chain, its c_attn and c_fc take the epilogues; on the card
-    the blocks launch them at any width of whole 16-byte vectors and raise
-    for a width or dtype the kernels do not take; the beam and greedy
-    engines pass `plain_ops` on as `fused_epilogues=False`;
+    block), which launch outside a `_build.plain_ops` scope and not inside
+    one; a tp rank's c_projs keep the chain, its c_attn and c_fc take the
+    epilogues; on the card the blocks launch them at any width of whole
+    16-byte vectors and raise for a width or dtype the kernels do not
+    take; the beam and greedy engines run decode_step inside the scope
+    exactly under `plain_ops`;
   * the launch plans and their refusals;
   * through a stand-in for the kernel library that records each C entry
     and carries its arithmetic out on the CPU from the pointers it is
@@ -26,6 +28,7 @@ checked on the CPU:
     code raised.
 """
 import ctypes
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -149,14 +152,36 @@ ROUTES = {
 }
 
 
-def _step(cfg, model, prefix, tok, cache, route, **kw):
+def _chain_blocks(t, cdt, token_embed, position, attention):
+    """decode_step's blocks as `_block`'s op chain (`_layer_norm`,
+    `_dense_in`, `_dense_out`, `_block_mlp`), the reference the epilogues
+    are held to: (ln_f's output, the layers' k, their v), as
+    gpt2._decode_blocks returns them."""
+    x = (token_embed + t.wpe.weight[position]).to(cdt)
+    ks, vs = [], []
+    for layer, blk in enumerate(t.h):
+        h = gpt2._layer_norm(x, blk.ln_1)
+        qkv = gpt2._dense_in(h, blk.attn.c_attn, cdt, blk.tp).to(cdt)
+        q, k_new, v_new = qkv.split(qkv.shape[-1] // 3, dim=-1)
+        out = attention(q, k_new, v_new, layer)
+        out = gpt2._dense_out(out.to(cdt), blk.attn.c_proj, cdt, blk.tp)
+        x = gpt2._block_mlp(x + out.to(x.dtype), blk, cdt)
+        ks.append(k_new)
+        vs.append(v_new)
+    return gpt2._layer_norm(x, t.ln_f), ks, vs
+
+
+def _step(cfg, model, prefix, tok, cache, route, chain=False, **kw):
+    """decode_step on `route`; with `chain`, through `_chain_blocks`."""
     knobs = dict(ROUTES[route], **kw)
     if route == "ancestry":
         knobs["anc_rows"] = (torch.arange(N * R)[:, None] // R * R
                              + torch.arange(E)[None, :] % R)
     if route == "v3_int8":
         prefix = gpt2.quantize_prefix_cache(prefix)
-    return gpt2.decode_step(model, cfg, tok, prefix, cache, 5, **knobs)
+    blocks = _chain_blocks if chain else gpt2._decode_blocks
+    with mock.patch.object(gpt2, "_decode_blocks", blocks):
+        return gpt2.decode_step(model, cfg, tok, prefix, cache, 5, **knobs)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -166,7 +191,7 @@ def test_decode_step_equals_the_chain_bit_for_bit(dtype, route):
     c0 = _cache(cfg, gen, route)
     c1 = {k: v.clone() for k, v in c0.items()}
     got = _step(cfg, model, prefix, tok, c0, route)
-    want = _step(cfg, model, prefix, tok, c1, route, fused_epilogues=False)
+    want = _step(cfg, model, prefix, tok, c1, route, chain=True)
     assert got.dtype == dtype and torch.equal(got, want)
     for name in c0:
         assert torch.equal(c0[name], c1[name]), name
@@ -179,7 +204,7 @@ def test_decode_step_logits_equal_the_chain(dtype):
     c1 = {k: v.clone() for k, v in c0.items()}
     got = _step(cfg, model, prefix, tok, c0, "k2", return_hidden=False)
     want = _step(cfg, model, prefix, tok, c1, "k2", return_hidden=False,
-                 fused_epilogues=False)
+                 chain=True)
     assert got.dtype == torch.float32 and got.shape == (N * R,
                                                         cfg.vocab_size)
     assert torch.equal(got, want)
@@ -199,7 +224,7 @@ def test_decode_step_of_an_uncast_model_equals_the_chain(monkeypatch):
     c0 = _cache(cfg, gen, "k2")
     c1 = {k: v.clone() for k, v in c0.items()}
     got = _step(cfg, model, prefix, tok, c0, "k2")
-    want = _step(cfg, model, prefix, tok, c1, "k2", fused_epilogues=False)
+    want = _step(cfg, model, prefix, tok, c1, "k2", chain=True)
     assert torch.equal(got, want)
     lib = _card_route(monkeypatch)
     with pytest.raises(ValueError, match="embed_layernorm"):
@@ -219,20 +244,30 @@ def _counting(monkeypatch):
         def counted(*args, _real=real, _name=name, **kw):
             seen[_name] = seen.get(_name, 0) + 1
             return _real(*args, **kw)
+        counted.launches = 0  # the wrapper counts its launches by name
         monkeypatch.setattr(ep, name, counted)
     return seen
 
 
-@pytest.mark.parametrize("knobs,engaged", [
-    ({}, True), (dict(fused_epilogues=False), False)])
-def test_the_blocks_call_the_epilogues(monkeypatch, knobs, engaged):
+@pytest.mark.parametrize("plain", [False, True])
+def test_the_blocks_call_the_epilogues(monkeypatch, plain):
+    """The blocks call the epilogue wrappers by default and under
+    `_build.plain_ops` alike; only outside the scope do they launch (here
+    into the stand-in library, the attention and slot write plain)."""
     cfg, model, prefix, tok, gen = _setup(torch.bfloat16, n_layer=3)
+    c0 = _cache(cfg, gen, "k2")
+    c1 = {k: v.clone() for k, v in c0.items()}
+    want = _step(cfg, model, prefix, tok, c1, "k2", chain=True)
+    lib = _card_route(monkeypatch)
     seen = _counting(monkeypatch)
-    _step(cfg, model, prefix, tok, _cache(cfg, gen, "k2"), "k2", **knobs)
+    with _build.plain_ops(plain):
+        got = _step(cfg, model, prefix, tok, c0, "k2",
+                    fused_attention=False, chunk_slot_write=False)
     L = cfg.n_layer
-    assert seen == ({"embed_layernorm": 1, "bias_cast": L,
-                     "bias_gelu_cast": L, "bias_residual_layernorm": 2 * L}
-                    if engaged else {})
+    assert seen == {"embed_layernorm": 1, "bias_cast": L,
+                    "bias_gelu_cast": L, "bias_residual_layernorm": 2 * L}
+    assert len(lib.calls) == (0 if plain else 1 + 4 * L)
+    assert torch.equal(got, want)
 
 
 def test_a_tp_rank_keeps_the_chain(monkeypatch):
@@ -259,11 +294,11 @@ def test_a_tp_rank_keeps_the_chain(monkeypatch):
         c1 = {k: v.clone() for k, v in c0.items()}
         want = _step(cfg, model, prefix, tok,
                      {k: v.clone() for k, v in c0.items()}, "k2",
-                     fused_epilogues=False)
+                     chain=True)
         for blk in model.transformer.h:
             blk.tp = OneRank()
         chain = _step(cfg, model, prefix, tok, c1, "k2",
-                      fused_epilogues=False)
+                      chain=True)
         seen.clear()
         got = _step(cfg, model, prefix, tok, c0, "k2")
         L = cfg.n_layer
@@ -288,7 +323,7 @@ def test_the_card_route_takes_gpt2_width_only(monkeypatch):
         c1 = {k: v.clone() for k, v in c0.items()}
         knobs = dict(fused_attention=False, chunk_slot_write=False)
         want = _step(cfg, model, prefix, tok, c1, "k2",
-                     fused_epilogues=False, **knobs)
+                     chain=True, **knobs)
         with monkeypatch.context() as m:
             lib = _card_route(m)
             got = _step(cfg, model, prefix, tok, c0, "k2", **knobs)
@@ -313,7 +348,7 @@ def test_plain_ops_reaches_decode_step(monkeypatch, engine, plain):
     real = gpt2.decode_step
 
     def spy(*args, **kw):
-        got.append(kw["fused_epilogues"])
+        got.append(_build.in_plain_ops())
         return real(*args, **kw)
     monkeypatch.setattr(gpt2, "decode_step", spy)
     embeds = _rand(gen, N, K, cfg.n_embd)
@@ -325,7 +360,8 @@ def test_plain_ops_reaches_decode_step(monkeypatch, engine, plain):
                              extra_stop_token=-1)
         topp.greedy_topp_search(model, cfg, embeds,
                                 tc.plain() if plain else tc)
-    assert got and set(got) == {not plain}
+    assert got and set(got) == {plain}
+    assert not _build.in_plain_ops()
 
 
 @pytest.mark.parametrize("rows,width,itemsize,threads,blocks", [
@@ -424,7 +460,8 @@ class _Library:
 def _card_route(monkeypatch):
     """The wrappers' kernel route on CPU tensors, into a new _Library."""
     lib = _Library()
-    monkeypatch.setattr(_build, "on_cpu", lambda t: False)
+    monkeypatch.setattr(_build, "run_plain",
+                        lambda t: _build.in_plain_ops())
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda device: 0)
     monkeypatch.setattr(_build, "sm_count", lambda device: SMS)
@@ -554,7 +591,7 @@ def test_decode_step_at_gpt2_width_launches_five_a_block(library, dtype):
         [1] + [0] * 2 * cfg.n_layer  # the entry flag
     assert [c[1][6] for c in library.calls
             if c[0] == "capdec_bias_act"] == [0, 1] * cfg.n_layer  # gelu
-    want = _step(cfg, model, prefix, tok, c1, "k2", fused_epilogues=False,
+    want = _step(cfg, model, prefix, tok, c1, "k2", chain=True,
                  **knobs)
     assert torch.equal(got, want)
     for name in c0:

@@ -140,7 +140,7 @@ def _emulate_k4(k, v, src_ptr, B, L, E, count, row_bytes, blocks, stream):
 def library(monkeypatch):
     """The wrapper's kernel route on CPU tensors, into a _Library."""
     lib = _Library()
-    monkeypatch.setattr(_build, "on_cpu", lambda t: False)
+    monkeypatch.setattr(_build, "run_plain", lambda t: False)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda device: 0)
     return lib

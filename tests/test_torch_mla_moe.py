@@ -16,8 +16,10 @@ by a tenth or more.
 Also the decoder's interface (models/decoders.py): GPT-2's beam search
 issues the same sequence of operations as before it (2373 ATen ops at a
 tiny size, counted on the parent tree of this interface); the paths the
-MLA-MoE decoder does not take raise; and the plans of K16, K1 at D 2048
-and K3/K4 on a cache of one tensor.
+MLA-MoE decoder does not take raise; `plain_ops` reaches the prefill and
+the steps (with the tensors counted as on the card, a bf16 beam search
+under it launches nothing); and the plans of K16, K1 at D 2048 and K3/K4
+on a cache of one tensor.
 """
 import hashlib
 import sys
@@ -36,8 +38,9 @@ from benchmark.reference import mla_moe as ref  # noqa: E402
 from capdec_tpu_torch import serve as serve_lib  # noqa: E402
 from capdec_tpu_torch.decode import beam, topp  # noqa: E402
 from capdec_tpu_torch.models import caption_model, decoders, gpt2, mla_moe  # noqa: E402
+from capdec_tpu_torch.ops import _build  # noqa: E402
 from capdec_tpu_torch.ops import cache_reorder as cr  # noqa: E402
-from capdec_tpu_torch.ops import lm_head, mla_attention as ma, moe  # noqa: E402
+from capdec_tpu_torch.ops import lm_head, mla_attention as ma, moe, rmsnorm  # noqa: E402
 
 TEXT = dict(vocab_size=256, hidden_size=64, intermediate_size=96,
             moe_intermediate_size=32, num_hidden_layers=3,
@@ -63,9 +66,9 @@ TOL = 2e-5
 CPU = torch.device("cpu")
 
 
-def _setup(seed):
+def _setup(seed, precision="f32"):
     sd = weights.state_dict(CFG, seed, CPU)
-    mcfg = dec.model_config(MODEL, "f32")
+    mcfg = dec.model_config(MODEL, precision)
     model = dec.load_model(sd, mcfg, CPU)
     emb = torch.randn(3, 24, generator=torch.Generator().manual_seed(seed))
     return sd, mcfg, model, emb
@@ -197,6 +200,105 @@ def test_beam_search_gives_the_reference_beams(seed):
     caps, best = ref.beam_search(sd, MODEL, emb, 3, 6, 5)
     assert [top[i, :int(lens[i])].tolist() for i in range(3)] == caps
     _close(sc.gather(1, order[:, :1])[:, 0], best)
+
+
+class _Launched(Exception):
+    """The stand-in library's refusal of a launch."""
+
+
+class _Refusing:
+    """Stands in for the kernel library: records each C entry called,
+    with the phase of the search it was called in, and refuses it."""
+
+    def __init__(self, phase):
+        self.calls, self.phase = [], phase
+
+    def __getattr__(self, name):
+        if not name.startswith("capdec_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((self.phase[-1], name))
+            raise _Launched(name)
+        return entry
+
+
+def test_plain_ops_reaches_the_prefill_and_the_steps(monkeypatch):
+    """Every tensor counted as on the card (the predicate patched, the
+    library a stand-in that refuses launches), a bf16 beam search with
+    `bc.plain()` launches nothing in the prefill or the steps and gives
+    the beams of the CPU's plain run, while `bc` launches in the prefill,
+    and with the prefill run plain, in the first step."""
+    _, mcfg, model, emb = _setup(0, "bf16")
+    c = mcfg.mla_moe
+    prefix = _prefix(model, mcfg, emb)
+    bc = beam.BeamConfig(beam_size=3, entry_length=6, stop_token=5)
+    want = beam.beam_search(model.gpt, c, prefix, bc)
+    phase = ["steps"]
+    real = mla_moe.prefill
+
+    def prefill(*args, **kw):
+        phase.append("prefill")
+        try:
+            return real(*args, **kw)
+        finally:
+            phase.append("steps")
+    lib = _Refusing(phase)
+    monkeypatch.setattr(mla_moe, "prefill", prefill)
+    monkeypatch.setattr(_build, "run_plain", lambda t: _build.in_plain_ops())
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    got = beam.beam_search(model.gpt, c, prefix, bc.plain())
+    assert lib.calls == [] and not _build.in_plain_ops()
+    for name, a, b in zip(("tokens", "lengths", "scores", "order"), got,
+                          want):
+        assert torch.equal(a, b), name
+    with pytest.raises(_Launched):
+        beam.beam_search(model.gpt, c, prefix, bc)
+    assert lib.calls == [("prefill", "capdec_residual_rmsnorm")]
+
+    def plain_prefill(*args, **kw):
+        with _build.plain_ops():
+            return prefill(*args, **kw)
+    monkeypatch.setattr(mla_moe, "prefill", plain_prefill)
+    with pytest.raises(_Launched):
+        beam.beam_search(model.gpt, c, prefix, bc)
+    assert lib.calls[1:] == [("steps", "capdec_residual_rmsnorm")]
+
+
+def _glue_call(op, dt):
+    """A call of one of the decoder's glue wrappers on operands of dtype dt
+    (the residual stream and the router weights f32 as served)."""
+    x, w = torch.zeros(4, 16), torch.ones(16)
+    y = torch.zeros(4, 16, dtype=dt)
+    if op == "residual_rmsnorm":
+        return lambda: rmsnorm.residual_rmsnorm(x, y, w, 1e-6, dt)
+    if op == "swiglu":
+        return lambda: moe.swiglu(y, y.clone())
+    pos = torch.arange(8, dtype=torch.int32)
+    return lambda: moe.combine(x, y.repeat(2, 1), pos, torch.ones(4, 2))
+
+
+@pytest.mark.parametrize("op", ["residual_rmsnorm", "swiglu", "combine"])
+def test_a_glue_wrapper_on_the_card_launches_bf16_and_refuses_f32(
+        monkeypatch, op):
+    """Counted as on the card, the norm's, SwiGLU's and combine's wrappers
+    launch their kernels on bf16 operands and raise on f32 ones, which
+    their kernels do not take, rather than run their plain versions."""
+    lib = _Refusing(["card"])
+    monkeypatch.setattr(_build, "run_plain", lambda t: _build.in_plain_ops())
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    with pytest.raises(_Launched):
+        _glue_call(op, torch.bfloat16)()
+    with pytest.raises(ValueError, match="bf16"):
+        _glue_call(op, torch.float32)()
+    assert len(lib.calls) == 1
+    with _build.plain_ops():
+        _glue_call(op, torch.float32)()
+    assert len(lib.calls) == 1
 
 
 class _Ids:

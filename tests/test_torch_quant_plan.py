@@ -74,7 +74,7 @@ class _Library:
 def library(monkeypatch):
     """The wrapper's kernel route on CPU tensors, into a _Library."""
     lib = _Library()
-    monkeypatch.setattr(_build, "on_cpu", lambda t: False)
+    monkeypatch.setattr(_build, "run_plain", lambda t: False)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda device: 0)
     return lib

@@ -142,7 +142,7 @@ def _emulate_k3(k, v, src, L, B, E, step, row_bytes, warps, words, blocks,
 def library(monkeypatch):
     """The wrappers' kernel route on CPU tensors, into a _Library."""
     lib = _Library()
-    monkeypatch.setattr(_build, "on_cpu", lambda t: False)
+    monkeypatch.setattr(_build, "run_plain", lambda t: False)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda device: 0)
     monkeypatch.setattr(_build, "sm_count", lambda device: SMS)
