@@ -24,9 +24,12 @@ from . import _build
 # The launch plan of csrc/lm_head.cu.
 TILE_M = 64        # rows of h a warpgroup multiplies (wgmma's M)
 TILE_K = 64        # depth of a slice: one 128-byte swizzled row of bf16
-# vocab entries a block holds, the widest that fits: 128 up to D 832, 64 up
-# to D 1664, 48 beyond (D 2048: a weight tile of 64 needs 256 KB)
-WGMMA_TILE_N = (128, 64, 48)
+# vocab entries a block holds whole, up to D 832
+WGMMA_TILE_N = 128
+# beyond, the streamed kernel: output tiles of 128 rows x 256 vocab
+# entries, both operands streamed over D through a ring of stages of
+# [128, 64] + [256, 64] bf16
+STREAMED_TILE_M, STREAMED_TILE_N = 128, 256
 WGMMA_THREADS = 384  # two consumer warpgroups and a producer one
 MAX_STAGES = 8     # h slices in the ring
 CONSUMERS = 2      # consumer warpgroups (an mbarrier each)
@@ -45,22 +48,35 @@ def _wgmma_smem(ks: int, tile_n: int, stages: int) -> int:
             + (2 * ks + 2 * stages + CONSUMERS) * 8)
 
 
+def _streamed_smem(stages: int) -> int:
+    """Bytes of dynamic shared memory of the streamed kernel: the
+    `streamed_smem` of csrc/lm_head.cu (1 KB of alignment, the ring of h
+    and weight slices, a full and an empty mbarrier a stage)."""
+    return (1024 + stages * (STREAMED_TILE_M + STREAMED_TILE_N) * TILE_K * 2
+            + 2 * stages * 8)
+
+
 @functools.lru_cache(maxsize=256)
 def lm_head_plan(B: int, V: int, D: int, R: int, itemsize: int,
                  sms: int = H100_SMS) -> dict:
     """The launch of csrc/lm_head.cu for hidden [B, D] and weights [V, D]
     of `itemsize` bytes on a card of `sms` SMs.
 
-    bf16 (itemsize 2): `blocks` = min(partials, sms) persistent blocks
+    bf16 (itemsize 2), where a weight tile of WGMMA_TILE_N entries fits
+    a block (D <= 832): `blocks` = min(partials, sms) persistent blocks
     of `threads` (the launch `grid`, x first), block b holding vocab
     tiles b, b + blocks, ... of `tile_n` entries whole (ceil(D / tile_k)
     slices) in `smem` bytes while every 64-row tile of h passes through a
-    ring of `stages` slices; tile_n is the widest of WGMMA_TILE_N that
-    fits, the ring the deepest (up to MAX_STAGES). f32 (itemsize 4): the
-    FMA kernel, a grid of (row tiles of 64, `blocks` vocab chunks of 128). Either writes one partial (max, sum-exp, top-R) per (row, vocab
-    tile): `partials` = ceil(V / tile_n), which the second pass merges.
-    `r_max` is the largest R the plan takes. Raises if R is out of range
-    or the weight tile does not fit a block."""
+    ring of `stages` slices, the deepest that fits (up to MAX_STAGES).
+    Wider, route "streamed": `blocks` = min(tiles, sms) persistent
+    blocks walk the output tiles of `tile_m` rows x `tile_n` entries (the
+    row tiles innermost), both operands streamed over D through a ring of
+    `stages`, the deepest that fits. f32 (itemsize 4): the FMA kernel, a
+    grid of (row tiles of 64, `blocks` vocab chunks of 128). Each writes
+    one partial (max, sum-exp, top-R) per (row, vocab tile): `partials` =
+    ceil(V / tile_n), which the second pass merges.
+    `r_max` is the largest R the plan takes. Raises if R is out of
+    range."""
     if itemsize == 4:
         parts = -(-V // FMA_TILE_N)
         plan = dict(route="fma", tile_m=TILE_M, tile_n=FMA_TILE_N,
@@ -69,20 +85,27 @@ def lm_head_plan(B: int, V: int, D: int, R: int, itemsize: int,
                     smem=FMA_SMEM, partials=parts)
     else:
         ks = -(-D // TILE_K)
-        fits = [(tile_n, stages) for tile_n in WGMMA_TILE_N
-                for stages in range(MAX_STAGES, 1, -1)
-                if _wgmma_smem(ks, tile_n, stages) <= SMEM_MAX]
-        if not fits:
-            raise ValueError(f"lm_head_topk: a {WGMMA_TILE_N[-1]}-entry "
-                             f"weight tile of D={D} does not fit one "
-                             f"block's {SMEM_MAX} bytes")
-        tile_n, stages = fits[0]
-        parts = -(-V // tile_n)
-        blocks = min(parts, sms)
-        plan = dict(route="wgmma", tile_m=TILE_M, tile_n=tile_n,
-                    tile_k=TILE_K, stages=stages, threads=WGMMA_THREADS,
-                    grid=(blocks, 1), blocks=blocks,
-                    smem=_wgmma_smem(ks, tile_n, stages), partials=parts)
+        fits = [stages for stages in range(MAX_STAGES, 1, -1)
+                if _wgmma_smem(ks, WGMMA_TILE_N, stages) <= SMEM_MAX]
+        if fits:
+            stages = fits[0]
+            parts = -(-V // WGMMA_TILE_N)
+            blocks = min(parts, sms)
+            plan = dict(route="wgmma", tile_m=TILE_M, tile_n=WGMMA_TILE_N,
+                        tile_k=TILE_K, stages=stages, threads=WGMMA_THREADS,
+                        grid=(blocks, 1), blocks=blocks,
+                        smem=_wgmma_smem(ks, WGMMA_TILE_N, stages),
+                        partials=parts)
+        else:
+            stages = max(n for n in range(2, MAX_STAGES + 1)
+                         if _streamed_smem(n) <= SMEM_MAX)
+            parts = -(-V // STREAMED_TILE_N)
+            blocks = min(-(-B // STREAMED_TILE_M) * parts, sms)
+            plan = dict(route="streamed", tile_m=STREAMED_TILE_M,
+                        tile_n=STREAMED_TILE_N, tile_k=TILE_K, stages=stages,
+                        threads=WGMMA_THREADS, grid=(blocks, 1),
+                        blocks=blocks, smem=_streamed_smem(stages),
+                        partials=parts)
     plan["r_max"] = min(V, plan["tile_n"])
     if not 0 < R <= plan["r_max"]:
         raise ValueError(f"r={R} out of range for V={V}: 1..{plan['r_max']}")
@@ -145,7 +168,10 @@ def lm_head_topk(hidden: torch.Tensor, wte: torch.Tensor, r: int
         plan["tile_n"], plan["stages"], plan["threads"], plan["blocks"],
         plan["smem"], code, _build.stream(dev)), "lm_head_topk")
     lm_head_topk.launches += 1
+    if plan["route"] == "streamed":
+        lm_head_topk.streamed_launches += 1
     return vals, idx, lse
 
 
 lm_head_topk.launches = 0
+lm_head_topk.streamed_launches = 0  # the calls that took the streamed kernel

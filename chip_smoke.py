@@ -433,10 +433,11 @@ def quant_write_instance(mangled: str) -> str:
 
 
 def lm_head_instance(mangled: str) -> str:
-    """'lm_head_wgmma<128>', 'lm_head_merge', 'lm_head_pass1<bf16>', ...
-    for a mangled kernel name of csrc/lm_head.cu."""
-    m = re.search(r"\d(lm_head_[a-z0-9]+)(ILi(\d+)E|I13__nv_bfloat16E|IfE)?",
-                  mangled)
+    """'lm_head_wgmma<128>', 'lm_head_wgmma_streamed', 'lm_head_merge',
+    'lm_head_pass1<bf16>', ... for a mangled kernel name of
+    csrc/lm_head.cu."""
+    m = re.search(r"\d(lm_head_[a-z0-9_]+?)(ILi(\d+)E|I13__nv_bfloat16E|IfE)?"
+                  r"E", mangled)
     arg = {None: "", "I13__nv_bfloat16E": "<bf16>", "IfE": "<f32>"}.get(
         m.group(2), f"<{m.group(3)}>")
     return m.group(1) + arg
@@ -497,8 +498,12 @@ def check_lm_head(gen, ptxas):
     "greedy_r1"), each with its own bound; its instances must build
     without spills (no one PyTorch call computes K1: `library_ms` is
     null)."""
+    from capdec_tpu_torch.ops import lm_head
+    n0 = lm_head.lm_head_topk.streamed_launches
     out = lm_head_times(gen, {"beam": (MAIN["N"] * MAIN["R"], MAIN["R"]),
                               "greedy_r1": (MAIN["N"], 1)})
+    require(lm_head.lm_head_topk.streamed_launches == n0,
+            f"K1 at D {MAIN['D']} took the streamed kernel")
     k1 = {lm_head_instance(name): rep for name, rep in ptxas.items()
           if "lm_head_" in name}
     require(not ptxas or "lm_head_wgmma<128>" in k1,
@@ -2079,6 +2084,9 @@ def mla_moe_path(gen) -> dict:
     embeds = np.random.RandomState(SEED).randn(
         MLA["N"], MLA["prefix_size"]).astype(np.float32)
     out = serve_path(server, embeds, MLA_PATH)
+    require(out["streamed_launches"] == out["launches"]["lm_head_topk"],
+            f"K1 at D {MLA['D']}: {out['streamed_launches']} of "
+            f"{out['launches']['lm_head_topk']} calls streamed")
     rows = np.asarray(server.stats["expert_rows"])
     steps = server.stats["decode_steps"]
     require(rows.shape == (1, MLA["experts"]) and int(rows.sum()) == steps
@@ -2105,9 +2113,14 @@ def check_mla_moe(gen, ptxas) -> tuple:
     rows = [check_mla_attention(gen), *check_mla_glue(gen),
             check_expert_products(gen)]
     torch.cuda.empty_cache()
+    from capdec_tpu_torch.ops import lm_head
+    n0 = lm_head.lm_head_topk.streamed_launches
     k1 = lm_head_times(gen, {"d2048": (MLA["N"] * MLA["R"], MLA["R"])},
                        V=MLA["V"], D=MLA["D"])["d2048"]
-    require(k1["plan"]["tile_n"] == 48, f"K1 at D 2048: plan {k1['plan']}")
+    k1["streamed_launches"] = lm_head.lm_head_topk.streamed_launches - n0
+    require(k1["plan"]["route"] == "streamed" and k1["streamed_launches"] > 0,
+            f"K1 at D 2048: plan {k1['plan']}, "
+            f"{k1['streamed_launches']} streamed launches")
     torch.cuda.empty_cache()
     latent = latent_cache_times(gen)
     torch.cuda.empty_cache()
@@ -2262,8 +2275,9 @@ def launch_sites() -> dict:
 def zero_counters() -> None:
     for fn in counters().values():
         fn.launches = 0
-        if hasattr(fn, "widened_launches"):
-            fn.widened_launches = 0
+        for extra in ("widened_launches", "streamed_launches"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
 
 
 def widened_launches() -> int:
@@ -2308,6 +2322,7 @@ def serve_path(server, embeds, path, keep_captions=False):
                 latency_p95_s=pct["p95"], latency_p99_s=pct["p99"],
                 batches=server.stats["batches"], launches=launches,
                 widened_launches=widened_launches(),
+                streamed_launches=counters()["lm_head_topk"].streamed_launches,
                 **({"captions": got} if keep_captions else {}))
 
 
@@ -4082,6 +4097,8 @@ def main() -> int:
         require(served[phase]["widened_launches"] == 0,
                 f"{phase}: the attention at K {MAIN['K']} ran a widened "
                 f"plan")
+        require(served[phase]["streamed_launches"] == 0,
+                f"{phase}: K1 at D {MAIN['D']} took the streamed kernel")
         if phase == "greedy_k13_path":  # K13's path: one launch a step
             n = served[phase]["launches"]
             require(n["write_gen_slot_chunk_seqmajor"] == n["lm_head_topk"],

@@ -411,13 +411,14 @@ def test_kernel_plans_for_the_latent_and_d2048():
     assert cr.slot_write_plan(12, 2560, 768, 2, 132) == \
         cr.slot_write_plan(12, 2560, 768, 2, 132, parts=2)
     p = lm_head.lm_head_plan(2560, 163840, 2048, 5, 2)
-    assert (p["route"], p["tile_n"], p["stages"], p["smem"],
-            p["blocks"]) == ("wgmma", 48, 4, 230992, 132)
-    # every plan accepted before tile_n 48 is unchanged: 128 entries and
-    # the deepest ring up to D 832, then 64
-    for D in range(8, 1665, 8):
+    assert (p["route"], p["tile_n"], p["stages"], p["smem"], p["blocks"],
+            p["partials"]) == ("streamed", 256, 4, 197696, 132, 640)
+    # a 128-entry weight tile and the deepest ring up to D 832, then the
+    # streamed kernel
+    for D in range(8, 2049, 8):
         q = lm_head.lm_head_plan(2560, 163840, D, 5, 2)
-        assert q["tile_n"] == (128 if D <= 832 else 64)
+        assert (q["route"], q["tile_n"]) == (
+            ("wgmma", 128) if D <= 832 else ("streamed", 256))
     # K16: a block a beam row, the slots in chunks of 32 through two
     # buffers, 96960 bytes of shared memory: two blocks an SM
     k16 = ma.mla_attention_plan(2560, 5, 40, 66)

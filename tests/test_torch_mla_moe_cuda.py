@@ -22,9 +22,11 @@ output):
   * combine: within 1e-5 of the scale (the sum's order).
   * the grouped products against the per-expert loop: within 1 % of the
     scale (both products sum in f32 and round to bf16, in other tilings).
-  * K1 at D 2048: the top-R values and the logsumexp within 1e-4 of the
-    plain f32 values' scale, the indices equal wherever the plain values
-    are apart by more than that.
+  * K1 at D 2048 (the streamed route): the top-R values and the
+    logsumexp within 1e-4 of the plain f32 values' scale, the indices
+    equal wherever the plain values are apart by more than that; on
+    operands whose sums are exact in f32 (the planted ties), the indices
+    equal and the values within 2e-3, as at D 768.
   * K3/K4 on the latent cache: bit-exact (they move bytes).
 """
 import pytest
@@ -170,13 +172,28 @@ def test_grouped_products_match_loop(dev):
     within(got, want, 0.01)
 
 
-@pytest.mark.parametrize("B", [2560, 5])
-def test_k1_d2048_matches_plain(dev, B):
-    V, D, R = 163840, 2048, 5
+KIMI_V = 163840
+
+
+@pytest.mark.parametrize("B,V,R", [(2560, KIMI_V, 5), (5, KIMI_V, 5),
+                                   (5, KIMI_V - 37, 1), (5, KIMI_V - 37, 5),
+                                   (513, KIMI_V - 37, 1),
+                                   (513, KIMI_V - 37, 5)])
+def test_k1_d2048_matches_plain(dev, B, V, R):
+    """The streamed route (128 x 256 output tiles) at the cell's shape and
+    at ragged rows (a 5-row tile, 513 = 4 x 128 + 1) and vocabularies (the
+    last 256-entry tile 219 entries): one launch a call, counted as
+    streamed."""
+    D = 2048
     h = bf((B, D), dev, 1.0, 1)
     w = bf((V, D), dev, 0.03, 2)
-    assert lm_head.lm_head_plan(B, V, D, R, 2)["tile_n"] == 48
+    plan = lm_head.lm_head_plan(B, V, D, R, 2)
+    assert plan["route"] == "streamed" and plan["partials"] == -(-V // 256)
+    n0 = lm_head.lm_head_topk.launches
+    s0 = lm_head.lm_head_topk.streamed_launches
     vals, idx, lse = lm_head.lm_head_topk(h, w, R)
+    assert lm_head.lm_head_topk.launches == n0 + 1
+    assert lm_head.lm_head_topk.streamed_launches == s0 + 1
     pv, pi, pl = lm_head.lm_head_topk_plain(h, w, R)
     torch.cuda.synchronize()
     tol = 1e-4 * pv.abs().max().item()
@@ -186,6 +203,60 @@ def test_k1_d2048_matches_plain(dev, B):
     apart[:, 1:] &= (pv[:, :-1] - pv[:, 1:]) > tol
     apart[:, :-1] &= (pv[:, :-1] - pv[:, 1:]) > tol
     assert torch.equal(idx[apart], pi[apart])
+
+
+def _planted_d2048(V):
+    """Entries within the first vocab tile that the epilogue's pairs,
+    lane trees and quads order (16 and 17 one lane's pair, 18 the next
+    lane's, 24 the first lane's next pair), at the edges of the streamed
+    route's 256-entry vocab tiles (at B 2560 block b of 132 takes tiles
+    b, b + 132, ... of the order vocab tile x 20 row tiles, so vocab tile
+    6 is shared by blocks 120-131 and 0-7), and the last entry of the
+    ragged last tile."""
+    edges = (16, 17, 18, 24, 255, 256, 511, 512, 6 * 256 - 1, 6 * 256,
+             7 * 256 - 1, 7 * 256, V - 1)
+    return sorted({e for e in edges if e < V})
+
+
+@pytest.mark.parametrize("B,R", [(2560, 5), (5, 1), (513, 5)])
+@pytest.mark.parametrize("first", [0, 3])
+def test_k1_d2048_ties_across_tile_edges(dev, B, R, first):
+    """Duplicated rows of w give exactly equal logits (h >= 0 on a coarse
+    grid, every sum exact in f32, largest on each copy of the row of 0.5s)
+    within a tile and at the vocab tile edges; the lowest indices win, in
+    order, as in the plain version. `first` drops the first planted
+    copies."""
+    V, D = KIMI_V - 37, 2048
+    g = torch.Generator(device=dev).manual_seed(7)
+    h = (torch.randint(0, 5, (B, D), generator=g, device=dev) / 4).to(
+        torch.bfloat16)
+    w = (torch.randint(-4, 5, (V, D), generator=g, device=dev) / 8).to(
+        torch.bfloat16)
+    planted = _planted_d2048(V)[first:]
+    w[planted] = 0.5
+    kv, ki, kl = lm_head.lm_head_topk(h, w, R)
+    pv, pi, pl = lm_head.lm_head_topk_plain(h, w, R)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    n = min(R, len(planted))
+    assert torch.equal(ki[:, :n].cpu(), torch.tensor(planted[:n]).expand(B, n))
+    torch.testing.assert_close(kv, pv, atol=2e-3, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=2e-3, rtol=0)
+    ties = lm_head.lm_head_topk(torch.zeros_like(h), torch.ones_like(w), R)[1]
+    assert torch.equal(ties.cpu(), torch.arange(R).expand(B, R))
+
+
+def test_k1_d768_is_not_streamed(dev):
+    """GPT-2's width keeps the weight-stationary kernel: the launch counts,
+    the streamed count does not move."""
+    h = bf((320, 768), dev, 1.0, 1)
+    w = bf((50257, 768), dev, 0.03, 2)
+    n0 = lm_head.lm_head_topk.launches
+    s0 = lm_head.lm_head_topk.streamed_launches
+    lm_head.lm_head_topk(h, w, 5)
+    torch.cuda.synchronize()
+    assert lm_head.lm_head_topk.launches == n0 + 1
+    assert lm_head.lm_head_topk.streamed_launches == s0
 
 
 @pytest.mark.parametrize("B,step", [(2560, 33), (5, 66)])
